@@ -1,0 +1,957 @@
+"""Whole-frame BDPT program: kernel K1 and its plain PyTorch version.
+
+Port of `fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py`: the
+reference's per-pixel program (BDPTMain.rt.hlsl:42-234 plus the G-buffer
+primary hit of lightProbeGBuffer.rt.hlsl) in one launch: primary ray and
+20 G-buffer rows, camera and light subpaths, estimator-1 NEE, estimator-3
+(s,t) connections with uniform / power / balance weights, estimator-2
+light-tracing splat rows, thin lens.
+
+K1 replaces the TPU kernel `accel/pallas_frame.py:frame_kernel`.  Its CUDA
+source is `csrc/frame.cu` (one thread per pixel; see the note there).
+`frame_plain` below is the same program vectorised over [N] pixel tensors,
+a literal translation of the JAX kernel; closest hit is an [N, T]
+Baldwin-Weber test where the lowest triangle index wins at equal t.
+`frame_kernel` is the wrapper: it runs `frame_plain` for CPU tensors and
+launches K1 for CUDA tensors.
+
+The sampler helpers the JAX kernel imports from `accel/pallas_subpath.py`
+(`_sample_brdf_tiles`, `_perpendicular`, `_normalize3`, `_next_rand`) are
+`sample_brdf` here and the core/ helpers it uses.
+
+Scope (`supports_megakernel`): untextured, 1x1 env map, no alpha,
+at most 2048 triangles, 1 <= max_depth <= 8.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import cuda
+from ..core.rng import next_rand, tea_init
+from ..core.samplers import cos_hemisphere3, unit_sphere3
+from ..core.vecmath import (
+    M_1_PI,
+    M_PI,
+    add3,
+    dot3,
+    neg3,
+    normalize3,
+    normed,
+    perpendicular3,
+    scale3,
+    sub3,
+    where3,
+)
+from ..ops.splat_tile import pack_rgb8e
+from ..scene.types import LIGHT_DIRECTIONAL, SHADING_METAL_ROUGH
+
+_BIG = 1e30
+N_GBUF_ROWS = 20
+MAX_TRIS = 2048
+MAX_DEPTH = 8
+_WEIGHTS = {"uniform": 0, "power": 1, "balance": 2}
+
+# scalar-row layout (the JAX kernel's scal_ref)
+_C_POS, _C_U, _C_V, _C_W, _C_N = 0, 3, 6, 9, 12
+_C_IU2, _C_IV2, _C_IW2, _C_JX, _C_JY = 15, 16, 17, 18, 19
+_C_ENV, _C_LCNT, _C_LENSR, _C_FOCAL, _C_UN, _C_VN = 20, 23, 24, 25, 26, 29
+NSCAL = 32
+
+# light-row layout (scene.lights.light_rows)
+_L_POS, _L_DIR, _L_INT, _L_TYPE, _L_COSO, _L_OPEN, _L_PEN = 0, 3, 6, 9, 10, 11, 12
+NLROW = 13
+
+
+@dataclass(frozen=True)
+class FrameArgs:
+    """Everything of one frame launch but the two tables."""
+
+    scal: tuple              # NSCAL float32 values (layout above)
+    bdpt_frame: int          # uint32 BDPT seed frame id
+    gbuf_frame: int          # uint32 G-buffer seed frame id (thin lens)
+    light_count: int
+    n_tris: int
+    width: int
+    height: int
+    d_max: int
+    mat_model: int           # 0 GGX, 1 Lambertian
+    faithful_rng: bool
+    reference_quirks: bool
+    min_t: float
+    clamp_upper: float
+    enable_e1: bool
+    enable_e2: bool
+    enable_e3: bool
+    connection_weight: str   # 'uniform' | 'power' | 'balance'
+    use_thin_lens: bool
+    splat_rgb8e: bool        # pack est-2 splats to rgb8e in the kernel
+
+    @property
+    def n_pix(self) -> int:
+        return self.width * self.height
+
+    @property
+    def n_splat_depths(self) -> int:
+        return self.d_max if self.enable_e2 else 0
+
+
+@dataclass(frozen=True)
+class FrameOut:
+    """Per-pixel kernel outputs, field-major ([rows, N], N = W*H)."""
+
+    res: torch.Tensor        # [4, N] own-pixel rgba
+    gbuf: torch.Tensor       # [20, N] pos3 valid normal3 dist dif3 opacity
+    #                          spec3 lrough ior emissive3
+    splat_pix: torch.Tensor  # [D, N] int32 splat target pixel, n_pix = dead
+    splat_pay: torch.Tensor | None   # [D, N] int32 rgb8e payload
+    splat_rgba: torch.Tensor | None  # [D, 4, N] float32 r, g, b, live
+
+
+def e3_pair_list(d_max: int, enable_e3: bool):
+    """The (totalLength, s, t) connection pairs in BDPTMain.rt.hlsl:212-233
+    loop order."""
+    pairs = []
+    for total_len in range(2, (d_max + 1) if enable_e3 else 0):
+        for sx in range(1, d_max):
+            tx = total_len - sx
+            if 0 <= tx <= d_max:
+                pairs.append((total_len, sx, tx))
+    return tuple(pairs)
+
+
+def supports_megakernel(baked, cfg, max_tris: int = MAX_TRIS) -> bool:
+    """Static scope gate (JAX `supports_megakernel`, untextured branch)."""
+    return (
+        baked.n_tris <= max_tris
+        and tuple(baked.data.env_map.shape[:2]) == (1, 1)
+        and tuple(baked.data.textures.data.shape[:2]) == (1, 1)
+        and 1 <= cfg.bdpt.max_depth <= MAX_DEPTH
+    )
+
+
+# ------------------------------------------------------------ tile helpers
+def _saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _luminance3(c):
+    return 0.2126 * c[0] + 0.7152 * c[1] + 0.0722 * c[2]
+
+
+def _nan_guard3(c):
+    bad = torch.isnan(c[0]) | torch.isnan(c[1]) | torch.isnan(c[2])
+    return tuple(torch.where(bad, torch.zeros_like(x), x) for x in c)
+
+
+def _clamp3(c, upper):
+    return tuple(torch.clamp(x, 0.0, upper) for x in c)
+
+
+def _acos_approx(x):
+    """acos by the Hastings polynomial the JAX kernel uses (|err| < 7e-5)."""
+    ax = x.abs()
+    p = torch.sqrt(torch.clamp(1.0 - ax, min=0.0)) * (
+        1.5707288 + ax * (-0.2121144 + ax * (0.0742610 + ax * -0.0187293)))
+    return torch.where(x >= 0.0, p, M_PI - p)
+
+
+def sample_brdf(seed, n, v, dif, spec, rough, mat_model: int):
+    """sampleBRDF per lane (`pallas_subpath._sample_brdf_tiles`).
+    Returns (seed, weight3, l3, pdf, is_spec, below)."""
+    nx, ny, nz = n
+    vx, vy, vz = v
+    if mat_model == 0:  # the lobe pick is GGX-only
+        seed, u_lobe = next_rand(seed)
+    seed, su0 = next_rand(seed)
+    seed, su1 = next_rand(seed)
+    bx, by, bz = normalize3(*perpendicular3(nx, ny, nz))
+    tx = by * nz - bz * ny
+    ty = bz * nx - bx * nz
+    tz = bx * ny - by * nx
+    r_ = torch.sqrt(su0)
+    phi = 2.0 * M_PI * su1
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    zc = torch.sqrt(torch.clamp(1.0 - su0, min=0.0))
+    ldx = tx * (r_ * cphi) + bx * (r_ * sphi) + nx * zc
+    ldy = ty * (r_ * cphi) + by * (r_ * sphi) + ny * zc
+    ldz = tz * (r_ * cphi) + bz * (r_ * sphi) + nz * zc
+    if mat_model != 0:  # Lambertian
+        ndl = _saturate(nx * ldx + ny * ldy + nz * ldz)
+        zeros = torch.zeros_like(ndl, dtype=torch.bool)
+        return seed, dif, (ldx, ldy, ldz), ndl * M_1_PI, zeros, zeros
+
+    lum_d = torch.clamp(_luminance3(dif), min=0.01)
+    lum_s = torch.clamp(_luminance3(spec), min=0.01)
+    prob_diff = lum_d / (lum_d + lum_s)
+    choose_diff = u_lobe < prob_diff
+    a2 = rough * rough
+    cos_th = torch.sqrt(torch.clamp(
+        (1.0 - su0) / ((a2 - 1.0) * su0 + 1.0), min=0.0))
+    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+    phi_h = su1 * M_PI * 2.0
+    cph, sph = torch.cos(phi_h), torch.sin(phi_h)
+    hx = tx * (sin_th * cph) + bx * (sin_th * sph) + nx * cos_th
+    hy = ty * (sin_th * cph) + by * (sin_th * sph) + ny * cos_th
+    hz = tz * (sin_th * cph) + bz * (sin_th * sph) + nz * cos_th
+    vdh = vx * hx + vy * hy + vz * hz
+    sdx, sdy, sdz = normalize3(2.0 * vdh * hx - vx, 2.0 * vdh * hy - vy,
+                               2.0 * vdh * hz - vz)
+    lx = torch.where(choose_diff, ldx, sdx)
+    ly = torch.where(choose_diff, ldy, sdy)
+    lz = torch.where(choose_diff, ldz, sdz)
+    ndl_any = nx * lx + ny * ly + nz * lz
+    below = ndl_any <= 0.0
+    ndl = _saturate(ndl_any)
+    ndv_c = _saturate(nx * vx + ny * vy + nz * vz)
+    pdf_diff = ndl * M_1_PI * prob_diff
+    ndh = _saturate(nx * hx + ny * hy + nz * hz)
+    ldh = _saturate(sdx * hx + sdy * hy + sdz * hz)
+    ndl_s = _saturate(nx * sdx + ny * sdy + nz * sdz)
+    dd = (ndh * a2 - ndh) * ndh + 1.0
+    big_d = a2 / torch.clamp(dd * dd * M_PI, min=0.001)
+    k = rough * rough / 2.0
+    big_g = (ndv_c / (ndv_c * (1.0 - k) + k)) * (ndl_s / (ndl_s * (1.0 - k) + k))
+    f5 = torch.pow(torch.clamp(1.0 - ldh, min=0.0), 5.0)
+    ggx_prob = big_d * ndh / (4.0 * ldh)
+    gterm = big_d * big_g / (4.0 * ndl_s * ndv_c)
+    scale = ndl_s / (ggx_prob * (1.0 - prob_diff))
+    ws = tuple(scale * gterm * (sp + (1.0 - sp) * f5) for sp in spec)
+    pdf = torch.where(choose_diff, pdf_diff, ggx_prob * (1.0 - prob_diff))
+    w = tuple(torch.where(choose_diff, dc / prob_diff, wc)
+              for dc, wc in zip(dif, ws))
+    zero = torch.zeros_like(pdf)
+    pdf = torch.where(below, zero, pdf)
+    w = tuple(torch.where(below, zero, c) for c in w)
+    return seed, w, (lx, ly, lz), pdf, ~choose_diff, below
+
+
+def _ggx_spec(h, l, n, n_dot_l, n_dot_v, rough, spec):
+    """ops.brdf.ggx_lighting's colour term per lane."""
+    n_dot_h = _saturate(dot3(n, h))
+    l_dot_h = _saturate(dot3(l, h))
+    a2 = rough * rough
+    dd = (n_dot_h * a2 - n_dot_h) * n_dot_h + 1.0
+    d = a2 / torch.clamp(dd * dd * M_PI, min=0.001)
+    k = rough * rough / 2.0
+    g = (n_dot_v / (n_dot_v * (1.0 - k) + k)) * (n_dot_l / (n_dot_l * (1.0 - k) + k))
+    f5 = torch.pow(torch.clamp(1.0 - l_dot_h, min=0.0), 5.0)
+    scale = d * g / (4.0 * n_dot_l * n_dot_v)
+    return tuple((sp + (1.0 - sp) * f5) * scale for sp in spec)
+
+
+def _eval_brdf(v, l, n, dif, spec, rough, is_spec, mat_model: int):
+    """ops.materials.eval_brdf per lane."""
+    if mat_model != 0:  # Lambertian: albedo (the reference omits 1/pi)
+        return dif
+    below = dot3(n, l) <= 0.0
+    h = normed(add3(l, v))
+    spec_col = _ggx_spec(h, l, n, _saturate(dot3(n, l)), _saturate(dot3(n, v)),
+                         rough, spec)
+    out = where3(is_spec, spec_col, tuple(c * M_1_PI for c in dif))
+    zero = torch.zeros_like(rough)
+    return where3(below, (zero, zero, zero), out)
+
+
+def _nee_shade(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model):
+    """ops.materials.nee_shade per lane (diffuse plus specular part)."""
+    n_dot_l = _saturate(dot3(n, l))
+    shadow_mult = torch.where(vis, lcnt, 0.0)
+    if mat_model != 0:
+        return tuple(shadow_mult * n_dot_l * ic * dc / M_PI
+                     for ic, dc in zip(inten, dif))
+    h = normed(add3(v, l))
+    n_dot_h = _saturate(dot3(n, h))
+    l_dot_h = _saturate(dot3(l, h))
+    n_dot_v = _saturate(dot3(n, v))
+    a2 = rough * rough
+    dd = (n_dot_h * a2 - n_dot_h) * n_dot_h + 1.0
+    d = a2 / torch.clamp(dd * dd * M_PI, min=0.001)
+    k = rough * rough / 2.0
+    g = (n_dot_l / (n_dot_l * (1.0 - k) + k)) * (n_dot_v / (n_dot_v * (1.0 - k) + k))
+    f5 = torch.pow(torch.clamp(1.0 - l_dot_h, min=0.0), 5.0)
+    dg4 = d * g / (4.0 * n_dot_v)
+    difp = tuple(shadow_mult * ic * n_dot_l * dc * M_1_PI
+                 for ic, dc in zip(inten, dif))
+    specp = tuple(shadow_mult * ic * (sc + (1.0 - sc) * f5) * dg4
+                  for ic, sc in zip(inten, spec))
+    return tuple(dp + sp for dp, sp in zip(difp, specp))
+
+
+# ---------------------------------------------------------- intersection
+_PAIR_BUDGET = 1 << 24  # [rays x tris] elements per pair-test chunk
+
+
+def _pair_test(tris, o, d, tmin, tmax, cull_backface):
+    """[N, T] Baldwin-Weber test (`pallas_lane._pair_test`, rays x tris)."""
+    col = lambda k: tris[:, k][None, :]  # noqa: E731
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    nx, ny, nz, nv0 = col(0), col(1), col(2), col(3)
+    ndir = nx * dx + ny * dy + nz * dz
+    dir_ok = ndir < -1e-9 if cull_backface else ndir.abs() > 1e-9
+    t = (nv0 - (nx * ox + ny * oy + nz * oz)) / torch.where(
+        dir_ok, ndir, torch.ones_like(ndir))
+    r1x, r1y, r1z, r1v0 = col(4), col(5), col(6), col(7)
+    u = (r1x * ox + r1y * oy + r1z * oz - r1v0) + t * (r1x * dx + r1y * dy + r1z * dz)
+    r2x, r2y, r2z, r2v0 = col(8), col(9), col(10), col(11)
+    v = (r2x * ox + r2y * oy + r2z * oz - r2v0) + t * (r2x * dx + r2y * dy + r2z * dz)
+    valid = (dir_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t > tmin[:, None]) & (t < tmax[:, None]))
+    return valid, t
+
+
+def _ray_chunks(n_rays, n_tris):
+    step = max(1, _PAIR_BUDGET // max(n_tris, 1))
+    return [slice(s, s + step) for s in range(0, n_rays, step)]
+
+
+def _closest(tris, n_tris, o, d, tmin, cull_backface):
+    """Closest hit: (hit, t, tri id); at equal t the lowest id wins."""
+    tri = tris[:n_tris]
+    n = o[0].shape[0]
+    best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o[0].device)
+    best_id = torch.full((n,), -1, dtype=torch.int64, device=o[0].device)
+    ids = torch.arange(n_tris, device=o[0].device)
+    for sl in _ray_chunks(n, n_tris):
+        valid, t = _pair_test(tri, tuple(c[sl] for c in o),
+                              tuple(c[sl] for c in d), tmin[sl],
+                              best_t[sl], cull_backface)
+        t_m = torch.where(valid, t, torch.full_like(t, _BIG))
+        col_min = t_m.min(dim=1).values
+        first = torch.where((t_m == col_min[:, None]) & valid, ids,
+                            n_tris).min(dim=1).values
+        hit = valid.any(dim=1)
+        best_t[sl] = torch.where(hit, col_min, best_t[sl])
+        best_id[sl] = torch.where(hit, first, best_id[sl])
+    return best_id >= 0, best_t, best_id
+
+
+def _occluded(tris, n_tris, o, d, tmin, tmax):
+    """Any hit in (tmin, tmax), no culling."""
+    tri = tris[:n_tris]
+    n = o[0].shape[0]
+    occ = torch.zeros((n,), dtype=torch.bool, device=o[0].device)
+    for sl in _ray_chunks(n, n_tris):
+        valid, _ = _pair_test(tri, tuple(c[sl] for c in o),
+                              tuple(c[sl] for c in d), tmin[sl], tmax[sl],
+                              False)
+        occ[sl] = valid.any(dim=1)
+    return occ
+
+
+def _trace(tris, n_tris, o, d, tmin, cull_backface):
+    """Closest hit plus the winner's attributes (`_trace_rows`)."""
+    hit, t_, best_id = _closest(tris, n_tris, o, d, tmin, cull_backface)
+    a = tris[best_id.clamp(min=0)]
+    a = torch.where(hit[:, None], a, torch.zeros_like(a))
+    attr = lambda k: a[:, k]  # noqa: E731
+    r1 = (attr(4), attr(5), attr(6))
+    r2 = (attr(8), attr(9), attr(10))
+    u = (dot3(r1, o) - attr(7)) + t_ * dot3(r1, d)
+    v = (dot3(r2, o) - attr(11)) + t_ * dot3(r2, d)
+    w = 1.0 - u - v
+    hf = hit.to(torch.float32)
+    u, v, w = u * hf, v * hf, w * hf
+    n_raw = tuple(w * attr(12 + k) + u * attr(15 + k) + v * attr(18 + k)
+                  for k in range(3))
+    return {
+        "hit": hit,
+        "pos": add3(o, scale3(d, t_)),
+        "n_raw": n_raw,
+        "base": tuple(attr(27 + k) for k in range(4)),
+        "spec": tuple(attr(31 + k) for k in range(4)),
+        "emissive": tuple(attr(35 + k) for k in range(3)),
+        "ior": attr(38),
+        "shading_model": attr(39),
+        "double_sided": attr(40),
+    }
+
+
+def _decode_shading(tr, view_origin):
+    """Untextured ShadingData decode (`ops.shading.shading_from_fields`)."""
+    b0, b1, b2, b3 = tr["base"]
+    s0, s1, s2, s3 = tr["spec"]
+    metal_rough = tr["shading_model"] == float(SHADING_METAL_ROUGH)
+    metal = s2
+    dif = where3(metal_rough, (b0 * (1.0 - metal), b1 * (1.0 - metal),
+                               b2 * (1.0 - metal)), (b0, b1, b2))
+    spc = where3(metal_rough, tuple(0.04 * (1.0 - metal) + b * metal
+                                    for b in (b0, b1, b2)), (s0, s1, s2))
+    lrough = torch.clamp(torch.where(metal_rough, s1, 1.0 - s3), min=0.08)
+    n = normed(tr["n_raw"])
+    v = normed(sub3(view_origin, tr["pos"]))
+    flip = (dot3(n, v) <= 0.0) & (tr["double_sided"] > 0.5)
+    n = where3(flip, neg3(n), n)
+    return {"pos": tr["pos"], "n": n, "v": v, "dif": dif, "spec": spc,
+            "lrough": lrough, "rough": lrough * lrough,
+            "emissive": tr["emissive"], "opacity": b3, "ior": tr["ior"]}
+
+
+def _fetch_light(lights, idx):
+    row = lights[idx]
+    c = lambda k: row[:, k]  # noqa: E731
+    return {"pos": (c(0), c(1), c(2)), "dir": (c(3), c(4), c(5)),
+            "inten": (c(6), c(7), c(8)), "type": c(_L_TYPE),
+            "coso": c(_L_COSO), "open": c(_L_OPEN), "pen": c(_L_PEN)}
+
+
+def _eval_light(lrow, surf_pos):
+    """scene.lights.eval_light per lane -> (to_light3, intensity3, dist)."""
+    lpos, ldir, linten = lrow["pos"], lrow["dir"], lrow["inten"]
+    to_l = sub3(lpos, surf_pos)
+    dist_sq = dot3(to_l, to_l)
+    valid = dist_sq > 1e-5
+    zero = torch.zeros_like(dist_sq)
+    dist_pt = torch.where(valid, torch.sqrt(torch.clamp(dist_sq, min=1e-20)), zero)
+    inv = 1.0 / torch.clamp(dist_pt, min=1e-20)
+    l_pt = where3(valid, scale3(to_l, inv), (inv * 0.0,) * 3)
+    falloff = 1.0 / (0.0001 + dist_sq)
+    cos_theta = -dot3(l_pt, ldir)
+    falloff = torch.where(cos_theta < lrow["coso"], zero, falloff)
+    pen_scale = _saturate(
+        ((lrow["open"] - _acos_approx(torch.clamp(cos_theta, -1.0, 1.0)))
+         - lrow["pen"]) / torch.clamp(lrow["pen"], min=1e-9))
+    falloff = torch.where(lrow["pen"] > 0.0, falloff * pen_scale, falloff)
+    inten_pt = scale3(linten, falloff)
+    diff = sub3(surf_pos, lpos)
+    dist_dir = torch.sqrt(torch.clamp(dot3(diff, diff), min=0.0))
+    pos_dir = sub3(surf_pos, scale3(ldir, dist_dir))
+    is_dir = lrow["type"] == float(LIGHT_DIRECTIONAL)
+    to_light = where3(is_dir, neg3(ldir), l_pt)
+    intensity = where3(is_dir, linten, inten_pt)
+    dvec = sub3(where3(is_dir, pos_dir, lpos), surf_pos)
+    dist = torch.sqrt(torch.clamp(dot3(dvec, dvec), min=0.0))
+    return to_light, intensity, dist
+
+
+# ------------------------------------------------------------ plain frame
+_VFIELDS3 = ("color", "pos", "n", "v", "dif", "spec")
+_VFIELDS1 = ("rough", "pdf", "is_spec")
+
+
+def _zeros_vertex(n, device):
+    z = torch.zeros((n,), dtype=torch.float32, device=device)
+    out = {k: (z, z, z) for k in _VFIELDS3}
+    out.update({k: z for k in _VFIELDS1})
+    return out
+
+
+def _vertex_where(mask, a, b):
+    out = {k: where3(mask, a[k], b[k]) for k in _VFIELDS3}
+    out.update({k: torch.where(mask, a[k], b[k]) for k in _VFIELDS1})
+    return out
+
+
+def _f32(x) -> float:
+    """A float32 value as a Python float (exact)."""
+    return float(np.float32(x))
+
+
+def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> FrameOut:
+    """The frame program vectorised over the W*H pixels (see module doc)."""
+    dev = tris.device
+    w_, h_ = args.width, args.height
+    n_pix = args.n_pix
+    d_max = args.d_max
+    mat_model = args.mat_model
+    n_tris = args.n_tris
+    sc = [_f32(x) for x in args.scal]
+    f32 = np.float32
+
+    def full(v):
+        return torch.full((n_pix,), v, dtype=torch.float32, device=dev)
+
+    cam_pos = tuple(sc[_C_POS + k] for k in range(3))
+    cam_u = tuple(sc[_C_U + k] for k in range(3))
+    cam_v = tuple(sc[_C_V + k] for k in range(3))
+    cam_w = tuple(sc[_C_W + k] for k in range(3))
+    cam_n = tuple(sc[_C_N + k] for k in range(3))
+    inv_u2, inv_v2, inv_w2 = sc[_C_IU2], sc[_C_IV2], sc[_C_IW2]
+    jx, jy = sc[_C_JX], sc[_C_JY]
+    env = tuple(sc[_C_ENV + k] for k in range(3))
+    lcnt_f = sc[_C_LCNT]
+    lcnt_i = args.light_count
+
+    lin = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    x = (lin % w_).to(torch.float32)
+    y = (lin // w_).to(torch.float32)
+    zero_t = full(0.0)
+    ones = full(1.0)
+
+    # ---------------- primary ray (G-buffer, lightProbeGBuffer.rt.hlsl) ----
+    ndc_x = (2.0 * x / w_ - 1.0) + _f32(f32(2.0) * f32(jx) / f32(w_))
+    ndc_y = (-2.0 * y / h_ + 1.0) - _f32(f32(2.0) * f32(jy) / f32(h_))
+    cw = [f32(c) for c in cam_w]
+    inv_wlen = _f32(f32(1.0) / np.sqrt(cw[0] * cw[0] + cw[1] * cw[1] + cw[2] * cw[2]))
+    d_raw = scale3(tuple(ndc_x * cam_u[k] + ndc_y * cam_v[k] + cam_w[k]
+                         for k in range(3)), inv_wlen)
+    cam_tiles = tuple(full(c) for c in cam_pos)
+    if args.use_thin_lens:
+        # lens origin from the G-buffer pass's own RNG stream
+        # (lightProbeGBuffer.rt.hlsl:119-145)
+        gseed = tea_init(lin, torch.full_like(lin, args.gbuf_frame))
+        gseed, u0 = next_rand(gseed)
+        gseed, u1 = next_rand(gseed)
+        theta = 2.0 * M_PI * u0
+        r = sc[_C_LENSR] * u1
+        lx, ly = r * torch.cos(theta), r * torch.sin(theta)
+        origin0 = tuple(cam_tiles[k] + lx * sc[_C_UN + k] + ly * sc[_C_VN + k]
+                        for k in range(3))
+        focal_pt = add3(cam_tiles, scale3(d_raw, sc[_C_FOCAL]))
+        prim_dir = normed(sub3(focal_pt, origin0))
+    else:
+        origin0 = cam_tiles
+        prim_dir = normed(d_raw)
+    tr = _trace(tris, n_tris, origin0, prim_dir, zero_t, True)
+    sd = _decode_shading(tr, cam_tiles)
+    valid = tr["hit"]
+
+    world_pos = where3(valid, sd["pos"], (zero_t,) * 3)
+    world_norm = where3(valid, sd["n"], (zero_t,) * 3)
+    dif = where3(valid, sd["dif"], tuple(full(c) for c in env))
+    spc = where3(valid, sd["spec"], (zero_t,) * 3)
+    lrough = torch.where(valid, sd["lrough"], zero_t)
+    rough = lrough * lrough
+    emis = where3(valid, sd["emissive"], (zero_t,) * 3)
+    # the camera vertex's view vector uses the pinhole even under thin lens
+    v_tiles = normed(sub3(cam_tiles, world_pos))
+
+    seed = tea_init(lin, torch.full_like(lin, args.bdpt_frame))
+
+    # ---------------- camera subpath ----------------
+    zeros_vert = _zeros_vertex(n_pix, dev)
+    cam_path = [zeros_vert] * (d_max + 1)
+    cam_path[0] = dict(zeros_vert, pos=cam_tiles, n=tuple(full(c) for c in cam_n),
+                       color=(ones, ones, ones), pdf=ones)
+    seed2, wgt, out_dir, pdf1, is_spec1, _ = sample_brdf(
+        seed, world_norm, v_tiles, dif, spc, rough, mat_model)
+    if not args.faithful_rng:
+        seed = seed2
+    cam_path[1] = _vertex_where(valid, {
+        "color": wgt, "pos": world_pos, "n": world_norm, "v": v_tiles,
+        "dif": dif, "spec": spc, "rough": rough,
+        "is_spec": is_spec1.to(torch.float32), "pdf": pdf1,
+    }, zeros_vert)
+    min_t_tiles = full(args.min_t)
+
+    def shoot(state):
+        """passes.bdpt.shoot_ray per lane."""
+        active = ~state["term"]
+        tr_b = _trace(tris, n_tris, state["o"], state["d"], min_t_tiles, False)
+        sd_b = _decode_shading(tr_b, state["o"])
+        seed_b, w_b, l_b, pdf_b, isspec_b, _ = sample_brdf(
+            state["seed"], sd_b["n"], sd_b["v"], sd_b["dif"], sd_b["spec"],
+            sd_b["rough"], mat_model)
+        got = active & tr_b["hit"]
+        missed = active & ~tr_b["hit"]
+        new = dict(state)
+        if not args.faithful_rng:
+            new["seed"] = torch.where(got, seed_b, state["seed"])
+        new["color"] = where3(
+            got, tuple(c * w for c, w in zip(state["color"], w_b)),
+            where3(missed, (zero_t,) * 3, state["color"]))
+        for key in ("pos", "n", "v", "dif", "spec"):
+            new[key] = where3(got, sd_b[key], state[key])
+        new["rough"] = torch.where(got, sd_b["rough"], state["rough"])
+        new["is_spec"] = torch.where(got, isspec_b.to(torch.float32),
+                                     state["is_spec"])
+        new["pdf"] = torch.where(got, pdf_b, state["pdf"])
+        new["o"] = where3(got, sd_b["pos"], state["o"])
+        new["d"] = where3(got, l_b, state["d"])
+        new["term"] = state["term"] | missed
+        return new
+
+    def vertex_of(state):
+        return {k: state[k] for k in _VFIELDS3 + _VFIELDS1}
+
+    def start_state(o, d, color, seed):
+        return dict(zeros_vert, o=o, d=d, color=color, seed=seed, pos=o,
+                    term=~valid)
+
+    state = start_state(world_pos, out_dir, wgt, seed)
+    for depth in range(1, d_max):
+        was_active = ~state["term"]
+        state = shoot(state)
+        cam_path[depth + 1] = _vertex_where(was_active, vertex_of(state), zeros_vert)
+    seed = state["seed"]
+
+    # ---------------- light subpath (sample_light, BDPTUtils.hlsli:140-152)
+    seed, u_pick = next_rand(seed)
+    lidx = torch.clamp((u_pick * lcnt_f).to(torch.int64), max=lcnt_i - 1)
+    lrow0 = _fetch_light(lights, lidx)
+    is_dir = lrow0["type"] == float(LIGHT_DIRECTIONAL)
+    seed_s, p_sph = unit_sphere3(seed)
+    seed = torch.where(is_dir, seed, seed_s)
+    seed, l_dir0 = cos_hemisphere3(seed, where3(is_dir, lrow0["dir"], p_sph))
+    light_path = [zeros_vert] * (d_max + 1)
+    light_path[0] = dict(zeros_vert, pos=lrow0["pos"], color=lrow0["inten"],
+                         pdf=ones / lcnt_f)
+    take = [ones] * (d_max + 1)
+    lstate = start_state(lrow0["pos"], l_dir0, lrow0["inten"], seed)
+    for depth in range(d_max):
+        was_active = ~lstate["term"]
+        lstate = shoot(lstate)
+        light_path[depth + 1] = _vertex_where(was_active, vertex_of(lstate),
+                                              zeros_vert)
+        take[depth + 1] = torch.where(
+            was_active, (~lstate["term"]).to(torch.float32), take[depth + 1])
+    seed = lstate["seed"]
+
+    # ---------------- accumulate own pixel ----------------
+    has_emis = (emis[0] > 0.0) | (emis[1] > 0.0) | (emis[2] > 0.0)
+    em_mask = valid & has_emis
+    out = [torch.where(em_mask, emis[k], zero_t) for k in range(3)] + [zero_t]
+
+    # --- estimator 1: path tracing with NEE (BDPTMain:161-167) ---
+    if args.enable_e1:
+        e1 = []
+        for i in range(d_max):
+            seed, u = next_rand(seed)
+            idx = torch.clamp((u * lcnt_f).to(torch.int64), max=lcnt_i - 1)
+            e1.append(_eval_light(_fetch_light(lights, idx), cam_path[i + 1]["pos"]))
+        for i in range(d_max):
+            l3, inten3, dist = e1[i]
+            vtx = cam_path[i + 1]
+            occ = _occluded(tris, n_tris, vtx["pos"], l3, min_t_tiles, dist)
+            direct = _nee_shade(~occ, l3, inten3, vtx["n"], vtx["v"], vtx["dif"],
+                                vtx["spec"], vtx["rough"], lcnt_f, mat_model)
+            shade = tuple(c * dc for c, dc in zip(cam_path[i]["color"], direct))
+            shade = _nan_guard3(_clamp3(scale3(shade, 1.0 / (i + 2)),
+                                        args.clamp_upper))
+            for k in range(3):
+                out[k] = out[k] + torch.where(valid, shade[k], zero_t)
+            out[3] = out[3] + torch.where(valid, ones, zero_t)
+
+    # --- estimator 3: s,t connections (BDPTMain:212-233) ---
+    e3_pairs = e3_pair_list(d_max, args.enable_e3)
+    if args.connection_weight != "uniform" and e3_pairs:
+        mis_weight = _mis_weights(cam_path, light_path, d_max,
+                                  2.0 if args.connection_weight == "power" else 1.0)
+    for total_len, sx, tx in e3_pairs:
+        vec = sub3(light_path[tx]["pos"], cam_path[sx]["pos"])
+        length_ab = torch.sqrt(torch.clamp(dot3(vec, vec), min=1e-30))
+        dir_ab = scale3(vec, 1.0 / length_ab)
+        # interval shortened by min_t to exclude far-endpoint self-hits
+        occ = _occluded(tris, n_tris, cam_path[sx]["pos"], dir_ab,
+                        min_t_tiles, length_ab - min_t_tiles)
+        if tx >= 1:
+            # evalGWithoutV (BDPTUtils.hlsli:172-184)
+            inv_len = 1.0 / torch.sqrt(torch.clamp(dot3(vec, vec), min=1e-30))
+            dd = scale3(vec, inv_len)
+            cam_end, light_end = cam_path[sx], light_path[tx]
+            g = (dot3(cam_end["n"], dd).abs() * dot3(light_end["n"], dd).abs()
+                 * inv_len * inv_len)
+            a_e = cam_path[sx - 1]["color"]
+            a_l = (light_path[sx - 1]["color"] if args.reference_quirks
+                   else light_path[tx - 1]["color"])
+            connect_dir = normed(sub3(cam_end["pos"], light_end["pos"]))
+            wo_l = normed(sub3(light_path[tx - 1]["pos"], light_end["pos"]))
+            fs_l = _eval_brdf(connect_dir, wo_l, light_end["n"], light_end["dif"],
+                              light_end["spec"], light_end["rough"],
+                              light_end["is_spec"] > 0.5, mat_model)
+            wo_e = normed(sub3(cam_path[sx - 1]["pos"], cam_end["pos"]))
+            fs_e = _eval_brdf(neg3(connect_dir), wo_e, cam_end["n"],
+                              cam_end["dif"], cam_end["spec"], cam_end["rough"],
+                              cam_end["is_spec"] > 0.5, mat_model)
+            shade = tuple(al * (fl * g * fe) * ae
+                          for al, fl, fe, ae in zip(a_l, fs_l, fs_e, a_e))
+            if args.connection_weight != "uniform":
+                wgt_mis = mis_weight(sx, tx, total_len)
+                shade = tuple(c * wgt_mis for c in shade)
+            else:
+                shade = scale3(shade, 1.0 / float(total_len))
+            shade = _nan_guard3(_clamp3(shade, args.clamp_upper))
+        else:
+            shade = (zero_t, zero_t, zero_t)
+        mask = valid & ~occ
+        for k in range(3):
+            out[k] = torch.where(mask, _saturate(out[k] + shade[k]), out[k])
+        out[3] = torch.where(mask, _saturate(out[3] + 1.0), out[3])
+
+    # --- estimator 2: light-tracing splats (BDPTMain:171-208) ---
+    splat_pix, splat_pay, splat_rgba = [], [], []
+    take_cum = torch.ones((n_pix,), dtype=torch.bool, device=dev)
+    for i in range(args.n_splat_depths):
+        take_cum = take_cum & (take[i + 1] > 0.5)
+        last = light_path[i + 1]
+        to_cam = sub3(cam_tiles, last["pos"])
+        dis = torch.sqrt(torch.clamp(dot3(to_cam, to_cam), min=1e-30))
+        dir_to_cam = scale3(to_cam, 1.0 / dis)
+        occ = _occluded(tris, n_tris, last["pos"], dir_to_cam, min_t_tiles, dis)
+        facing = dot3(dir_to_cam, cam_n) < 0.0
+        active2 = valid & take_cum & facing & ~occ
+        # project_dir_to_pixel (BDPTUtils.hlsli:129-138)
+        d1 = dot3(dir_to_cam, cam_u) * inv_u2
+        d2 = dot3(dir_to_cam, cam_v) * inv_v2
+        d3 = dot3(dir_to_cam, cam_w) * inv_w2
+        px = ((d1 / d3) * 0.5 + 0.5) * float(w_) - jx
+        py = ((-d2 / d3) * 0.5 + 0.5) * float(h_) - jy
+        rx, ry = torch.round(px), torch.round(py)  # half to even
+        theta1 = _saturate(dot3(dir_to_cam, cam_n).abs())
+        theta2 = _saturate(dot3(dir_to_cam, last["n"]).abs())
+        g = theta1 * theta2 / (dis * dis)
+        brdf = _eval_brdf(last["v"], dir_to_cam, last["n"], last["dif"],
+                          last["spec"], last["rough"], last["is_spec"] > 0.5,
+                          mat_model)
+        shade = tuple(lc * bc * g for lc, bc in zip(light_path[i]["color"], brdf))
+        shade = _nan_guard3(_clamp3(scale3(shade, 1.0 / (i + 2)), args.clamp_upper))
+        in_range = (rx >= 0) & (rx < w_) & (ry >= 0) & (ry < h_)
+        ok = active2 & in_range
+        pix = torch.where(ok, ry.clamp(0, h_ - 1).to(torch.int64) * w_
+                          + rx.clamp(0, w_ - 1).to(torch.int64),
+                          torch.full_like(lin, n_pix))
+        splat_pix.append(pix.to(torch.int32))
+        live = tuple(torch.where(ok, c, zero_t) for c in shade)
+        if args.splat_rgb8e:
+            splat_pay.append(pack_rgb8e(*live))
+        else:
+            splat_rgba.append(torch.stack(list(live) + [ok.to(torch.float32)]))
+
+    # background early-out wrote (env, 1) (BDPTMain:62-66)
+    res = torch.stack([torch.where(valid, out[k], dif[k]) for k in range(3)]
+                      + [torch.where(valid, out[3], ones)])
+    dvec = sub3(world_pos, cam_tiles)
+    gbuf = torch.stack([
+        world_pos[0], world_pos[1], world_pos[2], valid.to(torch.float32),
+        world_norm[0], world_norm[1], world_norm[2],
+        torch.where(valid, torch.sqrt(torch.clamp(dot3(dvec, dvec), min=0.0)), zero_t),
+        dif[0], dif[1], dif[2], torch.where(valid, sd["opacity"], ones),
+        spc[0], spc[1], spc[2], lrough,
+        torch.where(valid, sd["ior"], zero_t),
+        emis[0], emis[1], emis[2],
+    ])
+    def stack(rows, row_shape, dtype):  # [D, ...]; D may be 0
+        if rows:
+            return torch.stack(rows)
+        return torch.zeros((0,) + row_shape, dtype=dtype, device=dev)
+
+    return FrameOut(
+        res=res, gbuf=gbuf,
+        splat_pix=stack(splat_pix, (n_pix,), torch.int32),
+        splat_pay=stack(splat_pay, (n_pix,), torch.int32) if args.splat_rgb8e else None,
+        splat_rgba=None if args.splat_rgb8e else stack(splat_rgba, (4, n_pix), torch.float32),
+    )
+
+
+def _mis_weights(cam_path, light_path, d_max, mis_power):
+    """Corrected MIS (passes.bdpt._connection_weight): per-lane log-pdf
+    chains of both subpaths, then a max-subtracted softmax over the splits
+    of each total length.  Returns weight(sx, tx, total_len)."""
+
+    def log_pdf_g(a, b):
+        vec = sub3(b["pos"], a["pos"])
+        d2 = torch.clamp(dot3(vec, vec), min=1e-30)
+        dn = scale3(vec, torch.rsqrt(d2))
+
+        def cosf(vtx):
+            degenerate = dot3(vtx["n"], vtx["n"]) < 0.5
+            return torch.where(degenerate, torch.ones_like(d2),
+                               dot3(vtx["n"], dn).abs())
+
+        return torch.log(torch.clamp(cosf(a) * cosf(b), min=0.0)) - torch.log(d2)
+
+    def cum_logpdf(path):
+        lp = [torch.log(torch.clamp(path[0]["pdf"], min=0.0))]
+        for k in range(1, d_max + 1):
+            lp.append(lp[-1] + torch.log(torch.clamp(path[k]["pdf"], min=0.0))
+                      + log_pdf_g(path[k - 1], path[k]))
+        return lp
+
+    lc, ll = cum_logpdf(cam_path), cum_logpdf(light_path)
+
+    def weight(sx, tx, total_len):
+        terms = [lc[i] + ll[total_len - i] for i in range(total_len + 1)
+                 if i <= d_max and total_len - i <= d_max]
+        cur = lc[sx] + ll[tx]
+        m = terms[0]
+        for term in terms[1:]:
+            m = torch.maximum(m, term)
+        denom = sum(torch.exp(mis_power * (term - m)) for term in terms)
+        w = torch.exp(mis_power * (cur - m)) / torch.clamp(denom, min=1e-30)
+        finite = (cur == cur) & (cur > -_BIG) & (cur < _BIG)
+        return torch.where(finite, w, torch.zeros_like(w))
+
+    return weight
+
+
+# ----------------------------------------------------------------- K1 wrapper
+class _FrameParams(ctypes.Structure):
+    """Mirror of `FrameParams` in csrc/frame.cu."""
+
+    _fields_ = [
+        ("scal", ctypes.c_float * NSCAL),
+        ("bdpt_frame", ctypes.c_uint32),
+        ("gbuf_frame", ctypes.c_uint32),
+        ("light_count", ctypes.c_int),
+        ("n_tris", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("height", ctypes.c_int),
+        ("mat_model", ctypes.c_int),
+        ("faithful_rng", ctypes.c_int),
+        ("reference_quirks", ctypes.c_int),
+        ("enable_e1", ctypes.c_int),
+        ("enable_e2", ctypes.c_int),
+        ("enable_e3", ctypes.c_int),
+        ("connection_weight", ctypes.c_int),
+        ("use_thin_lens", ctypes.c_int),
+        ("splat_rgb8e", ctypes.c_int),
+        ("min_t", ctypes.c_float),
+        ("clamp_upper", ctypes.c_float),
+    ]
+
+
+def _params(args: FrameArgs) -> _FrameParams:
+    p = _FrameParams()
+    p.scal[:] = [float(v) for v in args.scal]
+    p.bdpt_frame = args.bdpt_frame & 0xFFFFFFFF
+    p.gbuf_frame = args.gbuf_frame & 0xFFFFFFFF
+    for name in ("light_count", "n_tris", "width", "height", "mat_model",
+                 "faithful_rng", "reference_quirks", "enable_e1", "enable_e2",
+                 "enable_e3", "use_thin_lens", "splat_rgb8e"):
+        setattr(p, name, int(getattr(args, name)))
+    p.connection_weight = _WEIGHTS[args.connection_weight]
+    p.min_t = args.min_t
+    p.clamp_upper = args.clamp_upper
+    return p
+
+
+def _check_args(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor):
+    cuda.check_tensor("lights", lights, torch.float32, lights.device)
+    cuda.check_tensor("tris", tris, torch.float32, lights.device)
+    if lights.dim() != 2 or lights.shape[1] != NLROW:
+        raise ValueError(f"lights must be [L, {NLROW}], got {tuple(lights.shape)}")
+    if tris.dim() != 2 or tris.shape[1] != 48 or tris.shape[0] < args.n_tris:
+        raise ValueError(f"tris must be [T_pad >= {args.n_tris}, 48], "
+                         f"got {tuple(tris.shape)}")
+    if not 1 <= args.light_count <= lights.shape[0]:
+        raise ValueError(f"light_count {args.light_count} outside [1, {lights.shape[0]}]")
+    if not 1 <= args.d_max <= MAX_DEPTH:
+        raise ValueError(f"d_max {args.d_max} outside [1, {MAX_DEPTH}]")
+    if not 1 <= args.n_tris <= MAX_TRIS:
+        raise ValueError(f"n_tris {args.n_tris} outside [1, {MAX_TRIS}]")
+    if len(args.scal) != NSCAL or args.connection_weight not in _WEIGHTS:
+        raise ValueError("bad scal row or connection_weight")
+
+
+def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> FrameOut:
+    """K1 wrapper: frame_plain for CPU tensors, the CUDA kernel otherwise."""
+    _check_args(args, lights, tris)
+    if tris.device.type == "cpu":
+        return frame_plain(args, lights, tris)
+    n, d2 = args.n_pix, args.n_splat_depths
+    dev = tris.device
+    res = torch.empty((4, n), dtype=torch.float32, device=dev)
+    gbuf = torch.empty((N_GBUF_ROWS, n), dtype=torch.float32, device=dev)
+    pix = torch.empty((d2, n), dtype=torch.int32, device=dev)
+    pay = (torch.empty((d2, n), dtype=torch.int32, device=dev)
+           if args.splat_rgb8e else None)
+    rgba = (None if args.splat_rgb8e else
+            torch.empty((d2, 4, n), dtype=torch.float32, device=dev))
+    params = _params(args)
+    lib = cuda.library()
+    cuda.check_launch("frame", lib.bdpt_frame_launch(
+        ctypes.byref(params), args.d_max, cuda.ptr(lights), cuda.ptr(tris),
+        cuda.ptr(res), cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(pay),
+        cuda.ptr(rgba), cuda.stream(dev)))
+    return FrameOut(res=res, gbuf=gbuf, splat_pix=pix, splat_pay=pay,
+                    splat_rgba=rgba)
+
+
+# ------------------------------------------------------- frame entry point
+def frame_args(baked, width: int, height: int, bdpt_frame: int, pixel_jitter,
+               cfg, gbuf_frame: int = 0, splat_rgb8e: bool = False) -> FrameArgs:
+    """Host-side argument packing of the JAX `_frame_out`."""
+    cam = baked.data.camera
+    gcfg = cfg.gbuffer
+    bcfg = cfg.bdpt
+    lens_radius = gcfg.focal_length_gui / (2.0 * gcfg.f_stop) if gcfg.use_thin_lens else 0.0
+    jit = torch.as_tensor(pixel_jitter, dtype=torch.float32)
+    f = lambda v: torch.as_tensor(v, dtype=torch.float32).reshape(-1)  # noqa: E731
+    scal = torch.cat([
+        cam.pos_w, cam.camera_u, cam.camera_v, cam.camera_w,
+        cam.camera_w / torch.linalg.norm(cam.camera_w),
+        f([1.0]) / torch.dot(cam.camera_u, cam.camera_u).reshape(1),
+        f([1.0]) / torch.dot(cam.camera_v, cam.camera_v).reshape(1),
+        f([1.0]) / torch.dot(cam.camera_w, cam.camera_w).reshape(1),
+        jit[:2],
+        baked.data.env_map[0, 0, :3].to(torch.float32),
+        f(float(baked.data.lights.count)),
+        f([lens_radius, gcfg.focal_length_gui]),
+        cam.camera_u / torch.linalg.norm(cam.camera_u),
+        cam.camera_v / torch.linalg.norm(cam.camera_v),
+    ]).to(torch.float32)
+    return FrameArgs(
+        scal=tuple(scal.tolist()),
+        bdpt_frame=int(bdpt_frame) & 0xFFFFFFFF,
+        gbuf_frame=int(gbuf_frame) & 0xFFFFFFFF,
+        light_count=int(baked.data.lights.count),
+        n_tris=baked.n_tris, width=width, height=height,
+        d_max=bcfg.max_depth, mat_model=bcfg.mat_model,
+        faithful_rng=bcfg.faithful_rng,
+        reference_quirks=bcfg.reference_quirks,
+        min_t=_f32(bcfg.min_t), clamp_upper=_f32(bcfg.clamp_upper),
+        enable_e1=bcfg.enable_path_tracing,
+        enable_e2=bcfg.enable_light_tracing,
+        enable_e3=bcfg.enable_connections,
+        connection_weight=bcfg.connection_weight,
+        use_thin_lens=bool(gcfg.use_thin_lens), splat_rgb8e=splat_rgb8e,
+    )
+
+
+def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
+                            pixel_jitter, cfg, gbuf_frame=0, *, plain: bool = False):
+    """Run K1, then the est-2 splat reduction; returns (channels, frame_img
+    [H, W, 4]) like the JAX `render_frame_megakernel` (single device).
+
+    `plain=True` runs the plain versions of K1, K2 and K3 on the scene's
+    device instead: the reference the kernels' whole frame is held against."""
+    from ..ops import splat as splat_mod
+
+    # pack the est-2 splats to rgb8e in the kernel for splat_mode
+    # 'tiled_rgb8e', or 'auto' on a CUDA device (as 'auto' on the TPU)
+    mode = cfg.bdpt.splat_mode
+    packed = cfg.bdpt.enable_light_tracing and (
+        mode == "tiled_rgb8e" or (mode == "auto" and baked.device.type == "cuda"))
+    args = frame_args(baked, width, height, bdpt_frame, pixel_jitter, cfg,
+                      gbuf_frame=gbuf_frame, splat_rgb8e=packed)
+    out = (frame_plain if plain else frame_kernel)(args, baked.light_rows, baked.tri_pack)
+    n_pix = args.n_pix
+
+    def img(rows):
+        return rows.T.reshape(height, width, rows.shape[0])
+
+    result = img(out.res)
+    if cfg.bdpt.enable_light_tracing:
+        # the splats in the reference's depth order (depth-major concat)
+        if packed:
+            splat_flat = splat_mod.scatter_add_rgba_prepacked(
+                out.splat_pix.reshape(-1), out.splat_pay.reshape(-1), n_pix,
+                plain=plain)
+        else:
+            rgba = out.splat_rgba.permute(0, 2, 1).reshape(-1, 4)
+            splat_flat = splat_mod.scatter_add_rgba(
+                cfg.bdpt.splat_mode, out.splat_pix.reshape(-1), rgba[:, :3],
+                rgba[:, 3], n_pix, alpha_is_count=True)
+        splat = splat_flat.reshape(height, width, 4)
+        got_splat = (splat != 0.0).any(dim=-1, keepdim=True)
+        frame_img = torch.where(got_splat, torch.clamp(result + splat, 0.0, 1.0),
+                                result)
+    else:
+        frame_img = result
+
+    gbuf = img(out.gbuf)
+    zeros3 = torch.zeros((height, width, 3), dtype=torch.float32, device=gbuf.device)
+    channels = {
+        "WorldPosition": gbuf[..., 0:4],
+        "WorldNormal": gbuf[..., 4:8],
+        "MaterialDiffuse": gbuf[..., 8:12],
+        "MaterialSpecRough": gbuf[..., 12:16],
+        "MaterialExtraParams": torch.cat([gbuf[..., 16:17], zeros3], -1),
+        "Emissive": torch.cat([gbuf[..., 17:20], zeros3[..., :1]], -1),
+        "BDPT": frame_img,
+    }
+    return channels, frame_img

@@ -1,0 +1,56 @@
+"""Pixel jitter and direction samplers.
+
+Port of `fyp_bidirectionalpathtracer_tpu/core/samplers.py` (`msaa8_jitter`)
+and of the megakernel's per-lane forms `_cos_hemisphere` / `_unit_sphere`
+(`accel/pallas_frame.py:193-229`).  Each sampler consumes LCG draws
+exactly as the HLSL does, so sequences stay bit-comparable.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import rng
+from .vecmath import M_PI, build_onb3, dot3, where3
+
+# The 8-frame D3D MSAA-8 pattern in 1/16-pixel units (BDPTPass.cpp:20).
+MSAA8_PATTERN = (
+    (1, -3), (-1, 3), (5, 1), (-3, -5), (-5, 5), (-7, -1), (3, 7), (7, -7),
+)
+
+
+def msaa8_jitter(frame) -> torch.Tensor:
+    """Per-frame subpixel offset kMSAA[frame % 8] * 0.0625 (float32 [2])."""
+    tbl = torch.tensor(MSAA8_PATTERN, dtype=torch.float32) * 0.0625
+    return tbl[int(frame) % 8]
+
+
+def cos_hemisphere3(seed, n):
+    """Cosine-weighted direction about n (2 draws, MaterialUtils.hlsli:41-54)."""
+    seed, u0 = rng.next_rand(seed)
+    seed, u1 = rng.next_rand(seed)
+    t, b = build_onb3(n)
+    r = torch.sqrt(u0)
+    phi = 2.0 * M_PI * u1
+    rc = r * torch.cos(phi)
+    rs = r * torch.sin(phi)
+    zc = torch.sqrt(torch.clamp(1.0 - u0, min=0.0))
+    d = tuple(t[k] * rc + b[k] * rs + n[k] * zc for k in range(3))
+    return seed, d
+
+
+def unit_sphere3(seed, max_iters: int = 24):
+    """Masked rejection sample in the unit ball: a lane stops drawing once
+    accepted; after `max_iters` rounds an unaccepted lane takes (0,0,1)."""
+    p = tuple(torch.full(seed.shape, 2.0, dtype=torch.float32,
+                         device=seed.device) for _ in range(3))
+    done = torch.zeros(seed.shape, dtype=torch.bool, device=seed.device)
+    for _ in range(max_iters):
+        seed_n, x = rng.next_rand(seed)
+        seed_n, y = rng.next_rand(seed_n)
+        seed_n, z = rng.next_rand(seed_n)
+        p = where3(done, p, (x * 2.0 - 1.0, y * 2.0 - 1.0, z * 2.0 - 1.0))
+        seed = torch.where(done, seed, seed_n)
+        done = done | (dot3(p, p) <= 1.0)
+    zero = torch.zeros_like(p[0])
+    p = where3(done, p, (zero, zero, zero + 1.0))
+    return seed, p

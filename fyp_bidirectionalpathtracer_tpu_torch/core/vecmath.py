@@ -1,0 +1,90 @@
+"""Vector helpers for the camera math and the plain frame program.
+
+Port of `fyp_bidirectionalpathtracer_tpu/core/vecmath.py` (the [..., 3]
+forms the camera uses) plus the per-component tuple forms that
+`accel/pallas_frame.py` and `accel/pallas_subpath.py` use on [S, 128]
+tiles; here a component is an [N] pixel tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+M_PI = 3.14159265358979323846
+M_1_PI = 0.318309886183790671538
+
+
+# ------------------------------------------------------------ [..., 3] form
+def dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    return torch.stack(
+        [
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ],
+        dim=-1,
+    )
+
+
+def normalize(a):
+    """HLSL normalize (a zero vector gives nan/inf)."""
+    return a / torch.sqrt(dot(a, a))[..., None]
+
+
+# ------------------------------------------------------- per-component form
+def dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def sub3(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def add3(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def scale3(a, s):
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def neg3(a):
+    return (-a[0], -a[1], -a[2])
+
+
+def where3(m, a, b):
+    return tuple(torch.where(m, x, y) for x, y in zip(a, b))
+
+
+def normalize3(x, y, z, eps: float = 1e-20):
+    inv = torch.rsqrt(x * x + y * y + z * z + eps)
+    return x * inv, y * inv, z * inv
+
+
+def normed(a):
+    return normalize3(a[0], a[1], a[2], eps=0.0)
+
+
+def perpendicular3(ux, uy, uz):
+    """Branch-free perpendicular (MaterialUtils.hlsli:31-38)."""
+    ax, ay, az = ux.abs(), uy.abs(), uz.abs()
+    xm = ((ax - ay) < 0) & ((ax - az) < 0)
+    ym = (~xm) & ((ay - az) < 0)
+    zm = ~(xm | ym)
+    bx, by, bz = xm.to(ux.dtype), ym.to(ux.dtype), zm.to(ux.dtype)
+    return uy * bz - uz * by, uz * bx - ux * bz, ux * by - uy * bx
+
+
+def build_onb3(n):
+    """(tangent, bitangent): bitangent = normalize(perpendicular(n)),
+    tangent = cross(bitangent, n) (MaterialUtils.hlsli:47-48)."""
+    b = normalize3(*perpendicular3(*n))
+    t = (
+        b[1] * n[2] - b[2] * n[1],
+        b[2] * n[0] - b[0] * n[2],
+        b[0] * n[1] - b[1] * n[0],
+    )
+    return t, b

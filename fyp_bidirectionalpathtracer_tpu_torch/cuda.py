@@ -1,0 +1,139 @@
+"""Build, load and launch-check the hand-written CUDA kernels.
+
+The sources under `csrc/` are compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+into one shared library with a plain `extern "C"` interface, loaded with
+ctypes.  The library lands in `build/torch_kernels/<hash>/` at the root of
+the checkout, keyed by a hash of the sources, so a checkout builds its own
+kernels from its own sources.  A failed build raises with nvcc's output.
+
+Each kernel wrapper counts its launches in `LAUNCHES`; a run resets the
+counts with `reset_launch_counts()` and reads them to show which kernels
+its path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu")
+HEADERS = ("common.cuh", "frame_program.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+LIB_NAME = "libbdpt_kernels.so"
+
+LAUNCHES = {"frame": 0, "compact": 0, "splat_tile": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless this source hash is built; returns the .so."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / LIB_NAME
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_lib)]
+        cmd += [str(CSRC / s) for s in SOURCES]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        if verbose:
+            print(proc.stdout + proc.stderr)
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bdpt_frame_launch.argtypes = [p, i, p, p, p, p, p, p, p, p]
+    lib.bdpt_compact_count.argtypes = [p, i, i, p, p]
+    lib.bdpt_compact_scatter.argtypes = [p, p, i, i, i, p, p, p, p]
+    lib.bdpt_splat_reduce.argtypes = [p, p, i, i, p, p]
+    for fn in (lib.bdpt_frame_launch, lib.bdpt_compact_count,
+               lib.bdpt_compact_scatter, lib.bdpt_splat_reduce):
+        fn.restype = ctypes.c_int
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != torch.device(device):
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_error(kernel: str, err: int) -> None:
+    """Raise on a nonzero cudaGetLastError() returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel '{kernel}' launch failed: cudaError {err}")
+
+
+def check_launch(kernel: str, err: int) -> None:
+    """check_error, then count one launch of `kernel`."""
+    check_error(kernel, err)
+    LAUNCHES[kernel] += 1

@@ -1,0 +1,139 @@
+"""Where the main path's frame time goes on a CUDA device.
+
+    python -m fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile \
+        [--frames 5] [--repeats 2] [--out PATH.json] [--trace PATH.json]
+
+Renders the Cornell box at 1280x720, depth 3, BMFR off (the frame that
+`chip_smoke.py` times) through `Renderer` and prints one JSON object:
+
+- `device`: the card's name and power limit as nvidia-smi prints them;
+- `ms_per_frame_host`: host-clock ms per frame of `--frames` frames, with a
+  device sync before and after them, without the profiler and (`_profiled`)
+  under it;
+- `device_busy_ms_per_frame`: the union of the CUDA kernels' intervals in a
+  `torch.profiler` trace of the profiled frames, per frame;
+  `device_idle_share` is 1 - busy / the unprofiled host-clock frame time
+  (the profiler slows the host, not the kernels);
+- `kernels_ms_per_frame`: device time per frame by kernel name;
+- `stages_ms`: host-clock ms of each stage of one frame with a device sync
+  after it (attribution only: the syncs serialise what overlaps in a real
+  frame), once per repeat.
+
+`--out` also writes the JSON to a file, `--trace` the Chrome trace.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+from ..accel.frame import frame_args, frame_kernel
+from ..ops.splat import scatter_add_rgba_prepacked
+from ..passes.gbuffer import pixel_jitter_for_frame
+from ..scene.camera import begin_frame
+from ..scene.scene import Scene
+from ..shared import BDPTConfig, RenderConfig, cornell_box
+from .renderer import BDPT_FRAME_INIT, GBUF_FRAME_INIT, Renderer
+
+WIDTH, HEIGHT, DEPTH = 1280, 720, 3
+
+
+def _timed(fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def stage_times(renderer: Renderer) -> dict:
+    """One frame, stage by stage, with a sync after each stage."""
+    cfg, r = renderer.cfg, renderer
+    scene = r.baked.with_camera(r.camera)
+    frame = (BDPT_FRAME_INIT + r.state.frame_index) & 0xFFFFFFFF
+    out = {}
+    out["frame_args (host)"], args = _timed(lambda: frame_args(
+        scene, cfg.width, cfg.height, frame, pixel_jitter_for_frame(frame), cfg,
+        gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=True))
+    out["K1 frame_kernel"], fo = _timed(
+        lambda: frame_kernel(args, scene.light_rows, scene.tri_pack))
+    out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
+        lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
+                                           fo.splat_pay.reshape(-1), args.n_pix))
+    out["begin_frame (camera update)"], _ = _timed(lambda: begin_frame(r.camera))
+    out["whole render_frame"], _ = _timed(r.render_frame)
+    return out
+
+
+def profile(frames: int = 5, repeats: int = 2, trace: str | None = None) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("frame_profile needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    baked = Scene.from_built(cornell_box(), aspect=WIDTH / HEIGHT).bake(device=dev)
+    r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT,
+                                     bdpt=BDPTConfig(max_depth=DEPTH)))
+    r.render(3)  # warm-up: kernel build, allocator, first-call costs
+    plain_ms, _ = _timed(lambda: r.render(frames))
+    # before the profiler: CUPTI slows every launch after it has traced
+    stages = [stage_times(r) for _ in range(repeats)]
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        host_ms, _ = _timed(lambda: r.render(frames))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / frames
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / frames
+    if trace:
+        prof.export_chrome_trace(trace)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    return {
+        "device": smi,
+        "frames": frames,
+        "ms_per_frame_host": plain_ms / frames,
+        "ms_per_frame_host_profiled": host_ms / frames,
+        "device_busy_ms_per_frame": busy,
+        "device_idle_share": 1.0 - busy / (plain_ms / frames),
+        "kernels_ms_per_frame": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+        "stages_ms": stages,
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=2)
+    ap.add_argument("--out")
+    ap.add_argument("--trace")
+    a = ap.parse_args()
+    result = profile(a.frames, a.repeats, a.trace)
+    text = json.dumps(result, indent=1)
+    if a.out:
+        with open(a.out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+
+
+if __name__ == "__main__":
+    main()

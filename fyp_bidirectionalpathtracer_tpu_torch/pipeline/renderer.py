@@ -1,0 +1,105 @@
+"""The rendering pipeline (the RenderingPipeline/Sample analogue).
+
+Port of `fyp_bidirectionalpathtracer_tpu/pipeline/renderer.py`:
+`render_frame_fn`, `Renderer`, `GBUF_FRAME_INIT`, `BDPT_FRAME_INIT`, with
+the same signatures and channel dict.  The pass list is
+G-buffer + BDPT (one frame-megakernel launch) -> est-2 splat reduction ->
+accumulation -> BMFR (a passthrough while disabled).
+
+Routing: megakernel 'auto' and 'on' run the frame program, as the kernel
+K1 on a CUDA device and as its plain version on CPU tensors (JAX's
+interpret-mode megakernel plays that role on the CPU).  megakernel 'off'
+or a scene outside the gate needs the wavefront path, which is not
+ported yet, and raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from ..accel.frame import render_frame_megakernel, supports_megakernel
+from ..passes.accumulate import AccumState, accumulate, camera_moved
+from ..passes.bmfr import BMFRState, bmfr_pass
+from ..passes.gbuffer import pixel_jitter_for_frame
+from ..scene.camera import begin_frame, derive_camera
+from ..scene.scene import BakedScene
+from ..shared import RenderConfig
+
+GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
+BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
+_WAVEFRONT_ITEM = "ROADMAP Queue 1 item 9 (wavefront path)"
+_TONEMAP_ITEM = "ROADMAP Queue 1 item 12 (tone-map operators)"
+
+
+@dataclass
+class RenderState:
+    """Everything mutable across frames."""
+
+    accum: AccumState
+    bmfr: BMFRState
+    frame_index: int = 0
+
+
+def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
+                    gbuf_frame: int, bdpt_frame: int, reset: bool,
+                    cfg: RenderConfig):
+    """One full frame.  Returns (channels, accum, bmfr_state)."""
+    scene = baked.with_camera(camera)
+    if cfg.bdpt.megakernel == "off" or not supports_megakernel(scene, cfg):
+        raise NotImplementedError(
+            f"megakernel={cfg.bdpt.megakernel!r} / a scene outside the frame "
+            f"kernel's scope needs the wavefront path; see {_WAVEFRONT_ITEM}")
+    jitter = pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
+    channels, frame_img = render_frame_megakernel(
+        scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
+        gbuf_frame=gbuf_frame)
+    accum, accum_img = accumulate(accum, frame_img,
+                                  cfg.accumulate.max_accum_count, reset=reset)
+    channels["Accumulated"] = accum_img
+    bmfr_state, denoised = bmfr_pass(bmfr_state, channels, camera, cfg.bmfr)
+    channels["PipelineOutput"] = denoised
+    return channels, accum, bmfr_state
+
+
+class Renderer:
+    """Progressive renderer over a baked scene, on the scene's device."""
+
+    def __init__(self, baked: BakedScene, config: RenderConfig):
+        self.baked = baked
+        self.cfg = config
+        self.camera = derive_camera(replace(
+            baked.data.camera,
+            aspect=torch.tensor(config.width / config.height, dtype=torch.float32)))
+        dev = baked.device
+        self.state = RenderState(
+            accum=AccumState.create(config.height, config.width, dev),
+            bmfr=BMFRState.create(config.height, config.width, dev))
+        self._prev_view_proj = self.camera.view_proj
+        self.channels: dict = {}
+
+    def render_frame(self):
+        reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
+        i = self.state.frame_index
+        self.channels, self.state.accum, self.state.bmfr = render_frame_fn(
+            self.baked, self.camera, self.state.accum, self.state.bmfr,
+            (GBUF_FRAME_INIT + i) & 0xFFFFFFFF, (BDPT_FRAME_INIT + i) & 0xFFFFFFFF,
+            reset, self.cfg)
+        self.state.frame_index += 1
+        self._prev_view_proj = self.camera.view_proj
+        # roll prevViewProj for the next frame's reprojection
+        self.camera = begin_frame(self.camera)
+        return self.channels["PipelineOutput"]
+
+    def render(self, n_frames: int):
+        out = None
+        for _ in range(n_frames):
+            out = self.render_frame()
+        return out
+
+    def display(self, channel: str = "PipelineOutput"):
+        """Tone-mapped image; the port has the reference's default 'clamp'."""
+        if self.cfg.tone_map_operator != "clamp":
+            raise NotImplementedError(
+                f"tone map {self.cfg.tone_map_operator!r}; see {_TONEMAP_ITEM}")
+        return torch.clamp(self.channels[channel][..., :3], 0.0, 1.0)
