@@ -2,17 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1 (frame megakernel), K2 (splat
-compaction) and K3 (splat tile reduction) from `fyp_bidirectionalpath
-tracer_tpu_torch/csrc/`, holds each against its plain PyTorch version at
-the main path's shapes, drives the port's main path (the Cornell box at
-1280x720, depth 3, BMFR off) through `Renderer`, checks that the path went
-through all three kernels and renders deterministically, and compares a
-64x64 render with the checked-in golden image.
+Builds every hand-written kernel from `fyp_bidirectionalpathtracer_tpu_
+torch/csrc/` (one nvcc process a source, in parallel): K1 (frame
+megakernel), K2 (splat compaction), K3 (splat tile reduction) and the K4
+intersectors (closest, shaded, any-hit).  Holds each against its plain
+PyTorch version at the shapes its path gives it, then drives both paths of
+the port through `Renderer` on the Cornell box at 1280x720, depth 3, BMFR
+off: the megakernel main path (K1 -> K2 -> sort -> K3) and the per-bounce
+wavefront (`megakernel="off"`: G-buffer and subpath extensions through the
+shaded kernel, three shadow batches through the any-hit kernel, the
+estimator-2 splat through K2 -> sort -> K3).  Each path is run with the
+launch counts set to 0 just before it and read just after; two renders of
+one frame must be bit-identical, the wavefront frame must agree with the
+megakernel frame and with its plain chain, and a 64x64 render through each
+path must match the checked-in golden image.
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
-standard output is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+standard output is {"ok": true, "device": {...}}; the line before it is the
+card's name and power limit, and the line before that lists the kernels
+with their launch counts, errors, times and bounds.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import subprocess
 import sys
 import time
 import zlib
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -33,6 +42,12 @@ RAYS_PER_PIXEL = 16      # bench.py's accounting at depth 3
 LIVE_FRAC = 0.15         # est-2 live share on the Cornell frame
 GOLDEN = os.path.join(REPO, "tests", "golden", "cornell_bdpt_8f_64.png")
 MIN_PSNR = 38.0          # the JAX package's golden bar
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# mul/add/sub/div of a Baldwin-Weber pair test (csrc/intersect.cuh) by the
+# stage it reaches: n.d; t where dir_ok; u, v and u + v where t is in range
+STAGE_FLOPS = (5, 7, 27)
+MIN_T = 1e-3                 # BDPTConfig.min_t
 
 
 def log(*a):
@@ -51,6 +66,47 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time of a function: bytes over the memory rate or flops
+    over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pair_flops(isect, tris, o, d, tmin, tmax, cull: bool, closest: bool) -> int:
+    """Operations the kernels' pair loop needs on rays [N] (component
+    tuples o, d; tmin, tmax [N]) against the triangle rows `tris`, by the
+    stage each pair reaches (STAGE_FLOPS): closest hit visits every
+    triangle and takes the third stage where t lies between tmin and the
+    best t of the lower ids so far; any-hit stops at its first hit and
+    takes the third stage where t lies in (tmin, tmax).  Counted in
+    [rays x tris] chunks from the plain pair test."""
+    n_tris = tris.shape[0]
+    ids = torch.arange(n_tris, device=tris.device)
+    s1, s2, s3 = STAGE_FLOPS
+    total = 0
+    for sl in isect._ray_chunks(tmin.shape[0], n_tris):
+        oc, dc = tuple(c[sl] for c in o), tuple(c[sl] for c in d)
+        lo, hi = tmin[sl, None], tmax[sl, None]
+        valid, t = isect._pair_test(tris, oc, dc, tmin[sl], tmax[sl], cull)
+        ndir = (tris[None, :, 0] * dc[0][:, None] + tris[None, :, 1] * dc[1][:, None]
+                + tris[None, :, 2] * dc[2][:, None])
+        dir_ok = ndir < -1e-9 if cull else ndir.abs() > 1e-9
+        if closest:
+            best = torch.where(valid, t, torch.inf).cummin(1).values
+            limit = torch.minimum(torch.cat([hi, best[:, :-1]], 1), hi)
+            visited = torch.ones_like(valid)
+        else:
+            limit = hi
+            first = torch.where(valid.any(1), valid.to(torch.uint8).argmax(1), n_tris - 1)
+            visited = ids[None] <= first[:, None]
+        reached = visited & dir_ok
+        total += (s1 * int(visited.sum()) + s2 * int(reached.sum())
+                  + s3 * int((reached & (t > lo) & (t < limit)).sum()))
+    return total
 
 
 def read_png_rgb8(path: str) -> np.ndarray:
@@ -102,29 +158,50 @@ def psnr_u8(img: np.ndarray, golden: np.ndarray) -> float:
     return float("inf") if mse <= 0 else 10.0 * np.log10(1.0 / mse)
 
 
+def image_stats(a, b, frac_max=0.02, mad_max=5e-3, dmean_max=2e-3):
+    """(share of pixels off by > 1e-3, mean |d|, mean radiance difference,
+    ok); the defaults are the same-path CPU parity bounds."""
+    d = (a - b).abs()
+    frac = float((d.amax(-1) > 1e-3).float().mean())
+    mad, dmean = float(d.mean()), abs(float(a[..., :3].mean() - b[..., :3].mean()))
+    return frac, mad, dmean, frac <= frac_max and mad < mad_max and dmean < dmean_max
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
     from fyp_bidirectionalpathtracer_tpu_torch import cuda
     from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
-    from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, splat_tile
-    from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
-    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import (
-        BDPT_FRAME_INIT,
-        GBUF_FRAME_INIT,
-        Renderer,
-    )
-    from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
-    from fyp_bidirectionalpathtracer_tpu_torch.shared import (
-        BDPTConfig,
-        RenderConfig,
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
+    from fyp_bidirectionalpathtracer_tpu_torch.core import rng
+    from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
+    from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
         cornell_box,
         icosphere,
         many_light_scene,
     )
+    from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, splat_tile
+    from fyp_bidirectionalpathtracer_tpu_torch.ops.shading import make_shaded_tracer
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import (
+        pixel_jitter_for_frame,
+        ray_traced_gbuffer,
+    )
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import (
+        BDPT_FRAME_INIT,
+        GBUF_FRAME_INIT,
+        Renderer,
+        render_frame_fn,
+    )
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -135,9 +212,9 @@ def main() -> int:
     cuda.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
     kernels = {}
+    n_pix = WIDTH * HEIGHT
 
     # ---- phase 2: K2 at the main path's shape ----------------------------
-    n_pix = WIDTH * HEIGHT
     u = DEPTH * n_pix
     sent = ((n_pix + 1023) // 1024) * 1024
     g = torch.Generator().manual_seed(0)
@@ -155,9 +232,13 @@ def main() -> int:
         raise AssertionError("K2 differs from its plain version")
     k2_ms = time_ms(lambda: compact.compact_live(keys_d, pay_d, n_pix, sent), 20)
     k2_plain = time_ms(lambda: compact.compact_plain(keys_d, pay_d, n_pix, sent), 5)
+    # one PyTorch call that groups the updates by pixel as K2 + sort do
+    k2_lib = time_ms(lambda: torch.sort(keys_d, stable=True), 20)
     log(f"K2 compaction U={u} live={n_live}: bit-equal; kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain:.4f} ms")
-    kernels["compact"] = dict(max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain)
+        f"plain {k2_plain:.4f} ms, torch.sort(stable) of all U {k2_lib:.4f} ms")
+    # bytes: keys and payloads read once and written once
+    kernels["compact"] = dict(max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain,
+                              library_ms=k2_lib, **bound(16.0 * u, 0.0))
 
     # ---- phase 3: K3 on the sorted live prefix ---------------------------
     ls, order = torch.sort(kk[:n_live], stable=True)
@@ -171,9 +252,16 @@ def main() -> int:
     k3_err = float((out_k - out_p).abs().max())
     k3_ms = time_ms(lambda: splat_tile.splat_reduce(ls, p8, n_pix), 20)
     k3_plain = time_ms(lambda: splat_tile.reduce_sorted_plain(ls, p8, n_pix), 5)
+    rows4 = torch.cat([torch.stack(splat_tile.unpack_rgb8e(p8), 1),
+                       torch.ones((n_live, 1), device=dev)], 1)
+    idx = ls.long()
+    k3_lib = time_ms(lambda: torch.zeros((n_pix, 4), device=dev).index_add_(0, idx, rows4), 20)
     log(f"K3 reduction M={n_live}: counts equal, rgb max |err| {k3_err:.3e} "
-        f"(rtol 1e-5, atol 1e-6); kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms")
-    kernels["splat_tile"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain)
+        f"(rtol 1e-5, atol 1e-6); kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, "
+        f"index_add_ {k3_lib:.4f} ms")
+    kernels["splat_tile"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
+                                 library_ms=k3_lib,
+                                 **bound(8.0 * n_live + 16.0 * n_pix, 0.0))
 
     # ---- phase 4: K1 against its plain version ---------------------------
     def scene(name, w, h):
@@ -182,17 +270,11 @@ def main() -> int:
             built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
         return Scene.from_built(built, aspect=w / h).bake(device=dev)
 
-    cfg_for = lambda w, h: RenderConfig(width=w, height=h,  # noqa: E731
-                                        bdpt=BDPTConfig(max_depth=DEPTH))
-    jitter = pixel_jitter_for_frame(BDPT_FRAME_INIT)
+    def cfg_for(w, h, megakernel="auto"):
+        return RenderConfig(width=w, height=h,
+                            bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel))
 
-    def image_stats(a, b):
-        """The CPU parity bounds on images: share of pixels off by > 1e-3
-        (<= 0.02), mean |d| (< 5e-3), mean radiance difference (< 2e-3)."""
-        d = (a - b).abs()
-        frac = float((d.amax(-1) > 1e-3).float().mean())
-        mad, dmean = float(d.mean()), abs(float(a[..., :3].mean() - b[..., :3].mean()))
-        return frac, mad, dmean, frac <= 0.02 and mad < 5e-3 and dmean < 2e-3
+    jitter = pixel_jitter_for_frame(BDPT_FRAME_INIT)
 
     # three scenes at 256x144; one size that is no multiple of the 128-thread
     # block, so the kernel's tail runs; the main path's 1280x720
@@ -225,22 +307,48 @@ def main() -> int:
                 and int(both.sum()) > 0):
             raise AssertionError(f"K1 differs from its plain version on {name} {w}x{h}")
     # `args` and `baked` are the 1280x720 Cornell frame's now
+    cornell = baked
     k1_ms = time_ms(lambda: frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack), 10)
     k1_plain = time_ms(lambda: frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack),
                        1, warmup=1)
     log(f"K1 alone at {WIDTH}x{HEIGHT} Cornell: kernel {k1_ms:.4f} ms, plain {k1_plain:.2f} ms")
+    # bound: bytes: the four output rows plus 20 G-buffer rows (float32) and
+    # two int32 splat rows a depth; operations: the pair tests of the rays
+    # the plain frame traces (those the kernel traces), by the stage each
+    # pair reaches; the shading arithmetic is left out, so the bound is low
+    k1_flops = 0
+    closest_rows, any_hit_rows = frame_mod.closest_rows, frame_mod.any_hit_rows
+
+    def counted_closest(tris, n_tris, o, d, tmin, tmax, cull_backface):
+        nonlocal k1_flops
+        k1_flops += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, cull_backface, True)
+        return closest_rows(tris, n_tris, o, d, tmin, tmax, cull_backface)
+
+    def counted_any_hit(tris, n_tris, o, d, tmin, tmax):
+        nonlocal k1_flops
+        k1_flops += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, False, False)
+        return any_hit_rows(tris, n_tris, o, d, tmin, tmax)
+
+    frame_mod.closest_rows, frame_mod.any_hit_rows = counted_closest, counted_any_hit
+    try:
+        frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
+    finally:
+        frame_mod.closest_rows, frame_mod.any_hit_rows = closest_rows, any_hit_rows
+    k1_bytes = n_pix * 4.0 * (4 + 20 + 2 * DEPTH)
+    log(f"K1 bound: {k1_bytes:.0f} bytes, {k1_flops} pair-test operations")
     # max_abs_err includes the edge-tie pixels the statistical bounds admit;
     # max_frac_over_1e-3 is the worst share of pixels off by more than 1e-3
     kernels["frame"] = dict(max_abs_err=k1_err, max_frac_over_1e_3=k1_frac,
-                            ms=k1_ms, plain_ms=k1_plain)
+                            ms=k1_ms, plain_ms=k1_plain, library_ms=None,
+                            **bound(k1_bytes, k1_flops))
 
     # the whole frame after the splats: K1 + K2 + sort + K3 against the
     # plain chain, through `render_frame_megakernel`
     for w, h in ((250, 143), (WIDTH, HEIGHT)):
         cb = scene("cornell", w, h)
         got = [frame_mod.render_frame_megakernel(
-            cb, w, h, BDPT_FRAME_INIT, jitter, cfg_for(w, h),
-            gbuf_frame=GBUF_FRAME_INIT, plain=plain)[1] for plain in (False, True)]
+            replace(cb, plain=plain), w, h, BDPT_FRAME_INIT, jitter, cfg_for(w, h),
+            gbuf_frame=GBUF_FRAME_INIT)[1] for plain in (False, True)]
         frac_img, mad, dmean, img_ok = image_stats(*got)
         log(f"frame with splats {w}x{h}, kernels vs plain chain: frac>1e-3 "
             f"{frac_img:.4f} (<= 0.02), mean|d| {mad:.2e} (< 5e-3), mean radiance "
@@ -249,65 +357,266 @@ def main() -> int:
             raise AssertionError(f"the frame with splats differs from the plain chain "
                                  f"at {w}x{h}")
 
-    # ---- phase 5: the main path --------------------------------------------
-    cfg = cfg_for(WIDTH, HEIGHT)
-    renderer = Renderer(baked, cfg)
-    warmup, frames = 3, 10
+    # ---- phase 4b: the K4 intersectors against their plain versions ------
+    def gbuffer_rays(bk, w, h):
+        d = camera_ray_dirs(bk.data.camera, w, h, jitter, device=dev)
+        d = d / d.norm(dim=-1, keepdim=True)
+        return bk.data.camera.pos_w.to(dev).expand(d.shape).contiguous(), d.contiguous()
+
+    def k4_rays(bk, w, h):
+        """The shapes the wavefront gives the kernels: G-buffer rays [H, W]
+        (cull on); one extension batch [H, W] (cull off): BRDF samples from
+        the G-buffer hits; an est-3-shaped shadow batch [4, H, W]: from the
+        G-buffer hits toward random points of the box, 30% of the lanes
+        empty (t_max = 0), as the pre-masking leaves them."""
+        o_g, d_g = gbuffer_rays(bk, w, h)
+        hit, fields = isect.intersect_shaded_fm(bk.tri_pack, bk.n_tris, o_g, d_g, 0.0,
+                                                None, True)
+        pos = o_g + hit.t[..., None] * d_g
+        nrm = torch.movedim(fields[4:7], 0, -1)
+        nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp(min=1e-20)
+        seed = rng.pixel_seeds(w, h, BDPT_FRAME_INIT, device=dev)
+        _, l_dir = cos_hemisphere_sample(seed, nrm)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        target = torch.rand((4, h, w, 3), generator=gen, device=dev)
+        vec = target - pos
+        length = vec.norm(dim=-1)
+        empty = torch.rand((4, h, w), generator=gen, device=dev) < 0.3
+        tmax = torch.where(empty | ~hit.hit, 0.0, length - MIN_T)
+        o_s = pos.expand(4, h, w, 3).contiguous()
+        return ((o_g, d_g), (pos.contiguous(), l_dir.contiguous()),
+                (o_s, (vec / length[..., None]).contiguous(), tmax))
+
+    def hits_within_bounds(k, p, kf=None, pf=None):
+        """The K4 bounds (tests/test_torch_intersect.py): ids equal but on
+        ties (both hit, t within rtol 1e-5), t within rtol 1e-5, fields
+        within atol 2e-4.  Returns (ok, max |err|, share bit-equal)."""
+        differs = k.tri != p.tri
+        t_ok = bool(torch.isclose(k.t, p.t, rtol=1e-5, atol=1e-7).all())
+        ties_ok = bool(((k.tri >= 0) & (p.tri >= 0))[differs].all())
+        err = float((k.t - p.t).abs()[~differs].max()) if bool((~differs).any()) else 0.0
+        same_bits = float((k.t.view(torch.int32) == p.t.view(torch.int32)).float().mean())
+        fields_ok = True
+        if kf is not None:
+            df = (kf - pf).abs()[:, ~differs]
+            err = max(err, float(df.max()))
+            fields_ok = bool((df <= 2e-4).all())
+        return t_ok and ties_ok and fields_ok, err, same_bits
+
+    def check_k4(bk, w, h, record: bool):
+        (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(bk, w, h)
+        args = (bk.tri_pack, bk.n_tris)
+        n = w * h
+        results = {}
+        for label, (o, d, tmin, cull) in (("G-buffer", (o_g, d_g, 0.0, True)),
+                                          ("extension", (o_e, d_e, MIN_T, False))):
+            kh, kf = isect.intersect_shaded_fm(*args, o, d, tmin, None, cull)
+            ph, pf = isect.shaded_plain(*args, o, d, tmin, None, cull)
+            ok_s, err_s, bits_s = hits_within_bounds(kh, ph, kf, pf)
+            kc = isect.intersect_closest(*args, o, d, tmin, None, cull)
+            pc = isect.closest_plain(*args, o, d, tmin, None, cull)
+            ok_c, err_c, bits_c = hits_within_bounds(kc, pc)
+            torch.cuda.synchronize()
+            log(f"K4 {bk.n_tris} tris {w}x{h} {label} rays (cull {cull}): shaded within "
+                f"bounds {ok_s}, max |err| {err_s:.3e}, t bit-equal on {bits_s:.6f}; closest "
+                f"within bounds {ok_c}, max |err| {err_c:.3e}, t bit-equal on {bits_c:.6f}; "
+                f"hits {int(kh.hit.sum())} of {n}")
+            if not (ok_s and ok_c):
+                raise AssertionError(f"K4 differs from its plain version ({label}, "
+                                     f"{bk.n_tris} tris, {w}x{h})")
+            results.setdefault("shaded", []).append((err_s, (o, d, tmin, cull)))
+            results.setdefault("closest", []).append((err_c, (o, d, tmin, cull)))
+        ko = isect.occluded(*args, o_s, d_s, MIN_T, tm_s)
+        po = isect.occluded_plain(*args, o_s, d_s, MIN_T, tm_s)
+        torch.cuda.synchronize()
+        eq = bool(torch.equal(ko, po))
+        log(f"K4 any-hit {bk.n_tris} tris [4, {h}, {w}] shadow batch, "
+            f"{int((tm_s > 0).sum())} live lanes: bits equal {eq}, occluded {int(ko.sum())}")
+        if not eq:
+            raise AssertionError(f"K4 any-hit differs from its plain version "
+                                 f"({bk.n_tris} tris, {w}x{h})")
+        # times on the G-buffer rays (shaded, closest) and the shadow batch
+        lib = cuda.library()
+        stream = cuda.stream(dev)
+        rows_g, _ = isect._rays(o_g, d_g, 0.0, None)
+        rows_s, _ = isect._rays(o_s, d_s, MIN_T, tm_s)
+        ns = rows_s.shape[1]
+        fields = torch.empty((isect.OUT_W, n), device=dev)
+        t_ = torch.empty(n, device=dev)
+        id_ = torch.empty(n, dtype=torch.int32, device=dev)
+        u_, v_ = torch.empty_like(t_), torch.empty_like(t_)
+        occ = torch.empty(ns, dtype=torch.bool, device=dev)
+        p = cuda.ptr
+        launches = {
+            "shaded": lambda: lib.bdpt_intersect_shaded(p(rows_g), n, p(bk.tri_pack), bk.n_tris,
+                                                        1, p(fields), stream),
+            "closest": lambda: lib.bdpt_intersect_closest(p(rows_g), n, p(bk.tri_pack),
+                                                          bk.n_tris, 1, p(t_), p(id_), p(u_),
+                                                          p(v_), stream),
+            "occluded": lambda: lib.bdpt_occluded(p(rows_s), ns, p(bk.tri_pack), bk.n_tris,
+                                                  p(occ), stream),
+        }
+        plains = {
+            "shaded": lambda: isect.shaded_plain(*args, o_g, d_g, 0.0, None, True),
+            "closest": lambda: isect.closest_plain(*args, o_g, d_g, 0.0, None, True),
+            "occluded": lambda: isect.occluded_plain(*args, o_s, d_s, MIN_T, tm_s),
+        }
+        # bytes: the eight float32 ray rows in; out 32 float32 fields
+        # (shaded), t id u v (closest), one byte (any-hit); operations: the
+        # pair tests these rays need (pair_flops)
+        out_bytes = {"shaded": 4.0 * isect.OUT_W, "closest": 16.0, "occluded": 1.0}
+        tris = bk.tri_pack[:bk.n_tris]
+        o_g_, d_g_, tmin_g, tmax_g = isect._components(rows_g)
+        o_s_, d_s_, tmin_s, tmax_s = isect._components(rows_s)
+        flops_g = pair_flops(isect, tris, o_g_, d_g_, tmin_g, tmax_g, True, True)
+        flops = {"shaded": flops_g, "closest": flops_g,
+                 "occluded": pair_flops(isect, tris, o_s_, d_s_, tmin_s, tmax_s, False, False)}
+        for name in ("shaded", "closest", "occluded"):
+            rays = ns if name == "occluded" else n
+            ms = time_ms(lambda: cuda.check_error(name, launches[name]()), 20)
+            plain_ms = time_ms(plains[name], 3)
+            bd = bound(rays * (32.0 + out_bytes[name]) + 48.0 * 4 * bk.n_tris,
+                       float(flops[name]))
+            log(f"K4 {name} {bk.n_tris} tris, {rays} rays: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+                f"{flops[name]} pair-test operations)")
+            if record:
+                err = (max(e for e, _ in results[name]) if name in results else 0.0)
+                kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, **bd)
+
+    check_k4(cornell, WIDTH, HEIGHT, record=True)
+    check_k4(scene("cornell_icosphere", 256, 144), 256, 144, record=False)
+
+    # the closest kernel on its path: the unfused tracer's G-buffer
+    # (make_intersector closest hit + prepare_shading_data) against the
+    # fused tracer's, at a size that is no multiple of the block
+    cb = scene("cornell", 250, 143)
     cuda.reset_launch_counts()
-    for _ in range(warmup):
-        renderer.render_frame()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    unfused = ray_traced_gbuffer(cb, make_shaded_tracer(cb, force_fused=False), 250, 143,
+                                 GBUF_FRAME_INIT, jitter)
     torch.cuda.synchronize()
-    t_host = time.perf_counter()
-    start.record()
-    for _ in range(frames):
-        out = renderer.render_frame()
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t_host) * 1e3 / frames
-    launches = dict(cuda.LAUNCHES)
-    ms = start.elapsed_time(end) / frames
-    mrays = n_pix * RAYS_PER_PIXEL / (ms * 1e-3) / 1e6
-    log(f"main path {WIDTH}x{HEIGHT} d={DEPTH}: {ms:.4f} ms/frame, {mrays:.1f} Mrays/s "
-        f"({RAYS_PER_PIXEL} rays/pixel; host clock {host_ms:.4f} ms/frame), "
-        f"launches {launches}")
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("main path output is not finite")
-    if tuple(out.shape) != (HEIGHT, WIDTH, 4) or int(renderer.state.accum.count) != warmup + frames:
-        raise AssertionError("main path output has the wrong shape or count")
+    kernels["closest"]["launches"] = cuda.LAUNCHES["closest"]
+    fused = ray_traced_gbuffer(cb, make_shaded_tracer(cb), 250, 143, GBUF_FRAME_INIT, jitter)
+    worst = max(float(((fused[k] - unfused[k]).abs().amax(-1) > 1e-3).float().mean())
+                for k in fused)
+    log(f"closest-hit G-buffer path 250x143 (make_shaded_tracer(force_fused=False)) vs "
+        f"the fused tracer: worst channel frac>1e-3 {worst:.4f} (<= 0.01), closest "
+        f"launches {kernels['closest']['launches']}")
+    if not (worst <= 0.01 and kernels["closest"]["launches"] >= 1):
+        raise AssertionError("the closest-hit G-buffer differs from the fused one")
+
+    # ---- phase 4c: the wavefront frame against its plain chain ------------
+    wcb = scene("cornell", 250, 143)
+    frames = []
+    for plain in (False, True):
+        ch, _, _ = render_frame_fn(replace(wcb, plain=plain), wcb.data.camera,
+                                   AccumState.create(143, 250, dev),
+                                   BMFRState.create(143, 250, dev), GBUF_FRAME_INIT,
+                                   BDPT_FRAME_INIT, False, cfg_for(250, 143, "off"))
+        frames.append(ch["BDPT"])
+    frac_img, mad, dmean, img_ok = image_stats(*frames)
+    log(f"wavefront frame 250x143, kernels vs plain chain: frac>1e-3 {frac_img:.4f} "
+        f"(<= 0.02), mean|d| {mad:.2e} (< 5e-3), mean radiance d {dmean:.2e} (< 2e-3)")
+    if not img_ok:
+        raise AssertionError("the wavefront frame differs from its plain chain")
+
+    # ---- phase 5: the two paths at 1280x720 ---------------------------------
+    def drive(megakernel):
+        """3 warm-up and 10 timed frames through Renderer, counts from 0."""
+        renderer = Renderer(cornell, cfg_for(WIDTH, HEIGHT, megakernel))
+        warmup, frames = 3, 10
+        cuda.reset_launch_counts()
+        for _ in range(warmup):
+            renderer.render_frame()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start.record()
+        for _ in range(frames):
+            out = renderer.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / frames
+        launches = dict(cuda.LAUNCHES)
+        ms = start.elapsed_time(end) / frames
+        mrays = n_pix * RAYS_PER_PIXEL / (ms * 1e-3) / 1e6
+        log(f"{megakernel} path {WIDTH}x{HEIGHT} d={DEPTH}: {ms:.4f} ms/frame, "
+            f"{mrays:.1f} Mrays/s ({RAYS_PER_PIXEL} rays/pixel; host clock {host_ms:.4f} "
+            f"ms/frame), launches in {warmup + frames} frames {launches}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{megakernel} path output is not finite")
+        if (tuple(out.shape) != (HEIGHT, WIDTH, 4)
+                or int(renderer.state.accum.count) != warmup + frames):
+            raise AssertionError(f"{megakernel} path output has the wrong shape or count")
+        twice = []
+        for _ in range(2):
+            r = Renderer(cornell, cfg_for(WIDTH, HEIGHT, megakernel))
+            r.render_frame()
+            twice.append({k: v.clone() for k, v in r.channels.items()})
+        if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
+            raise AssertionError(f"the same frame rendered twice differs ({megakernel})")
+        log(f"{megakernel}: the same frame rendered twice is bit-identical")
+        return launches, warmup + frames, twice[0]["BDPT"]
+
+    mk_launches, n_frames, mk_frame = drive("auto")
     for key in ("frame", "compact", "splat_tile"):
-        if launches[key] < frames:
-            raise AssertionError(f"kernel {key} launched {launches[key]} times in "
-                                 f"{warmup + frames} frames")
-    twice = []
-    for _ in range(2):
-        r = Renderer(baked, cfg)
-        r.render_frame()
-        twice.append({k: v.clone() for k, v in r.channels.items()})
-    if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
-        raise AssertionError("the same frame rendered twice differs")
-    log("same frame rendered twice: bit-identical")
+        if mk_launches[key] != n_frames:
+            raise AssertionError(f"kernel {key} launched {mk_launches[key]} times in "
+                                 f"{n_frames} megakernel frames")
+    wf_launches, n_frames, wf_frame = drive("off")
+    # shaded: the G-buffer, DEPTH - 1 camera and DEPTH light extensions;
+    # any-hit: the est-1, est-3 and est-2 shadow batches
+    per_frame = {"shaded": 1 + (DEPTH - 1) + DEPTH, "occluded": 3, "compact": 1,
+                 "splat_tile": 1, "frame": 0, "closest": 0}
+    for key, want in per_frame.items():
+        if wf_launches[key] != want * n_frames:
+            raise AssertionError(f"kernel {key} launched {wf_launches[key]} times in "
+                                 f"{n_frames} wavefront frames, want {want} a frame")
+    log(f"wavefront launches a frame: {per_frame} (as required)")
+    frac_img, mad, dmean, img_ok = image_stats(wf_frame, mk_frame, 0.08, 0.02, 5e-3)
+    log(f"wavefront vs megakernel frame {WIDTH}x{HEIGHT}, same seeds: frac>1e-3 "
+        f"{frac_img:.4f} (<= 0.08), mean|d| {mad:.2e} (< 0.02), mean radiance d "
+        f"{dmean:.2e} (< 5e-3)")
+    if not img_ok:
+        raise AssertionError("the wavefront frame differs from the megakernel frame")
+    launches = {"frame": mk_launches["frame"], "compact": mk_launches["compact"],
+                "splat_tile": mk_launches["splat_tile"], "shaded": wf_launches["shaded"],
+                "occluded": wf_launches["occluded"]}
+    launches["closest"] = kernels["closest"].pop("launches")
+    # the run each kernel's launch count comes from
+    paths = {name: f"megakernel {WIDTH}x{HEIGHT}, {n_frames} frames"
+             for name in ("frame", "compact", "splat_tile")}
+    paths.update({name: f"wavefront {WIDTH}x{HEIGHT}, {n_frames} frames"
+                  for name in ("shaded", "occluded")})
+    paths["closest"] = "gbuffer force_fused=False 250x143, 1 frame"
 
-    # ---- phase 6: golden ------------------------------------------------------
-    small = Renderer(scene("cornell", 64, 64), RenderConfig(width=64, height=64))
-    small.render(8)
-    value = psnr_u8(small.display().cpu().numpy(), read_png_rgb8(GOLDEN))
-    log(f"golden cornell_bdpt_8f_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
-    if not value >= MIN_PSNR:
-        raise AssertionError("golden image mismatch")
+    # ---- phase 6: goldens ---------------------------------------------------
+    golden = read_png_rgb8(GOLDEN)
+    for mk in ("auto", "off"):
+        small = Renderer(scene("cornell", 64, 64),
+                         RenderConfig(width=64, height=64, bdpt=BDPTConfig(megakernel=mk)))
+        small.render(8)
+        value = psnr_u8(small.display().cpu().numpy(), golden)
+        log(f"golden cornell_bdpt_8f_64 (megakernel {mk}): PSNR {value:.2f} dB "
+            f"(>= {MIN_PSNR})")
+        if not value >= MIN_PSNR:
+            raise AssertionError(f"golden image mismatch (megakernel {mk})")
 
+    pkg = "fyp_bidirectionalpathtracer_tpu_torch/csrc/"
     meta = {
-        "frame": ("fyp_bidirectionalpathtracer_tpu_torch/csrc/frame.cu",
-                  "fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py:550"),
-        "compact": ("fyp_bidirectionalpathtracer_tpu_torch/csrc/compact.cu",
-                    "fyp_bidirectionalpathtracer_tpu/ops/compact.py:100"),
-        "splat_tile": ("fyp_bidirectionalpathtracer_tpu_torch/csrc/splat_tile.cu",
-                       "fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py:119"),
+        "frame": ("frame.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py:550"),
+        "compact": ("compact.cu", "fyp_bidirectionalpathtracer_tpu/ops/compact.py:100"),
+        "splat_tile": ("splat_tile.cu", "fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py:119"),
+        "closest": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_intersect.py:109"),
+        "shaded": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_lane.py:259"),
+        "occluded": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_lane.py:205"),
     }
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], **kernels[name]}
-        for name in ("frame", "compact", "splat_tile")]}))
+        {"name": name, "route": "cuda", "source": pkg + meta[name][0],
+         "replaces": meta[name][1], "launches": launches[name], "path": paths[name],
+         **kernels[name]}
+        for name in ("frame", "compact", "splat_tile", "shaded", "closest", "occluded")]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,22 +2,29 @@
 
 A second package beside the JAX/Pallas renderer in
 `fyp_bidirectionalpathtracer_tpu/`, which stays the reference it is held
-against.  This slice covers the main path only: the procedural Cornell
-box through the whole-frame megakernel, the estimator-2 splat reduction
-and temporal accumulation.
+against.  It covers untextured scenes of at most 2048 triangles with a
+constant env map, on two paths: the whole-frame megakernel and the
+per-bounce wavefront (`megakernel="off"`), each with the estimator-2 splat
+reduction and temporal accumulation.
 
 Layer map (JAX counterpart in parentheses):
   core/      TEA/LCG RNG, vector helpers, samplers     (core/)
+  models/    procedural scenes (a copy)                 (models/procedural.py)
+  utils/     render configuration (a copy)              (utils/config.py)
   scene/     scene bake, camera, lights, types          (scene/)
-  accel/     triangle pack + frame megakernel K1        (accel/pallas_frame.py)
-  ops/       splat compaction K2, tile reduction K3     (ops/compact.py, ops/splat_tile.py)
-  passes/    jitter, accumulation, BMFR passthrough     (passes/)
-  pipeline/  render_frame_fn and Renderer               (pipeline/renderer.py)
+  accel/     triangle pack, BVH order (a copy), frame   (accel/)
+             megakernel K1, dense intersectors K4
+  ops/       splat K2 + K3, BRDF and materials,         (ops/)
+             shading decode
+  passes/    G-buffer, BDPT wavefront, accumulation,    (passes/)
+             BMFR passthrough
+  pipeline/  render_frame_fn and Renderer, profiler     (pipeline/)
   csrc/      the hand-written CUDA C++ kernels, built by `cuda.py`
 
 Every kernel has a plain PyTorch version in the same module.  A wrapper
 runs the plain version only for tensors on the CPU; for a CUDA tensor it
-launches its kernel or raises.  The package imports torch and never jax.
+launches its kernel or raises.  The package imports torch and nothing of
+JAX or of the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,12 @@ light-tracing splat rows, thin lens.
 K1 replaces the TPU kernel `accel/pallas_frame.py:frame_kernel`.  Its CUDA
 source is `csrc/frame.cu` (one thread per pixel; see the note there).
 `frame_plain` below is the same program vectorised over [N] pixel tensors,
-a literal translation of the JAX kernel; closest hit is an [N, T]
-Baldwin-Weber test where the lowest triangle index wins at equal t.
+a literal translation of the JAX kernel; closest hit is the [N, T]
+Baldwin-Weber test of `accel/intersect.py`, where the lowest triangle index
+wins at equal t.  It traces the rays the kernel traces and no others: no
+finished path, no shadow ray of a zero throughput or of a dead splat (the
+results are the same either way, and its trace calls see the kernel's ray
+work).
 `frame_kernel` is the wrapper: it runs `frame_plain` for CPU tensors and
 launches K1 for CUDA tensors.
 
@@ -48,6 +52,7 @@ from ..core.vecmath import (
 )
 from ..ops.splat_tile import pack_rgb8e
 from ..scene.types import LIGHT_DIRECTIONAL, SHADING_METAL_ROUGH
+from .intersect import any_hit_rows, closest_rows, winner_uv
 
 _BIG = 1e30
 N_GBUF_ROWS = 20
@@ -282,77 +287,39 @@ def _nee_shade(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model):
 
 
 # ---------------------------------------------------------- intersection
-_PAIR_BUDGET = 1 << 24  # [rays x tris] elements per pair-test chunk
+def _closest_on(lanes, tris, n_tris, o, d, tmin, tmax, cull_backface):
+    """closest_rows on the lanes the kernel traces (every lane for None);
+    a miss (t = tmax, id -1) on the others."""
+    if lanes is None:
+        return closest_rows(tris, n_tris, o, d, tmin, tmax, cull_backface)
+    idx = lanes.nonzero().squeeze(1)
+    got = closest_rows(tris, n_tris, tuple(c[idx] for c in o), tuple(c[idx] for c in d),
+                       tmin[idx], tmax[idx], cull_backface)
+    hit, t = torch.zeros_like(lanes), tmax.clone()
+    best = torch.full(lanes.shape, -1, dtype=torch.int64, device=lanes.device)
+    hit[idx], t[idx], best[idx] = got
+    return hit, t, best
 
 
-def _pair_test(tris, o, d, tmin, tmax, cull_backface):
-    """[N, T] Baldwin-Weber test (`pallas_lane._pair_test`, rays x tris)."""
-    col = lambda k: tris[:, k][None, :]  # noqa: E731
-    ox, oy, oz = (c[:, None] for c in o)
-    dx, dy, dz = (c[:, None] for c in d)
-    nx, ny, nz, nv0 = col(0), col(1), col(2), col(3)
-    ndir = nx * dx + ny * dy + nz * dz
-    dir_ok = ndir < -1e-9 if cull_backface else ndir.abs() > 1e-9
-    t = (nv0 - (nx * ox + ny * oy + nz * oz)) / torch.where(
-        dir_ok, ndir, torch.ones_like(ndir))
-    r1x, r1y, r1z, r1v0 = col(4), col(5), col(6), col(7)
-    u = (r1x * ox + r1y * oy + r1z * oz - r1v0) + t * (r1x * dx + r1y * dy + r1z * dz)
-    r2x, r2y, r2z, r2v0 = col(8), col(9), col(10), col(11)
-    v = (r2x * ox + r2y * oy + r2z * oz - r2v0) + t * (r2x * dx + r2y * dy + r2z * dz)
-    valid = (dir_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-             & (t > tmin[:, None]) & (t < tmax[:, None]))
-    return valid, t
-
-
-def _ray_chunks(n_rays, n_tris):
-    step = max(1, _PAIR_BUDGET // max(n_tris, 1))
-    return [slice(s, s + step) for s in range(0, n_rays, step)]
-
-
-def _closest(tris, n_tris, o, d, tmin, cull_backface):
-    """Closest hit: (hit, t, tri id); at equal t the lowest id wins."""
-    tri = tris[:n_tris]
-    n = o[0].shape[0]
-    best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o[0].device)
-    best_id = torch.full((n,), -1, dtype=torch.int64, device=o[0].device)
-    ids = torch.arange(n_tris, device=o[0].device)
-    for sl in _ray_chunks(n, n_tris):
-        valid, t = _pair_test(tri, tuple(c[sl] for c in o),
-                              tuple(c[sl] for c in d), tmin[sl],
-                              best_t[sl], cull_backface)
-        t_m = torch.where(valid, t, torch.full_like(t, _BIG))
-        col_min = t_m.min(dim=1).values
-        first = torch.where((t_m == col_min[:, None]) & valid, ids,
-                            n_tris).min(dim=1).values
-        hit = valid.any(dim=1)
-        best_t[sl] = torch.where(hit, col_min, best_t[sl])
-        best_id[sl] = torch.where(hit, first, best_id[sl])
-    return best_id >= 0, best_t, best_id
-
-
-def _occluded(tris, n_tris, o, d, tmin, tmax):
-    """Any hit in (tmin, tmax), no culling."""
-    tri = tris[:n_tris]
-    n = o[0].shape[0]
-    occ = torch.zeros((n,), dtype=torch.bool, device=o[0].device)
-    for sl in _ray_chunks(n, n_tris):
-        valid, _ = _pair_test(tri, tuple(c[sl] for c in o),
-                              tuple(c[sl] for c in d), tmin[sl], tmax[sl],
-                              False)
-        occ[sl] = valid.any(dim=1)
+def _any_hit_on(lanes, tris, n_tris, o, d, tmin, tmax):
+    """any_hit_rows on the lanes the kernel traces; not occluded on the
+    others."""
+    idx = lanes.nonzero().squeeze(1)
+    occ = torch.zeros_like(lanes)
+    occ[idx] = any_hit_rows(tris, n_tris, tuple(c[idx] for c in o),
+                            tuple(c[idx] for c in d), tmin[idx], tmax[idx])
     return occ
 
 
-def _trace(tris, n_tris, o, d, tmin, cull_backface):
-    """Closest hit plus the winner's attributes (`_trace_rows`)."""
-    hit, t_, best_id = _closest(tris, n_tris, o, d, tmin, cull_backface)
+def _trace(tris, n_tris, o, d, tmin, cull_backface, lanes=None):
+    """Closest hit plus the winner's attributes (`_trace_rows`) on `lanes`
+    (every lane for None)."""
+    hit, t_, best_id = _closest_on(lanes, tris, n_tris, o, d, tmin,
+                                   torch.full_like(tmin, _BIG), cull_backface)
     a = tris[best_id.clamp(min=0)]
     a = torch.where(hit[:, None], a, torch.zeros_like(a))
     attr = lambda k: a[:, k]  # noqa: E731
-    r1 = (attr(4), attr(5), attr(6))
-    r2 = (attr(8), attr(9), attr(10))
-    u = (dot3(r1, o) - attr(7)) + t_ * dot3(r1, d)
-    v = (dot3(r2, o) - attr(11)) + t_ * dot3(r2, d)
+    u, v = winner_uv(a, o, d, t_)
     w = 1.0 - u - v
     hf = hit.to(torch.float32)
     u, v, w = u * hf, v * hf, w * hf
@@ -541,7 +508,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     def shoot(state):
         """passes.bdpt.shoot_ray per lane."""
         active = ~state["term"]
-        tr_b = _trace(tris, n_tris, state["o"], state["d"], min_t_tiles, False)
+        tr_b = _trace(tris, n_tris, state["o"], state["d"], min_t_tiles, False, active)
         sd_b = _decode_shading(tr_b, state["o"])
         seed_b, w_b, l_b, pdf_b, isspec_b, _ = sample_brdf(
             state["seed"], sd_b["n"], sd_b["v"], sd_b["dif"], sd_b["spec"],
@@ -616,7 +583,10 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         for i in range(d_max):
             l3, inten3, dist = e1[i]
             vtx = cam_path[i + 1]
-            occ = _occluded(tris, n_tris, vtx["pos"], l3, min_t_tiles, dist)
+            # the kernel skips the shadow ray of a zero throughput
+            c = cam_path[i]["color"]
+            traced = valid & ~((c[0] == 0.0) & (c[1] == 0.0) & (c[2] == 0.0))
+            occ = _any_hit_on(traced, tris, n_tris, vtx["pos"], l3, min_t_tiles, dist)
             direct = _nee_shade(~occ, l3, inten3, vtx["n"], vtx["v"], vtx["dif"],
                                 vtx["spec"], vtx["rough"], lcnt_f, mat_model)
             shade = tuple(c * dc for c, dc in zip(cam_path[i]["color"], direct))
@@ -636,8 +606,8 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         length_ab = torch.sqrt(torch.clamp(dot3(vec, vec), min=1e-30))
         dir_ab = scale3(vec, 1.0 / length_ab)
         # interval shortened by min_t to exclude far-endpoint self-hits
-        occ = _occluded(tris, n_tris, cam_path[sx]["pos"], dir_ab,
-                        min_t_tiles, length_ab - min_t_tiles)
+        occ = _any_hit_on(valid, tris, n_tris, cam_path[sx]["pos"], dir_ab,
+                          min_t_tiles, length_ab - min_t_tiles)
         if tx >= 1:
             # evalGWithoutV (BDPTUtils.hlsli:172-184)
             inv_len = 1.0 / torch.sqrt(torch.clamp(dot3(vec, vec), min=1e-30))
@@ -681,9 +651,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         to_cam = sub3(cam_tiles, last["pos"])
         dis = torch.sqrt(torch.clamp(dot3(to_cam, to_cam), min=1e-30))
         dir_to_cam = scale3(to_cam, 1.0 / dis)
-        occ = _occluded(tris, n_tris, last["pos"], dir_to_cam, min_t_tiles, dis)
         facing = dot3(dir_to_cam, cam_n) < 0.0
-        active2 = valid & take_cum & facing & ~occ
         # project_dir_to_pixel (BDPTUtils.hlsli:129-138)
         d1 = dot3(dir_to_cam, cam_u) * inv_u2
         d2 = dot3(dir_to_cam, cam_v) * inv_v2
@@ -691,6 +659,11 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         px = ((d1 / d3) * 0.5 + 0.5) * float(w_) - jx
         py = ((-d2 / d3) * 0.5 + 0.5) * float(h_) - jy
         rx, ry = torch.round(px), torch.round(py)  # half to even
+        in_range = (rx >= 0) & (rx < w_) & (ry >= 0) & (ry < h_)
+        # the kernel traces the shadow ray of a splat that is live so far
+        occ = _any_hit_on(valid & take_cum & facing & in_range, tris, n_tris, last["pos"],
+                          dir_to_cam, min_t_tiles, dis)
+        active2 = valid & take_cum & facing & ~occ
         theta1 = _saturate(dot3(dir_to_cam, cam_n).abs())
         theta2 = _saturate(dot3(dir_to_cam, last["n"]).abs())
         g = theta1 * theta2 / (dis * dis)
@@ -699,7 +672,6 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
                           mat_model)
         shade = tuple(lc * bc * g for lc, bc in zip(light_path[i]["color"], brdf))
         shade = _nan_guard3(_clamp3(scale3(shade, 1.0 / (i + 2)), args.clamp_upper))
-        in_range = (rx >= 0) & (rx < w_) & (ry >= 0) & (ry < h_)
         ok = active2 & in_range
         pix = torch.where(ok, ry.clamp(0, h_ - 1).to(torch.int64) * w_
                           + rx.clamp(0, w_ - 1).to(torch.int64),
@@ -903,11 +875,11 @@ def frame_args(baked, width: int, height: int, bdpt_frame: int, pixel_jitter,
 
 
 def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
-                            pixel_jitter, cfg, gbuf_frame=0, *, plain: bool = False):
+                            pixel_jitter, cfg, gbuf_frame=0):
     """Run K1, then the est-2 splat reduction; returns (channels, frame_img
     [H, W, 4]) like the JAX `render_frame_megakernel` (single device).
 
-    `plain=True` runs the plain versions of K1, K2 and K3 on the scene's
+    A bake with `plain=True` runs the plain versions of K1, K2 and K3 on its
     device instead: the reference the kernels' whole frame is held against."""
     from ..ops import splat as splat_mod
 
@@ -918,7 +890,7 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
         mode == "tiled_rgb8e" or (mode == "auto" and baked.device.type == "cuda"))
     args = frame_args(baked, width, height, bdpt_frame, pixel_jitter, cfg,
                       gbuf_frame=gbuf_frame, splat_rgb8e=packed)
-    out = (frame_plain if plain else frame_kernel)(args, baked.light_rows, baked.tri_pack)
+    out = (frame_plain if baked.plain else frame_kernel)(args, baked.light_rows, baked.tri_pack)
     n_pix = args.n_pix
 
     def img(rows):
@@ -930,7 +902,7 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
         if packed:
             splat_flat = splat_mod.scatter_add_rgba_prepacked(
                 out.splat_pix.reshape(-1), out.splat_pay.reshape(-1), n_pix,
-                plain=plain)
+                plain=baked.plain)
         else:
             rgba = out.splat_rgba.permute(0, 2, 1).reshape(-1, 4)
             splat_flat = splat_mod.scatter_add_rgba(

@@ -1,8 +1,9 @@
-"""Vector helpers for the camera math and the plain frame program.
+"""Vector helpers for the camera, the wavefront passes and the plain frame
+program.
 
 Port of `fyp_bidirectionalpathtracer_tpu/core/vecmath.py` (the [..., 3]
-forms the camera uses) plus the per-component tuple forms that
-`accel/pallas_frame.py` and `accel/pallas_subpath.py` use on [S, 128]
+forms of the camera and the wavefront) plus the per-component tuple forms
+that `accel/pallas_frame.py` and `accel/pallas_subpath.py` use on [S, 128]
 tiles; here a component is an [N] pixel tensor.
 """
 from __future__ import annotations
@@ -14,8 +15,38 @@ M_1_PI = 0.318309886183790671538
 
 
 # ------------------------------------------------------------ [..., 3] form
+def vec3(x, y, z):
+    """Stack three same-shaped fields into a [..., 3] vector."""
+    return torch.stack(torch.broadcast_tensors(x, y, z), dim=-1)
+
+
 def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def luminance(c):
+    """Rec.709 luminance."""
+    return 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
+
+
+def get_perpendicular(u):
+    """Branch-free perpendicular vector (MaterialUtils.hlsli:31-38)."""
+    a = u.abs()
+    xm = ((a[..., 0] - a[..., 1]) < 0) & ((a[..., 0] - a[..., 2]) < 0)
+    ym = (~xm) & ((a[..., 1] - a[..., 2]) < 0)
+    zm = ~(xm | ym)
+    return cross(u, vec3(xm.to(u.dtype), ym.to(u.dtype), zm.to(u.dtype)))
+
+
+def build_onb(n):
+    """(tangent, bitangent): bitangent = normalize(perpendicular(n)),
+    tangent = cross(bitangent, n) (MaterialUtils.hlsli:47-48)."""
+    bitangent = normalize(get_perpendicular(n))
+    return cross(bitangent, n), bitangent
 
 
 def cross(a, b):
@@ -29,9 +60,10 @@ def cross(a, b):
     )
 
 
-def normalize(a):
-    """HLSL normalize (a zero vector gives nan/inf)."""
-    return a / torch.sqrt(dot(a, a))[..., None]
+def normalize(a, eps: float = 0.0):
+    """a / sqrt(|a|^2 + eps); with eps=0 HLSL normalize (a zero vector
+    gives nan/inf)."""
+    return a / torch.sqrt(dot(a, a) + eps)[..., None]
 
 
 # ------------------------------------------------------- per-component form

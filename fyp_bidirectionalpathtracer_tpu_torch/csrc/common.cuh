@@ -30,6 +30,38 @@ BDPT_DEV V3 mk3(float x, float y, float z) {
   r.z = z;
   return r;
 }
+// Products and sums for code that is held bit for bit against a plain
+// PyTorch expression: with kExact each is a rounded single operation that
+// the compiler never contracts into an FMA; without it, plain operators the
+// compiler may contract (as the rest of the frame program's arithmetic).
+template <bool kExact>
+BDPT_DEV float mul_(float a, float b) {
+#ifdef __CUDACC__
+  if (kExact) return __fmul_rn(a, b);
+#endif
+  return a * b;
+}
+template <bool kExact>
+BDPT_DEV float add_(float a, float b) {
+#ifdef __CUDACC__
+  if (kExact) return __fadd_rn(a, b);
+#endif
+  return a + b;
+}
+template <bool kExact>
+BDPT_DEV float sub_(float a, float b) {
+#ifdef __CUDACC__
+  if (kExact) return __fsub_rn(a, b);
+#endif
+  return a - b;
+}
+// a.x*b.x + a.y*b.y + a.z*b.z, summed left to right as torch evaluates it
+template <bool kExact>
+BDPT_DEV float dot3_(float ax, float ay, float az, float bx, float by, float bz) {
+  return add_<kExact>(add_<kExact>(mul_<kExact>(ax, bx), mul_<kExact>(ay, by)),
+                      mul_<kExact>(az, bz));
+}
+
 BDPT_DEV V3 add3(V3 a, V3 b) { return mk3(a.x + b.x, a.y + b.y, a.z + b.z); }
 BDPT_DEV V3 sub3(V3 a, V3 b) { return mk3(a.x - b.x, a.y - b.y, a.z - b.z); }
 BDPT_DEV V3 mul3(V3 a, V3 b) { return mk3(a.x * b.x, a.y * b.y, a.z * b.z); }

@@ -9,7 +9,7 @@
 // or a splat that is already dead).
 #pragma once
 
-#include "common.cuh"
+#include "intersect.cuh"
 
 namespace bdpt {
 
@@ -49,8 +49,6 @@ enum {
   C_FOCAL = 25, C_UN = 26, C_VN = 29
 };
 constexpr int kLightRow = 13;
-constexpr int kPackCols = 48;
-constexpr int kBwCols = 12;
 
 struct Vtx {
   V3 color, pos, n, v, dif, spec;
@@ -63,11 +61,6 @@ BDPT_DEV Vtx zero_vtx() {
   z.rough = z.is_spec = z.pdf = 0.0f;
   return z;
 }
-
-struct Surf {  // decoded shading data of a hit
-  V3 pos, n, v, dif, spec, emissive;
-  float lrough, rough, opacity, ior;
-};
 
 BDPT_DEV V3 perpendicular(V3 u) {
   float ax = fabsf(u.x), ay = fabsf(u.y), az = fabsf(u.z);
@@ -92,85 +85,6 @@ BDPT_DEV float acos_approx(float x) {
   float p = sqrtf(jmax(0.0f, 1.0f - ax)) *
             (1.5707288f + ax * (-0.2121144f + ax * (0.0742610f + ax * -0.0187293f)));
   return x >= 0.0f ? p : kPi - p;
-}
-
-// ------------------------------------------------------------ intersection
-// Closest hit over the Baldwin-Weber rows `bw` (12 floats a triangle):
-// the lowest t wins, and at equal t the lowest triangle id (strict <).
-BDPT_DEV int closest_hit(const float* bw, int n_tris, V3 o, V3 d, float tmin,
-                         bool cull_backface, float& t_best) {
-  t_best = kBig;
-  int best = -1;
-  for (int i = 0; i < n_tris; ++i) {
-    const float* r = bw + kBwCols * i;
-    float ndir = r[0] * d.x + r[1] * d.y + r[2] * d.z;
-    bool dir_ok = cull_backface ? (ndir < -1e-9f) : (fabsf(ndir) > 1e-9f);
-    if (!dir_ok) continue;
-    float t = (r[3] - (r[0] * o.x + r[1] * o.y + r[2] * o.z)) / ndir;
-    if (!(t > tmin && t < t_best)) continue;
-    float u = (r[4] * o.x + r[5] * o.y + r[6] * o.z - r[7]) +
-              t * (r[4] * d.x + r[5] * d.y + r[6] * d.z);
-    float v = (r[8] * o.x + r[9] * o.y + r[10] * o.z - r[11]) +
-              t * (r[8] * d.x + r[9] * d.y + r[10] * d.z);
-    if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f) {
-      t_best = t;
-      best = i;
-    }
-  }
-  return best;
-}
-
-// Any hit in (tmin, tmax), no culling.
-BDPT_DEV bool occluded(const float* bw, int n_tris, V3 o, V3 d, float tmin, float tmax) {
-  for (int i = 0; i < n_tris; ++i) {
-    const float* r = bw + kBwCols * i;
-    float ndir = r[0] * d.x + r[1] * d.y + r[2] * d.z;
-    if (!(fabsf(ndir) > 1e-9f)) continue;
-    float t = (r[3] - (r[0] * o.x + r[1] * o.y + r[2] * o.z)) / ndir;
-    if (!(t > tmin && t < tmax)) continue;
-    float u = (r[4] * o.x + r[5] * o.y + r[6] * o.z - r[7]) +
-              t * (r[4] * d.x + r[5] * d.y + r[6] * d.z);
-    float v = (r[8] * o.x + r[9] * o.y + r[10] * o.z - r[11]) +
-              t * (r[8] * d.x + r[9] * d.y + r[10] * d.z);
-    if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f) return true;
-  }
-  return false;
-}
-
-// The winner's attributes from its pack row, then the untextured
-// ShadingData decode (ops.shading.shading_from_fields).
-BDPT_DEV Surf decode_hit(const float* __restrict__ tris, int id, float t, V3 o, V3 d,
-                         V3 view_origin) {
-  const float* a = tris + (size_t)id * kPackCols;
-  V3 r1 = mk3(a[4], a[5], a[6]);
-  V3 r2 = mk3(a[8], a[9], a[10]);
-  float u = (dot3(r1, o) - a[7]) + t * dot3(r1, d);
-  float v = (dot3(r2, o) - a[11]) + t * dot3(r2, d);
-  float w = 1.0f - u - v;
-  V3 n_raw = mk3(w * a[12] + u * a[15] + v * a[18], w * a[13] + u * a[16] + v * a[19],
-                 w * a[14] + u * a[17] + v * a[20]);
-  Surf s;
-  s.pos = add3(o, scale3(d, t));
-  float b0 = a[27], b1 = a[28], b2 = a[29];
-  float s0 = a[31], s1 = a[32], s2 = a[33], s3 = a[34];
-  bool metal_rough = a[39] == 0.0f;
-  float metal = s2;
-  s.dif = metal_rough ? mk3(b0 * (1.0f - metal), b1 * (1.0f - metal), b2 * (1.0f - metal))
-                      : mk3(b0, b1, b2);
-  s.spec = metal_rough ? mk3(0.04f * (1.0f - metal) + b0 * metal,
-                             0.04f * (1.0f - metal) + b1 * metal,
-                             0.04f * (1.0f - metal) + b2 * metal)
-                       : mk3(s0, s1, s2);
-  s.lrough = jmax(0.08f, metal_rough ? s1 : 1.0f - s3);
-  s.rough = s.lrough * s.lrough;
-  V3 n = normed(n_raw);
-  s.v = normed(sub3(view_origin, s.pos));
-  bool flip = dot3(n, s.v) <= 0.0f && a[40] > 0.5f;
-  s.n = flip ? neg3(n) : n;
-  s.emissive = mk3(a[35], a[36], a[37]);
-  s.opacity = a[30];
-  s.ior = a[38];
-  return s;
 }
 
 // --------------------------------------------------------------- samplers
@@ -411,7 +325,7 @@ BDPT_DEV void shoot(PathState& s, const FrameParams& p, const float* bw,
                     const float* __restrict__ tris) {
   if (s.term) return;
   float t;
-  int id = closest_hit(bw, p.n_tris, s.o, s.d, p.min_t, false, t);
+  int id = closest_hit<false>(bw, p.n_tris, s.o, s.d, p.min_t, kBig, false, t);
   if (id < 0) {
     s.vtx.color = mk3(0.0f, 0.0f, 0.0f);
     s.term = true;
@@ -477,7 +391,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     prim_dir = normed(d_raw);
   }
   float t0;
-  int id0 = closest_hit(bw, p.n_tris, origin0, prim_dir, 0.0f, true, t0);
+  int id0 = closest_hit<false>(bw, p.n_tris, origin0, prim_dir, 0.0f, kBig, true, t0);
   if (id0 < 0) {  // background: (env, 1), no splats
     const float bg[4] = {env.x, env.y, env.z, 1.0f};
     const float gb[20] = {0, 0, 0, 0, 0, 0, 0, 0, env.x, env.y, env.z, 1,
@@ -584,7 +498,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
       if (is_zero3(cam[i].color)) continue;
       const Vtx& x = cam[i + 1];
       LightEval le = eval_light(lights + idx * kLightRow, x.pos);
-      bool occ = occluded(bw, p.n_tris, x.pos, le.l, p.min_t, le.dist);
+      bool occ = occluded<false>(bw, p.n_tris, x.pos, le.l, p.min_t, le.dist);
       V3 direct = nee_shade(!occ, le.l, le.inten, x.n, x.v, x.dif, x.spec, x.rough, lcnt_f,
                             p.mat_model);
       V3 shade = nan_guard3(clip3(scale3(mul3(cam[i].color, direct), 1.0f / (float)(i + 2)),
@@ -611,7 +525,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
         float length_ab = sqrtf(jmax(dot3(vec, vec), 1e-30f));
         V3 dir_ab = scale3(vec, 1.0f / length_ab);
         // interval shortened by min_t to exclude far-endpoint self-hits
-        bool occ = occluded(bw, p.n_tris, cam[sx].pos, dir_ab, p.min_t, length_ab - p.min_t);
+        bool occ = occluded<false>(bw, p.n_tris, cam[sx].pos, dir_ab, p.min_t, length_ab - p.min_t);
         if (occ) continue;
         V3 shade = zero;
         if (tx >= 1) {
@@ -662,7 +576,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     float py = ((-d2 / d3) * 0.5f + 0.5f) * (float)H - jy;
     float rx = rintf(px), ry = rintf(py);  // half to even
     ok = ok && rx >= 0.0f && rx < (float)W && ry >= 0.0f && ry < (float)H;
-    ok = ok && !occluded(bw, p.n_tris, last.pos, dir_to_cam, p.min_t, dis);
+    ok = ok && !occluded<false>(bw, p.n_tris, last.pos, dir_to_cam, p.min_t, dis);
     V3 shade = zero;
     if (ok) {
       float theta1 = saturate(fabsf(dot3(dir_to_cam, cam_n)));

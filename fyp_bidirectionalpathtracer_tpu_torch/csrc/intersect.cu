@@ -1,0 +1,167 @@
+// Kernels K4: the wavefront's dense intersectors for Hopper (sm_90a).
+//
+// Three kernels replace the five TPU kernels of the dense tier, which
+// compute two functions in different memory layouts:
+//   closest  <- accel/pallas_intersect.py:_kernel (K4a)
+//   shaded   <- accel/pallas_shaded.py:_kernel (K4c) and
+//               accel/pallas_lane.py:_shaded_kernel (K4e)
+//   occluded <- accel/pallas_intersect.py:_occlusion_kernel (K4b) and
+//               accel/pallas_lane.py:_occlusion_kernel (K4d)
+// Their wrappers and plain PyTorch versions are in accel/intersect.py.
+//
+// Design: one thread per ray.  Each block stages the 12 Baldwin-Weber floats
+// of every triangle in dynamic shared memory (96 KB at 2048 triangles, with
+// the opt-in above 48 KB), as K1 does; every pair test then reads shared
+// memory.  The rays come as eight structure-of-arrays rows [8, N]
+// (ox oy oz dx dy dz tmin tmax), so a warp's loads coalesce.  The winner's
+// 33 attribute floats are read from the global pack once per ray, and the
+// shaded output is field-major [32, N], so a warp's stores coalesce.  The
+// TPU kernels' [T, 128] pair tiles, one-hot MXU fetch and 128-triangle
+// chunks do not carry over; the strict < over ascending ids gives their
+// tie rule (the lowest id wins at equal t).
+//
+// What bounds them on the H100: on the Cornell box (34 triangles) the bytes
+// of the rays and the outputs (32 B in; 16 B out for closest, 128 B for
+// shaded, 1 B for occluded), at 3.35 TB/s; with about 39 flops a pair, the
+// pair tests pass that bound from a few hundred triangles up (67 TFLOP/s
+// in float32).  The any-hit loop stops at its first hit.
+//
+// Miss lanes: t = tmax (the wrapper maps it to 1e30), id -1, u = v = 0,
+// and every attribute field 0, as the TPU kernels' one-hot fetch gives for
+// a finite tmax.  Fields 27..31 are zero.
+#include <cuda_runtime.h>
+
+#include "intersect.cuh"
+
+namespace bdpt {
+
+constexpr int kRayThreads = 256;
+constexpr int kOutW = 32;
+constexpr int kAttrLo = 12;   // pack columns 12..44: attributes
+constexpr int kMatLo = 27;    // pack columns 27..44 -> fields 9..26
+
+struct Ray {
+  V3 o, d;
+  float tmin, tmax;
+};
+
+__device__ __forceinline__ void stage_bw(float* smem, const float* __restrict__ tris,
+                                         int n_tris) {
+  for (int i = threadIdx.x; i < n_tris * kBwCols; i += blockDim.x)
+    smem[i] = tris[(i / kBwCols) * kPackCols + (i % kBwCols)];
+  __syncthreads();
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rows, size_t n, size_t i) {
+  Ray r;
+  r.o = mk3(rows[i], rows[n + i], rows[2 * n + i]);
+  r.d = mk3(rows[3 * n + i], rows[4 * n + i], rows[5 * n + i]);
+  r.tmin = rows[6 * n + i];
+  r.tmax = rows[7 * n + i];
+  return r;
+}
+
+template <bool kCull>
+__global__ void __launch_bounds__(kRayThreads)
+    closest_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
+                   int n_tris, float* t_out, int* id_out, float* u_out, float* v_out) {
+  extern __shared__ float bw[];
+  stage_bw(bw, tris, n_tris);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(rows, (size_t)n, (size_t)i);
+  float t;
+  const int id = closest_hit<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax, kCull, t);
+  float u = 0.0f, v = 0.0f;
+  if (id >= 0) hit_uv<true>(tris + (size_t)id * kPackCols, r.o, r.d, t, u, v);
+  t_out[i] = t;
+  id_out[i] = id;
+  u_out[i] = u;
+  v_out[i] = v;
+}
+
+template <bool kCull>
+__global__ void __launch_bounds__(kRayThreads)
+    shaded_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
+                  int n_tris, float* __restrict__ out) {
+  extern __shared__ float bw[];
+  stage_bw(bw, tris, n_tris);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  const Ray r = load_ray(rows, N, (size_t)i);
+  float t;
+  const int id = closest_hit<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax, kCull, t);
+  float f[kOutW];
+#pragma unroll
+  for (int k = 0; k < kOutW; ++k) f[k] = 0.0f;
+  f[0] = t;
+  f[1] = (float)id;
+  if (id >= 0) {
+    const float* a = tris + (size_t)id * kPackCols;
+    float u, v;
+    hit_uv<true>(a, r.o, r.d, t, u, v);
+    const float w = sub_<true>(sub_<true>(1.0f, u), v);
+    f[2] = u;
+    f[3] = v;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f[4 + k] = bary_mix<true>(a, kAttrLo + k, u, v, w, 3);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) f[7 + k] = bary_mix<true>(a, 21 + k, u, v, w, 2);
+#pragma unroll
+    for (int k = 0; k < 18; ++k) f[9 + k] = a[kMatLo + k];
+  }
+#pragma unroll
+  for (int k = 0; k < kOutW; ++k) out[k * N + i] = f[k];
+}
+
+__global__ void __launch_bounds__(kRayThreads)
+    occluded_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
+                    int n_tris, bool* __restrict__ out) {
+  extern __shared__ float bw[];
+  stage_bw(bw, tris, n_tris);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(rows, (size_t)n, (size_t)i);
+  out[i] = occluded<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax);
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int n, int n_tris, cudaStream_t stream, Args... args) {
+  if (n <= 0) return 0;
+  const size_t smem = (size_t)(n_tris > 0 ? n_tris : 1) * kBwCols * sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kRayThreads - 1) / kRayThreads);
+  kernel<<<grid, kRayThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bdpt
+
+extern "C" int bdpt_intersect_closest(const float* rows, int n, const float* tris, int n_tris,
+                                      int cull_backface, float* t, int* id, float* u, float* v,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cull_backface)
+    return bdpt::launch(bdpt::closest_kernel<true>, n, n_tris, s, rows, n, tris, n_tris, t,
+                        id, u, v);
+  return bdpt::launch(bdpt::closest_kernel<false>, n, n_tris, s, rows, n, tris, n_tris, t, id,
+                      u, v);
+}
+
+extern "C" int bdpt_intersect_shaded(const float* rows, int n, const float* tris, int n_tris,
+                                     int cull_backface, float* fields, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cull_backface)
+    return bdpt::launch(bdpt::shaded_kernel<true>, n, n_tris, s, rows, n, tris, n_tris,
+                        fields);
+  return bdpt::launch(bdpt::shaded_kernel<false>, n, n_tris, s, rows, n, tris, n_tris, fields);
+}
+
+extern "C" int bdpt_occluded(const float* rows, int n, const float* tris, int n_tris,
+                             bool* occ, void* stream) {
+  return bdpt::launch(bdpt::occluded_kernel, n, n_tris, (cudaStream_t)stream, rows, n, tris,
+                      n_tris, occ);
+}

@@ -1,0 +1,130 @@
+// The port's one ray-triangle test and winner decode, shared by the frame
+// megakernel K1 (frame_program.cuh) and the wavefront intersectors K4
+// (intersect.cu).
+//
+// The test is the Baldwin-Weber form of the TPU lane kernels
+// (accel/pallas_lane.py:_pair_test): each triangle is 12 floats (n, n.v0,
+// r1, r1.v0, r2, r2.v0), the first 12 columns of the [T_pad, 48] pack
+// (accel/tri_pack.py).  Its products and sums follow the order of the plain
+// version's torch expression (accel/intersect.py:_pair_test).  With kExact
+// (the K4 kernels) each is a rounded single operation, so a kernel finds
+// the same t, u and v, bit for bit, as its plain version; K1 passes false
+// and lets the compiler contract them into FMAs, which keeps the frame
+// kernel's speed (rounding every operation made it ~10% slower) and
+// flips only edge ties, within its statistical bounds.  Each loop drops a
+// pair at its first failed test (`continue`).
+#pragma once
+
+#include "common.cuh"
+
+namespace bdpt {
+
+constexpr int kPackCols = 48;
+constexpr int kBwCols = 12;
+
+// u, v of a hit at distance t from a triangle's row `r` (its 12
+// Baldwin-Weber floats, the first columns of its pack row): the pair test
+// computes them, and the closest-hit kernels recompute the winner's, as
+// the TPU kernels do after their one-hot fetch of the winner's row.
+template <bool kExact>
+BDPT_DEV void hit_uv(const float* __restrict__ r, V3 o, V3 d, float t, float& u, float& v) {
+  u = add_<kExact>(sub_<kExact>(dot3_<kExact>(r[4], r[5], r[6], o.x, o.y, o.z), r[7]),
+                   mul_<kExact>(t, dot3_<kExact>(r[4], r[5], r[6], d.x, d.y, d.z)));
+  v = add_<kExact>(sub_<kExact>(dot3_<kExact>(r[8], r[9], r[10], o.x, o.y, o.z), r[11]),
+                   mul_<kExact>(t, dot3_<kExact>(r[8], r[9], r[10], d.x, d.y, d.z)));
+}
+
+// Closest hit over the rows `bw` (kBwCols floats a triangle) in
+// (tmin, tmax): the lowest t wins, and at equal t the lowest triangle id,
+// by the strict < of the TPU kernels' chunk chain
+// (accel/pallas_lane.py:281-292).  A pair is valid when dir_ok (n.d <
+// -1e-9 with culling, else |n.d| > 1e-9), t in range, u >= 0, v >= 0 and
+// u + v <= 1, so a ray with a NaN component never hits.  Returns the id,
+// or -1 with t_best = tmax.
+template <bool kExact>
+BDPT_DEV int closest_hit(const float* bw, int n_tris, V3 o, V3 d, float tmin, float tmax,
+                         bool cull_backface, float& t_best) {
+  t_best = tmax;
+  int best = -1;
+  for (int i = 0; i < n_tris; ++i) {
+    const float* r = bw + kBwCols * i;
+    float ndir = dot3_<kExact>(r[0], r[1], r[2], d.x, d.y, d.z);
+    bool dir_ok = cull_backface ? (ndir < -1e-9f) : (fabsf(ndir) > 1e-9f);
+    if (!dir_ok) continue;
+    float t = sub_<kExact>(r[3], dot3_<kExact>(r[0], r[1], r[2], o.x, o.y, o.z)) / ndir;
+    if (!(t > tmin && t < t_best)) continue;
+    float u, v;
+    hit_uv<kExact>(r, o, d, t, u, v);
+    if (u >= 0.0f && v >= 0.0f && add_<kExact>(u, v) <= 1.0f) {
+      t_best = t;
+      best = i;
+    }
+  }
+  return best;
+}
+
+// Any hit in (tmin, tmax), no culling; stops at the first hit.
+template <bool kExact>
+BDPT_DEV bool occluded(const float* bw, int n_tris, V3 o, V3 d, float tmin, float tmax) {
+  for (int i = 0; i < n_tris; ++i) {
+    const float* r = bw + kBwCols * i;
+    float ndir = dot3_<kExact>(r[0], r[1], r[2], d.x, d.y, d.z);
+    if (!(fabsf(ndir) > 1e-9f)) continue;
+    float t = sub_<kExact>(r[3], dot3_<kExact>(r[0], r[1], r[2], o.x, o.y, o.z)) / ndir;
+    if (!(t > tmin && t < tmax)) continue;
+    float u, v;
+    hit_uv<kExact>(r, o, d, t, u, v);
+    if (u >= 0.0f && v >= 0.0f && add_<kExact>(u, v) <= 1.0f) return true;
+  }
+  return false;
+}
+
+// w a[k] + u a[k + stride] + v a[k + 2 stride]: a vertex attribute at the
+// hit (w = 1 - u - v)
+template <bool kExact>
+BDPT_DEV float bary_mix(const float* __restrict__ a, int k, float u, float v, float w,
+                        int stride) {
+  return add_<kExact>(add_<kExact>(mul_<kExact>(w, a[k]), mul_<kExact>(u, a[k + stride])),
+                      mul_<kExact>(v, a[k + 2 * stride]));
+}
+
+struct Surf {  // decoded shading data of a hit
+  V3 pos, n, v, dif, spec, emissive;
+  float lrough, rough, opacity, ior;
+};
+
+// The winner's attributes from its pack row, then the untextured
+// ShadingData decode (ops.shading.shading_from_fields), for K1.
+BDPT_DEV Surf decode_hit(const float* __restrict__ tris, int id, float t, V3 o, V3 d,
+                         V3 view_origin) {
+  const float* a = tris + (size_t)id * kPackCols;
+  float u, v;
+  hit_uv<false>(a, o, d, t, u, v);
+  float w = 1.0f - u - v;
+  V3 n_raw = mk3(bary_mix<false>(a, 12, u, v, w, 3), bary_mix<false>(a, 13, u, v, w, 3),
+                 bary_mix<false>(a, 14, u, v, w, 3));
+  Surf s;
+  s.pos = add3(o, scale3(d, t));
+  float b0 = a[27], b1 = a[28], b2 = a[29];
+  float s0 = a[31], s1 = a[32], s2 = a[33], s3 = a[34];
+  bool metal_rough = a[39] == 0.0f;
+  float metal = s2;
+  s.dif = metal_rough ? mk3(b0 * (1.0f - metal), b1 * (1.0f - metal), b2 * (1.0f - metal))
+                      : mk3(b0, b1, b2);
+  s.spec = metal_rough ? mk3(0.04f * (1.0f - metal) + b0 * metal,
+                             0.04f * (1.0f - metal) + b1 * metal,
+                             0.04f * (1.0f - metal) + b2 * metal)
+                       : mk3(s0, s1, s2);
+  s.lrough = jmax(0.08f, metal_rough ? s1 : 1.0f - s3);
+  s.rough = s.lrough * s.lrough;
+  V3 n = normed(n_raw);
+  s.v = normed(sub3(view_origin, s.pos));
+  bool flip = dot3(n, s.v) <= 0.0f && a[40] > 0.5f;
+  s.n = flip ? neg3(n) : n;
+  s.emissive = mk3(a[35], a[36], a[37]);
+  s.opacity = a[30];
+  s.ior = a[38];
+  return s;
+}
+
+}  // namespace bdpt

@@ -1,12 +1,13 @@
 """Build, load and launch-check the hand-written CUDA kernels.
 
-The sources under `csrc/` are compiled at first use with
+The sources under `csrc/` are compiled at first use, one nvcc process a
+source, all started together, with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c
 
-into one shared library with a plain `extern "C"` interface, loaded with
-ctypes.  The library lands in `build/torch_kernels/<hash>/` at the root of
+and linked (`nvcc -shared`) into one library with a plain `extern "C"`
+interface, loaded with ctypes.  The library lands in `build/torch_kernels/<hash>/` at the root of
 the checkout, keyed by a hash of the sources, so a checkout builds its own
 kernels from its own sources.  A failed build raises with nvcc's output.
 
@@ -29,16 +30,30 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu")
-HEADERS = ("common.cuh", "frame_program.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu", "intersect.cu")
+HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libbdpt_kernels.so"
 
-LAUNCHES = {"frame": 0, "compact": 0, "splat_tile": 0}
+LAUNCHES = {"frame": 0, "compact": 0, "splat_tile": 0,
+            "closest": 0, "shaded": 0, "occluded": 0}
 
 _lock = threading.Lock()
 _lib = None
+
+
+def resolve_device(device) -> torch.device:
+    """The device of an entry point: CUDA unless the caller names another.
+    Asked for CUDA on a machine without a card it raises; it never falls
+    back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the card unless "
+            "the caller names another device (device='cpu' runs the plain "
+            "versions of the kernels on the CPU)")
+    return dev
 
 
 def reset_launch_counts() -> None:
@@ -62,6 +77,24 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen) and raise with nvcc's output on a failure."""
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless this source hash is built; returns the .so."""
     out_dir = BUILD_ROOT / source_hash()
@@ -69,19 +102,18 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (s + ".o") for s in SOURCES]
+        extra = ["-Xptxas=-v"] if verbose else []
+        log = _run([_start([nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c",
+                            str(CSRC / s), "-o", str(o)])
+                    for s, o in zip(SOURCES, objs)])
         tmp_lib = Path(tmp) / LIB_NAME
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_lib)]
-        cmd += [str(CSRC / s) for s in SOURCES]
+        log += _run([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+                             *map(str, objs)])])
         if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr)
+            print(log)
         os.replace(tmp_lib, lib_path)
     return lib_path
 
@@ -92,8 +124,13 @@ def _declare(lib) -> None:
     lib.bdpt_compact_count.argtypes = [p, i, i, p, p]
     lib.bdpt_compact_scatter.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.bdpt_splat_reduce.argtypes = [p, p, i, i, p, p]
+    lib.bdpt_intersect_closest.argtypes = [p, i, p, i, i, p, p, p, p, p]
+    lib.bdpt_intersect_shaded.argtypes = [p, i, p, i, i, p, p]
+    lib.bdpt_occluded.argtypes = [p, i, p, i, p, p]
     for fn in (lib.bdpt_frame_launch, lib.bdpt_compact_count,
-               lib.bdpt_compact_scatter, lib.bdpt_splat_reduce):
+               lib.bdpt_compact_scatter, lib.bdpt_splat_reduce,
+               lib.bdpt_intersect_closest, lib.bdpt_intersect_shaded,
+               lib.bdpt_occluded):
         fn.restype = ctypes.c_int
 
 

@@ -47,15 +47,15 @@ def scatter_add_rgba_prepacked(lin, packed, n_targets: int, *,
 
 
 def scatter_add_rgba(mode: str, lin, rgb, alpha, n_targets: int,
-                     alpha_is_count: bool = False) -> torch.Tensor:
+                     alpha_is_count: bool = False, *, plain: bool = False) -> torch.Tensor:
     """Dispatch by mode; 'auto' is 'tiled_rgb8e' on a CUDA device when alpha
     is a count (as on the TPU) and 'direct' elsewhere.  rgb8e needs
     non-negative rgb.
 
-    The frame reaches this only for unpacked splat rows, i.e. 'direct' or
-    'auto' on the CPU: on a CUDA device it packs in K1 and calls
-    `scatter_add_rgba_prepacked`.  'tiled_rgb8e' here packs on the host and
-    keeps the JAX function's modes for callers holding unpacked rows."""
+    The wavefront's estimator-2 splat comes here with unpacked rows: on a
+    CUDA device 'auto' packs them and runs K2 + sort + K3 (`plain=True`:
+    their plain versions).  The megakernel packs in K1 and calls
+    `scatter_add_rgba_prepacked` itself."""
     if mode == "auto":
         mode = "tiled_rgb8e" if (lin.is_cuda and alpha_is_count) else "direct"
     if mode == "direct":
@@ -64,5 +64,6 @@ def scatter_add_rgba(mode: str, lin, rgb, alpha, n_targets: int,
         if not alpha_is_count:
             raise ValueError("mode 'tiled_rgb8e' requires alpha_is_count")
         packed = pack_rgb8e(rgb[:, 0], rgb[:, 1], rgb[:, 2])
-        return scatter_add_rgba_prepacked(lin.to(torch.int32), packed, n_targets)
+        return scatter_add_rgba_prepacked(lin.to(torch.int32), packed, n_targets,
+                                          plain=plain)
     raise NotImplementedError(f"splat mode {mode!r}; see {_MODES_ITEM}")

@@ -12,6 +12,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import cuda
+
 
 @dataclass(frozen=True)
 class AccumState:
@@ -19,7 +21,9 @@ class AccumState:
     count: torch.Tensor        # [] int32, on the same device
 
     @classmethod
-    def create(cls, height: int, width: int, device="cpu") -> "AccumState":
+    def create(cls, height: int, width: int, device="cuda") -> "AccumState":
+        """Zero history on `device` (the card unless named)."""
+        device = cuda.resolve_device(device)
         return cls(
             last_frame=torch.zeros((height, width, 4), dtype=torch.float32,
                                    device=device),
@@ -27,9 +31,10 @@ class AccumState:
         )
 
     @classmethod
-    def from_arrays(cls, arrays: dict, device="cpu") -> "AccumState":
+    def from_arrays(cls, arrays: dict, device="cuda") -> "AccumState":
         """From {"last_frame": np [H,W,4], "count": np []} (the JAX
-        AccumState's fields as numpy arrays)."""
+        AccumState's fields as numpy arrays), on the card unless named."""
+        device = cuda.resolve_device(device)
         return cls(
             last_frame=torch.tensor(np.asarray(arrays["last_frame"], np.float32),
                                     device=device),

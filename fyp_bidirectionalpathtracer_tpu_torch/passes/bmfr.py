@@ -10,6 +10,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import cuda
+
 
 @dataclass(frozen=True)
 class BMFRState:
@@ -22,7 +24,8 @@ class BMFRState:
     frame_number: torch.Tensor   # [] int32
 
     @classmethod
-    def create(cls, height: int, width: int, device="cpu") -> "BMFRState":
+    def create(cls, height: int, width: int, device="cuda") -> "BMFRState":
+        device = cuda.resolve_device(device)
         z = torch.zeros((height, width, 4), dtype=torch.float32, device=device)
         return cls(prev_pos=z, prev_norm=z, prev_noisy=z, prev_filtered=z,
                    frame_number=torch.zeros((), dtype=torch.int32, device=device))

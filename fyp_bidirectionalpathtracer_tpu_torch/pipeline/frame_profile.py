@@ -1,10 +1,12 @@
 """Where the main path's frame time goes on a CUDA device.
 
     python -m fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile \
-        [--frames 5] [--repeats 2] [--out PATH.json] [--trace PATH.json]
+        [--megakernel auto|off] [--frames 5] [--repeats 2] [--out PATH.json]
+        [--trace PATH.json]
 
 Renders the Cornell box at 1280x720, depth 3, BMFR off (the frame that
-`chip_smoke.py` times) through `Renderer` and prints one JSON object:
+`chip_smoke.py` times) through `Renderer`, on the megakernel path (`auto`)
+or the per-bounce wavefront (`off`), and prints one JSON object:
 
 - `device`: the card's name and power limit as nvidia-smi prints them;
 - `ms_per_frame_host`: host-clock ms per frame of `--frames` frames, with a
@@ -14,7 +16,8 @@ Renders the Cornell box at 1280x720, depth 3, BMFR off (the frame that
   `torch.profiler` trace of the profiled frames, per frame;
   `device_idle_share` is 1 - busy / the unprofiled host-clock frame time
   (the profiler slows the host, not the kernels);
-- `kernels_ms_per_frame`: device time per frame by kernel name;
+- `kernels_ms_per_frame`: device time per frame by kernel name, and
+  `kernel_launches_per_frame` the number of CUDA kernels a frame runs;
 - `stages_ms`: host-clock ms of each stage of one frame with a device sync
   after it (attribution only: the syncs serialise what overlaps in a real
   frame), once per repeat.
@@ -32,11 +35,14 @@ from collections import defaultdict
 import torch
 
 from ..accel.frame import frame_args, frame_kernel
+from ..models.procedural import cornell_box
+from ..ops.shading import make_shaded_tracer
 from ..ops.splat import scatter_add_rgba_prepacked
-from ..passes.gbuffer import pixel_jitter_for_frame
+from ..passes.bdpt import bdpt_pass
+from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
 from ..scene.camera import begin_frame
 from ..scene.scene import Scene
-from ..shared import BDPTConfig, RenderConfig, cornell_box
+from ..utils.config import BDPTConfig, RenderConfig
 from .renderer import BDPT_FRAME_INIT, GBUF_FRAME_INIT, Renderer
 
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
@@ -65,21 +71,32 @@ def stage_times(renderer: Renderer) -> dict:
     cfg, r = renderer.cfg, renderer
     scene = r.baked.with_camera(r.camera)
     frame = (BDPT_FRAME_INIT + r.state.frame_index) & 0xFFFFFFFF
+    jitter = pixel_jitter_for_frame(frame)
     out = {}
-    out["frame_args (host)"], args = _timed(lambda: frame_args(
-        scene, cfg.width, cfg.height, frame, pixel_jitter_for_frame(frame), cfg,
-        gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=True))
-    out["K1 frame_kernel"], fo = _timed(
-        lambda: frame_kernel(args, scene.light_rows, scene.tri_pack))
-    out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
-        lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
-                                           fo.splat_pay.reshape(-1), args.n_pix))
+    if cfg.bdpt.megakernel == "off":
+        trace = make_shaded_tracer(scene)
+        out["G-buffer (ray_traced_gbuffer, one shaded launch)"], ch = _timed(
+            lambda: ray_traced_gbuffer(scene, trace, cfg.width, cfg.height,
+                                       GBUF_FRAME_INIT, jitter))
+        out["bdpt_pass (5 shaded + 3 any-hit launches, splat chain)"], _ = _timed(
+            lambda: bdpt_pass(scene, scene.intersector(), ch, frame, jitter, cfg.bdpt,
+                              trace=trace))
+    else:
+        out["frame_args (host)"], args = _timed(lambda: frame_args(
+            scene, cfg.width, cfg.height, frame, jitter, cfg,
+            gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=True))
+        out["K1 frame_kernel"], fo = _timed(
+            lambda: frame_kernel(args, scene.light_rows, scene.tri_pack))
+        out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
+            lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
+                                               fo.splat_pay.reshape(-1), args.n_pix))
     out["begin_frame (camera update)"], _ = _timed(lambda: begin_frame(r.camera))
     out["whole render_frame"], _ = _timed(r.render_frame)
     return out
 
 
-def profile(frames: int = 5, repeats: int = 2, trace: str | None = None) -> dict:
+def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
+            megakernel: str = "auto") -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -91,7 +108,7 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None) -> dict
     dev = torch.device("cuda", 0)
     baked = Scene.from_built(cornell_box(), aspect=WIDTH / HEIGHT).bake(device=dev)
     r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT,
-                                     bdpt=BDPTConfig(max_depth=DEPTH)))
+                                     bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel)))
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
     plain_ms, _ = _timed(lambda: r.render(frames))
     # before the profiler: CUPTI slows every launch after it has traced
@@ -110,11 +127,13 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None) -> dict
                          timeout=60).stdout.strip()
     return {
         "device": smi,
+        "megakernel": megakernel,
         "frames": frames,
         "ms_per_frame_host": plain_ms / frames,
         "ms_per_frame_host_profiled": host_ms / frames,
         "device_busy_ms_per_frame": busy,
         "device_idle_share": 1.0 - busy / (plain_ms / frames),
+        "kernel_launches_per_frame": len(kernels) / frames,
         "kernels_ms_per_frame": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
         "stages_ms": stages,
     }
@@ -122,12 +141,13 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None) -> dict
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--megakernel", choices=("auto", "off"), default="auto")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--out")
     ap.add_argument("--trace")
     a = ap.parse_args()
-    result = profile(a.frames, a.repeats, a.trace)
+    result = profile(a.frames, a.repeats, a.trace, a.megakernel)
     text = json.dumps(result, indent=1)
     if a.out:
         with open(a.out, "w") as f:

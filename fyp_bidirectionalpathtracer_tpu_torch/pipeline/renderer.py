@@ -3,14 +3,17 @@
 Port of `fyp_bidirectionalpathtracer_tpu/pipeline/renderer.py`:
 `render_frame_fn`, `Renderer`, `GBUF_FRAME_INIT`, `BDPT_FRAME_INIT`, with
 the same signatures and channel dict.  The pass list is
-G-buffer + BDPT (one frame-megakernel launch) -> est-2 splat reduction ->
-accumulation -> BMFR (a passthrough while disabled).
+G-buffer + BDPT -> est-2 splat reduction -> accumulation -> BMFR (a
+passthrough while disabled).
 
-Routing: megakernel 'auto' and 'on' run the frame program, as the kernel
-K1 on a CUDA device and as its plain version on CPU tensors (JAX's
-interpret-mode megakernel plays that role on the CPU).  megakernel 'off'
-or a scene outside the gate needs the wavefront path, which is not
-ported yet, and raises.
+Routing: megakernel 'auto' and 'on' run the frame program for a scene in
+its gate, as the kernel K1 on a CUDA device and as its plain version on
+CPU tensors (JAX's interpret-mode megakernel plays that role on the CPU).
+megakernel 'off', and a scene the gate refuses, run the per-bounce
+wavefront (JAX `renderer.py:91-117`): `ray_traced_gbuffer`, then
+`bdpt_pass`, every trace through the K4 intersectors.  The wavefront
+covers untextured scenes of at most 2048 triangles with a 1x1 env map;
+larger scenes raise and name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,16 +22,17 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..accel.frame import render_frame_megakernel, supports_megakernel
+from ..ops.shading import make_shaded_tracer
 from ..passes.accumulate import AccumState, accumulate, camera_moved
+from ..passes.bdpt import bdpt_pass
 from ..passes.bmfr import BMFRState, bmfr_pass
-from ..passes.gbuffer import pixel_jitter_for_frame
+from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
 from ..scene.camera import begin_frame, derive_camera
 from ..scene.scene import BakedScene
-from ..shared import RenderConfig
+from ..utils.config import RenderConfig
 
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
-_WAVEFRONT_ITEM = "ROADMAP Queue 1 item 9 (wavefront path)"
 _TONEMAP_ITEM = "ROADMAP Queue 1 item 12 (tone-map operators)"
 
 
@@ -44,16 +48,27 @@ class RenderState:
 def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
                     gbuf_frame: int, bdpt_frame: int, reset: bool,
                     cfg: RenderConfig):
-    """One full frame.  Returns (channels, accum, bmfr_state)."""
+    """One full frame.  Returns (channels, accum, bmfr_state).  A bake with
+    `plain=True` runs every kernel's plain version on its device."""
     scene = baked.with_camera(camera)
-    if cfg.bdpt.megakernel == "off" or not supports_megakernel(scene, cfg):
-        raise NotImplementedError(
-            f"megakernel={cfg.bdpt.megakernel!r} / a scene outside the frame "
-            f"kernel's scope needs the wavefront path; see {_WAVEFRONT_ITEM}")
     jitter = pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
-    channels, frame_img = render_frame_megakernel(
-        scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
-        gbuf_frame=gbuf_frame)
+    if cfg.bdpt.megakernel != "off" and supports_megakernel(scene, cfg):
+        channels, frame_img = render_frame_megakernel(
+            scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
+            gbuf_frame=gbuf_frame)
+    else:
+        gcfg = cfg.gbuffer
+        intersect = scene.intersector()
+        trace = make_shaded_tracer(scene)
+        lens_radius = (gcfg.focal_length_gui / (2.0 * gcfg.f_stop)
+                       if gcfg.use_thin_lens else 0.0)
+        channels = ray_traced_gbuffer(
+            scene, trace, cfg.width, cfg.height, gbuf_frame, jitter,
+            use_thin_lens=gcfg.use_thin_lens, lens_radius=lens_radius,
+            focal_len=gcfg.focal_length_gui, env_bilinear=gcfg.env_bilinear)
+        frame_img = bdpt_pass(scene, intersect, channels, bdpt_frame, jitter, cfg.bdpt,
+                              trace=trace)
+        channels["BDPT"] = frame_img
     accum, accum_img = accumulate(accum, frame_img,
                                   cfg.accumulate.max_accum_count, reset=reset)
     channels["Accumulated"] = accum_img

@@ -118,3 +118,41 @@ def begin_frame(cam: CameraData, jitter=None) -> CameraData:
         cam = replace(cam, jitter=_f32(jitter))
     cam = derive_camera(cam)
     return replace(cam, prev_view_proj=prev)
+
+
+def camera_ray_dirs(cam: CameraData, width: int, height: int, pixel_jitter, device=None):
+    """Primary ray directions [H, W, 3] on `device` (default: the camera's),
+    Falcor ray-gen convention (lightProbeGBuffer.rt.hlsl:122-125):
+    ndc = (2, -2) * (index + jitter) / dim + (-1, 1),
+    dir = (ndc.x U + ndc.y V + W) / |W|, not normalized."""
+    dev = cam.camera_w.device if device is None else torch.device(device)
+    jit = torch.as_tensor(pixel_jitter, dtype=torch.float32)
+    xs = (torch.arange(width, dtype=torch.float32) + jit[0]) / width
+    ys = (torch.arange(height, dtype=torch.float32) + jit[1]) / height
+    ndc_x = (2.0 * xs - 1.0).to(dev)
+    ndc_y = (-2.0 * ys + 1.0).to(dev)
+    u, v, w = (c.to(dev) for c in (cam.camera_u, cam.camera_v, cam.camera_w))
+    d = (ndc_x[None, :, None] * u[None, None, :]
+         + ndc_y[:, None, None] * v[None, None, :]
+         + w[None, None, :])
+    return d / torch.linalg.norm(cam.camera_w).to(dev)
+
+
+def project_dir_to_pixel(cam: CameraData, d, dims, jitter):
+    """World direction [..., 3] -> pixel ids (ix, iy) int32, unclamped, for
+    the light-tracing splats (getLaunchIndexFromDirection,
+    BDPTUtils.hlsli:129-138): project onto U/V/W, divide by the W
+    component, round(pixelCenter * dim - jitter) half to even."""
+    def vdot(b):
+        return d[..., 0] * float(b[0]) + d[..., 1] * float(b[1]) + d[..., 2] * float(b[2])
+
+    def vdot3(v):
+        return float(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+    d1 = vdot(cam.camera_u) / vdot3(cam.camera_u)
+    d2 = vdot(cam.camera_v) / vdot3(cam.camera_v)
+    d3 = vdot(cam.camera_w) / vdot3(cam.camera_w)
+    jit = torch.as_tensor(jitter, dtype=torch.float32)
+    px = ((d1 / d3) * 0.5 + 0.5) * float(dims[0]) - float(jit[0])
+    py = ((-d2 / d3) * 0.5 + 0.5) * float(dims[1]) - float(jit[1])
+    return torch.round(px).to(torch.int32), torch.round(py).to(torch.int32)

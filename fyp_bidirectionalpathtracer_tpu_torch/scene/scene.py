@@ -5,9 +5,9 @@ scene/scene.py` (`:60`, `:145`) for untextured scenes with a constant 1x1
 env map.  Triangles are permuted by the same `accel/bvh.build_bvh` call
 (`scene.py:179-182`), so triangle ids match the JAX bake.
 
-The bake runs on the host in float32; the two tables the frame kernel
-reads (the [T_pad, 48] triangle pack and the [L, 13] light rows) are moved
-to the device named at bake time.
+The bake runs on the host in float32; the two tables the kernels read
+(the [T_pad, 48] triangle pack and the [L, 13] light rows) are moved to the
+device named at bake time: the card unless the caller names another.
 """
 from __future__ import annotations
 
@@ -16,10 +16,11 @@ from dataclasses import dataclass, field, fields, replace
 import numpy as np
 import torch
 
-from fyp_bidirectionalpathtracer_tpu.accel import bvh as bvh_mod
-
+from .. import cuda
+from ..accel import bvh as bvh_mod
+from ..accel.traverse import make_intersector
 from ..accel.tri_pack import TriSoA, bake_triangles, pack_shaded_tris_lane
-from ..shared import BuiltScene, MaterialDesc
+from ..models.procedural import BuiltScene, MaterialDesc
 from . import camera as camera_mod
 from .lights import light_rows, make_light_array
 from .types import (
@@ -76,7 +77,10 @@ class Scene:
         return self
 
     def bake(self, max_lights: int | None = None, leaf_size: int = 4,
-             device="cpu") -> "BakedScene":
+             device="cuda") -> "BakedScene":
+        """Bake onto `device`: the card unless the caller names another
+        (`device="cpu"` runs every kernel's plain version)."""
+        device = cuda.resolve_device(device)
         if self.camera is None or not self.lights:
             self.apply_default_fixups()
         mats = self.materials or [MaterialDesc()]
@@ -153,12 +157,19 @@ class Scene:
 
 @dataclass(frozen=True)
 class BakedScene:
-    """Host scene arrays plus the frame kernel's tables on `device`."""
+    """Host scene arrays plus the kernels' tables on `device`."""
 
     data: SceneData
     tris: TriSoA
     tri_pack: torch.Tensor     # [T_pad, 48] float32 on device
     light_rows: torch.Tensor   # [L, 13] float32 on device
+    # alpha-tested materials need the masked restart loops of ops/alpha.py;
+    # the bake refuses them, so a bake never sets this
+    has_alpha: bool = False
+    # every frame of this scene runs the kernels' plain versions on its
+    # device (`replace(baked, plain=True)`): the chain the kernels are held
+    # against on the card
+    plain: bool = False
 
     @classmethod
     def build(cls, data: SceneData, tris: TriSoA, device) -> "BakedScene":
@@ -178,6 +189,13 @@ class BakedScene:
 
     def with_camera(self, cam: CameraData) -> "BakedScene":
         return replace(self, data=replace(self.data, camera=cam))
+
+    def intersector(self):
+        """The wavefront's `intersect` closure (accel/traverse.py) over this
+        bake's pack."""
+        if self.has_alpha:
+            raise NotImplementedError(f"alpha-tested materials; see {_ALPHA_ITEM}")
+        return make_intersector(self.tri_pack, self.n_tris, plain=self.plain)
 
 
 # --------------------------------------------------- parameters carried across
@@ -199,11 +217,12 @@ def baked_scene_arrays(baked: BakedScene) -> dict:
     return out
 
 
-def baked_scene_from_arrays(arrays: dict, device="cpu") -> BakedScene:
+def baked_scene_from_arrays(arrays: dict, device="cuda") -> BakedScene:
     """Build the port's BakedScene from a flat dict of numpy arrays with
     the keys of baked_scene_arrays; the JAX package's BakedScene gives one
     by reading the same-named fields, so both packages compute on
-    identical inputs."""
+    identical inputs.  On the card unless `device` names another."""
+    device = cuda.resolve_device(device)
     env = np.asarray(arrays["env_map"], np.float32)
     if env.shape[:2] != (1, 1):
         raise NotImplementedError(f"env map of shape {env.shape}; see {_ENV_ITEM}")

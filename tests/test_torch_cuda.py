@@ -1,27 +1,31 @@
-"""K1, K2 and K3 against their plain versions on an H100.
+"""K1, K2, K3 and the K4 intersectors against their plain versions on an
+H100, and the wavefront frame against the plain chain.
 
 Marked `cuda`: they need the card and skip without one.  On the card:
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
+from dataclasses import replace
+
 import pytest
 import torch
 
 from fyp_bidirectionalpathtracer_tpu_torch import cuda
 from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
+from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
 from fyp_bidirectionalpathtracer_tpu_torch.ops.compact import compact_live, compact_plain
 from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     pack_rgb8e,
     reduce_sorted_plain,
     splat_reduce,
 )
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box, icosphere
+from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
+from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
 from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
+from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import render_frame_fn
+from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
-from fyp_bidirectionalpathtracer_tpu_torch.shared import (
-    BDPTConfig,
-    RenderConfig,
-    cornell_box,
-    icosphere,
-)
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -96,10 +100,80 @@ def test_frame_with_splats_matches_plain_chain(dev, w, h):
     baked = _baked(dev, "cornell", w, h)
     cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig())
     k, p = (frame_mod.render_frame_megakernel(
-        baked, w, h, 0x1337, pixel_jitter_for_frame(0x1337), cfg, plain=plain)[1]
+        replace(baked, plain=plain), w, h, 0x1337, pixel_jitter_for_frame(0x1337), cfg)[1]
         for plain in (False, True))
     d = (k - p).abs()
     # the image bounds of test_torch_frame.py
     assert (d.amax(-1) > 1e-3).float().mean() <= 0.02
     assert d.mean() < 5e-3
     assert abs(k[..., :3].mean() - p[..., :3].mean()) < 2e-3
+
+
+def _k4_rays(baked, w, h, kind, dev):
+    """[h, w] rays of one kind: 'gbuffer' (camera rays), 'bounce' (random
+    origins in the box, random directions) or 'shadow' (finite t_max, 30%
+    of the lanes empty)."""
+    g = torch.Generator().manual_seed(7)
+    if kind == "gbuffer":
+        d = camera_ray_dirs(baked.data.camera, w, h, torch.tensor([0.5, 0.5]))
+        d = d / d.norm(dim=-1, keepdim=True)
+        o, tmax = baked.data.camera.pos_w.expand(d.shape), None
+    else:
+        o = torch.rand((h, w, 3), generator=g) * 0.9 + 0.05
+        d = torch.randn((h, w, 3), generator=g)
+        d = d / d.norm(dim=-1, keepdim=True)
+        tmax = None
+        if kind == "shadow":
+            tmax = torch.where(torch.rand((h, w), generator=g) < 0.3, 0.0,
+                               torch.rand((h, w), generator=g) * 1.5).to(dev)
+    return o.contiguous().to(dev), d.contiguous().to(dev), tmax
+
+
+def _assert_k4_hits(k, p, kf=None, pf=None):
+    """The K4 bounds of tests/test_torch_intersect.py: ids equal but on ties
+    (both hit, t within rtol 1e-5), t rtol 1e-5, fields atol 2e-4."""
+    differs = k.tri != p.tri
+    torch.testing.assert_close(k.t[differs], p.t[differs], rtol=1e-5, atol=1e-7)
+    assert (k.tri[differs] >= 0).all() and (p.tri[differs] >= 0).all()
+    same = ~differs
+    torch.testing.assert_close(k.t[same], p.t[same], rtol=1e-5, atol=1e-7)
+    if kf is not None:
+        torch.testing.assert_close(kf[:, same], pf[:, same], rtol=0, atol=2e-4)
+
+
+# 50x37 is no multiple of the kernels' 256-thread block, so their tail runs
+@pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
+@pytest.mark.parametrize("scene", ["cornell", "cornell_icosphere"])
+def test_k4_kernels_match_plain(dev, scene, w, h):
+    baked = _baked(dev, scene, w, h)
+    args = (baked.tri_pack, baked.n_tris)
+    cuda.reset_launch_counts()
+    for kind, cull in (("gbuffer", True), ("bounce", False)):
+        o, d, _ = _k4_rays(baked, w, h, kind, dev)
+        kh, kf = isect.intersect_shaded_fm(*args, o, d, 1e-3, None, cull)
+        ph, pf = isect.shaded_plain(*args, o, d, 1e-3, None, cull)
+        _assert_k4_hits(kh, ph, kf, pf)
+        _assert_k4_hits(isect.intersect_closest(*args, o, d, 1e-3, None, cull),
+                        isect.closest_plain(*args, o, d, 1e-3, None, cull))
+    o, d, tmax = _k4_rays(baked, w, h, "shadow", dev)
+    got = isect.occluded(*args, o, d, 1e-3, tmax)
+    assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax))
+    assert 0 < int(got.sum()) < w * h
+    assert cuda.LAUNCHES["shaded"] == 2 and cuda.LAUNCHES["closest"] == 2
+    assert cuda.LAUNCHES["occluded"] == 1
+
+
+@pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
+def test_wavefront_frame_matches_plain_chain(dev, w, h):
+    baked = _baked(dev, "cornell", w, h)
+    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig(megakernel="off"))
+    imgs = []
+    for plain in (False, True):
+        ch, _, _ = render_frame_fn(replace(baked, plain=plain), baked.data.camera,
+                                   AccumState.create(h, w, dev), BMFRState.create(h, w, dev),
+                                   0xDEADBEEF, 0x1337, False, cfg)
+        imgs.append(ch["BDPT"])
+    d = (imgs[0] - imgs[1]).abs()
+    assert (d.amax(-1) > 1e-3).float().mean() <= 0.02
+    assert d.mean() < 5e-3
+    assert abs(imgs[0][..., :3].mean() - imgs[1][..., :3].mean()) < 2e-3

@@ -72,7 +72,7 @@ def jax_bake():
 
 @pytest.fixture(scope="module")
 def port_bake(jax_bake):
-    return baked_scene_from_arrays(jax_scene_arrays(jax_bake))
+    return baked_scene_from_arrays(jax_scene_arrays(jax_bake), device="cpu")
 
 
 def _frames(fn, baked, accum, bmfr, to_np):
@@ -97,8 +97,8 @@ def jax_frames(jax_bake):
 
 @pytest.fixture(scope="module")
 def port_frames(port_bake):
-    return _frames(render_frame_fn, port_bake, AccumState.create(H, W),
-                   BMFRState.create(H, W), lambda t: t.numpy())
+    return _frames(render_frame_fn, port_bake, AccumState.create(H, W, device="cpu"),
+                   BMFRState.create(H, W, device="cpu"), lambda t: t.numpy())
 
 
 def _image_stats(a, b):

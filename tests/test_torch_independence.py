@@ -1,0 +1,76 @@
+"""The port imports nothing of JAX and nothing of the JAX package: neither
+in its source (a static check of every import statement) nor at run time
+(a subprocess that refuses those imports renders through both paths)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "fyp_bidirectionalpathtracer_tpu_torch"
+JAX_PACKAGE = "fyp_bidirectionalpathtracer_tpu"
+FORBIDDEN = ("jax", "flax", "jaxlib", JAX_PACKAGE)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_sources_import_nothing_of_jax():
+    found = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                      for n in names if _forbidden(n)]
+    assert len(_port_sources()) > 30
+    assert not found, found
+
+
+_BLOCKED_RUN = f"""
+import importlib.abc
+import sys
+
+FORBIDDEN = {FORBIDDEN!r}
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".") for f in FORBIDDEN):
+            raise ImportError("refused: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
+from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
+from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+
+baked = Scene.from_built(cornell_box(), aspect=1.0).bake(device="cpu")
+for mk in ("on", "off"):
+    out = Renderer(baked, RenderConfig(width=16, height=16,
+                                       bdpt=BDPTConfig(megakernel=mk))).render_frame()
+    assert tuple(out.shape) == (16, 16, 4) and bool(out.isfinite().all()), mk
+    print(mk, "ok")
+assert not [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+"""
+
+
+def test_port_renders_with_jax_imports_refused():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["on", "ok", "off", "ok"], proc.stdout

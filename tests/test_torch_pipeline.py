@@ -1,5 +1,5 @@
 """The port's Renderer against the checked-in golden, and the port's
-independence from jax."""
+independence from jax and from the JAX package at run time."""
 import os
 import subprocess
 import sys
@@ -10,9 +10,10 @@ import pytest
 from fyp_bidirectionalpathtracer_tpu.ops.tonemap import OPERATOR_NAMES, tone_map
 from fyp_bidirectionalpathtracer_tpu.utils.image import psnr, read_png, to_u8
 from fyp_bidirectionalpathtracer_tpu.utils.testing import GOLDEN_DIR
-from fyp_bidirectionalpathtracer_tpu_torch.shared import RenderConfig, cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import RenderConfig
 
 SIZE = 64
 # the JAX package's golden bar (utils/testing.golden_compare)
@@ -29,7 +30,7 @@ def _golden_psnr(name, img) -> float:
 
 @pytest.fixture(scope="module")
 def renderer():
-    r = Renderer(Scene.from_built(cornell_box(), aspect=1.0).bake(),
+    r = Renderer(Scene.from_built(cornell_box(), aspect=1.0).bake(device="cpu"),
                  RenderConfig(width=SIZE, height=SIZE))
     r.render(8)
     return r
@@ -58,14 +59,18 @@ def test_renderer_state_after_8_frames(renderer):
 def test_port_never_imports_jax():
     code = (
         "import sys\n"
-        "from fyp_bidirectionalpathtracer_tpu_torch.shared import RenderConfig, cornell_box\n"
+        "from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box\n"
+        "from fyp_bidirectionalpathtracer_tpu_torch.utils.config import RenderConfig\n"
         "from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene\n"
         "from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer\n"
-        "r = Renderer(Scene.from_built(cornell_box(), aspect=1.0).bake(),\n"
+        "r = Renderer(Scene.from_built(cornell_box(), aspect=1.0).bake(device='cpu'),\n"
         "             RenderConfig(width=16, height=16))\n"
         "out = r.render_frame()\n"
         "assert tuple(out.shape) == (16, 16, 4)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "pkg = 'fyp_bidirectionalpathtracer_tpu'\n"
+        "bad = [m for m in sys.modules if m == pkg or m.startswith(pkg + '.')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

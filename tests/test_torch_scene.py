@@ -1,29 +1,41 @@
 """The port's scene bake, triangle pack and parameter carry against the JAX
-package on the CPU, plus the scope gate and what the slice refuses."""
+package on the CPU, the port's own copies of the JAX package's numpy-only
+modules, the device defaults, plus the scope gate and what the slice
+refuses."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from fyp_bidirectionalpathtracer_tpu.accel import bvh as jbvh
 from fyp_bidirectionalpathtracer_tpu.accel.pallas_lane import pack_shaded_tris_lane
-from fyp_bidirectionalpathtracer_tpu.models.procedural import (
+from fyp_bidirectionalpathtracer_tpu.models import procedural as jprocedural
+from fyp_bidirectionalpathtracer_tpu.passes.accumulate import AccumState as JAccumState
+from fyp_bidirectionalpathtracer_tpu.scene.scene import Scene as JScene
+from fyp_bidirectionalpathtracer_tpu.utils import config as jconfig
+from fyp_bidirectionalpathtracer_tpu_torch.accel import bvh
+from fyp_bidirectionalpathtracer_tpu_torch.accel.frame import supports_megakernel
+from fyp_bidirectionalpathtracer_tpu_torch.models import procedural
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
     MaterialDesc,
     cornell_box,
     icosphere,
-    many_light_scene,
 )
-from fyp_bidirectionalpathtracer_tpu.passes.accumulate import AccumState as JAccumState
-from fyp_bidirectionalpathtracer_tpu.scene.scene import Scene as JScene
-from fyp_bidirectionalpathtracer_tpu.utils.config import BDPTConfig, BMFRConfig, RenderConfig
-from fyp_bidirectionalpathtracer_tpu_torch.accel.frame import supports_megakernel
 from fyp_bidirectionalpathtracer_tpu_torch.ops.splat import scatter_add_rgba
 from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
+from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
     Scene,
     baked_scene_arrays,
     baked_scene_from_arrays,
+)
+from fyp_bidirectionalpathtracer_tpu_torch.utils import config
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
+    BDPTConfig,
+    BMFRConfig,
+    RenderConfig,
 )
 
 
@@ -39,13 +51,14 @@ def jax_scene_arrays(jb) -> dict:
     return out
 
 
-def _built(name):
+def _built(name, mod=procedural):
+    """A scene from `mod`: the port's procedural module or the JAX one."""
     if name == "cornell":
-        return cornell_box()
+        return mod.cornell_box()
     if name == "many_light":
-        return many_light_scene()
-    b = cornell_box()  # 34 + 1280 triangles: beyond one 1024-row tile
-    b.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
+        return mod.many_light_scene()
+    b = mod.cornell_box()  # 34 + 1280 triangles: beyond one 1024-row tile
+    b.meshes.append(mod.icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
     return b
 
 
@@ -55,8 +68,8 @@ SCENES = ["cornell", "cornell_icosphere", "many_light"]
 @pytest.fixture(scope="module", params=SCENES)
 def both_bakes(request):
     aspect = 16.0 / 9.0
-    return (JScene.from_built(_built(request.param), aspect=aspect).bake(),
-            Scene.from_built(_built(request.param), aspect=aspect).bake())
+    return (JScene.from_built(_built(request.param, jprocedural), aspect=aspect).bake(),
+            Scene.from_built(_built(request.param), aspect=aspect).bake(device="cpu"))
 
 
 def test_bake_equals_jax_bake(both_bakes):
@@ -95,7 +108,7 @@ def test_scope_gate(both_bakes):
 def test_parameter_carry_round_trips(both_bakes):
     jb, _ = both_bakes
     arrays = jax_scene_arrays(jb)
-    carried = baked_scene_from_arrays(arrays)
+    carried = baked_scene_from_arrays(arrays, device="cpu")
     back = baked_scene_arrays(carried)
     for key, w in arrays.items():
         np.testing.assert_array_equal(back[key], w.astype(back[key].dtype), err_msg=key)
@@ -109,7 +122,7 @@ def test_accum_state_carry():
     js = JAccumState.create(4, 5)
     js = JAccumState(last_frame=js.last_frame + 0.25, count=js.count + 3)
     ps = AccumState.from_arrays({"last_frame": np.asarray(js.last_frame),
-                                 "count": np.asarray(js.count)})
+                                 "count": np.asarray(js.count)}, device="cpu")
     np.testing.assert_array_equal(ps.last_frame.numpy(), np.asarray(js.last_frame))
     assert int(ps.count) == 3 and ps.count.dtype == torch.int32
 
@@ -129,23 +142,32 @@ def _alpha():
 @pytest.mark.parametrize("make", [_textured, _alpha], ids=["texture", "alpha"])
 def test_bake_refuses_out_of_scope_scenes(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scene.from_built(make()).bake()
+        Scene.from_built(make()).bake(device="cpu")
 
 
 def test_env_map_refused():
     s = Scene.from_built(cornell_box())
     s.env_map = np.ones((8, 16, 4), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.bake()
+        s.bake(device="cpu")
 
 
-@pytest.mark.parametrize("cfg", [
-    RenderConfig(width=8, height=8, bdpt=BDPTConfig(megakernel="off")),
-    RenderConfig(width=8, height=8, bmfr=BMFRConfig(enabled=True)),
-    RenderConfig(width=8, height=8, tone_map_operator="aces"),
+def _beyond_dense_tier():
+    """5154 triangles: the wavefront's dense intersectors stop at 2048."""
+    b = cornell_box()
+    b.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=4))
+    return b
+
+
+@pytest.mark.parametrize("cfg,built", [
+    (RenderConfig(width=8, height=8, bdpt=BDPTConfig(megakernel="off")), _beyond_dense_tier),
+    (RenderConfig(width=8, height=8, bmfr=BMFRConfig(enabled=True)), cornell_box),
+    (RenderConfig(width=8, height=8, tone_map_operator="aces"), cornell_box),
 ], ids=["megakernel-off", "bmfr", "tonemap"])
-def test_pipeline_refuses_unported_options(cfg):
-    r = Renderer(Scene.from_built(cornell_box(), aspect=1.0).bake(), cfg)
+def test_pipeline_refuses_unported_options(cfg, built):
+    """megakernel-off: the wavefront runs, but not on a scene beyond the
+    dense tier (the cluster tiers K4f-K4j are still to port)."""
+    r = Renderer(Scene.from_built(built(), aspect=1.0).bake(device="cpu"), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render_frame()
         r.display()
@@ -155,3 +177,87 @@ def test_unported_splat_mode_raises():
     lin = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scatter_add_rgba("sorted", lin, torch.zeros(4, 3), torch.ones(4), 8)
+
+
+# ------------------------------------------------ the port's own copies
+def _mesh_arrays(m):
+    return [np.asarray(getattr(m, f.name)) for f in dataclasses.fields(m)
+            if f.name != "name"]
+
+
+@pytest.mark.parametrize("fn", ["cornell_box", "icosphere", "many_light_scene"])
+def test_procedural_copy_equals_jax(fn):
+    """models/procedural.py: the same meshes, materials, lights and camera."""
+    args = ((0.3, 0.4, 0.5), 0.25, 1) if fn == "icosphere" else ()
+    want, got = getattr(jprocedural, fn)(*args), getattr(procedural, fn)(*args)
+    if fn == "icosphere":
+        want, got = jprocedural.BuiltScene(meshes=[want]), procedural.BuiltScene(meshes=[got])
+    assert len(got.meshes) == len(want.meshes) > 0
+    for gm, wm in zip(got.meshes, want.meshes):
+        for g, w in zip(_mesh_arrays(gm), _mesh_arrays(wm), strict=True):
+            np.testing.assert_array_equal(g, w)
+    assert [dataclasses.astuple(m) for m in got.materials] == \
+        [dataclasses.astuple(m) for m in want.materials]
+    assert repr(got.lights) == repr(want.lights) and got.camera == want.camera
+
+
+@pytest.mark.parametrize("impl", ["native", "numpy"])
+@pytest.mark.parametrize("scene", SCENES)
+def test_build_bvh_copy_equals_jax(monkeypatch, scene, impl):
+    """accel/bvh.py and accel/native.py: equal node arrays and tri_order,
+    through the checked-in native library and through numpy."""
+    if impl == "numpy":
+        monkeypatch.setattr(jbvh, "build_sah_native", lambda *a: None)
+        monkeypatch.setattr(bvh, "build_sah_native", lambda *a: None)
+    else:
+        assert bvh.build_sah_native(np.zeros((3, 3), np.float32),
+                                    np.asarray([[0, 1, 2]]), 4) is not None
+    meshes = _built(scene).meshes
+    pos = np.concatenate([m.positions for m in meshes]).astype(np.float32)
+    offs = np.cumsum([0] + [len(m.positions) for m in meshes[:-1]])
+    idx = np.concatenate([np.asarray(m.indices, np.int64) + o for m, o in zip(meshes, offs)])
+    want, got = jbvh.build_bvh(pos, idx, leaf_size=4), bvh.build_bvh(pos, idx, leaf_size=4)
+    assert set(got) == set(want) and len(got["tri_order"]) == len(idx)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["BDPTConfig", "GBufferConfig", "AccumulateConfig",
+                                  "BMFRConfig", "RenderConfig"])
+def test_config_copy_equals_jax(name):
+    """utils/config.py: the same fields, in order, with the same defaults."""
+    def spec(cls):
+        return [(f.name, f.default, f.default_factory) for f in dataclasses.fields(cls)]
+    got, want = spec(getattr(config, name)), spec(getattr(jconfig, name))
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert [g[1] for g in got] == [w[1] for w in want]
+    assert getattr(config, name)() == _as_port(getattr(jconfig, name)())
+
+
+def _as_port(obj):
+    """A JAX config dataclass rebuilt as the port's same-named one."""
+    cls = getattr(config, type(obj).__name__)
+    return cls(**{f.name: (_as_port(getattr(obj, f.name))
+                           if dataclasses.is_dataclass(getattr(obj, f.name))
+                           else getattr(obj, f.name))
+                  for f in dataclasses.fields(obj)})
+
+
+@pytest.mark.parametrize("entry", ["Scene.bake", "baked_scene_from_arrays",
+                                   "AccumState.create", "AccumState.from_arrays",
+                                   "BMFRState.create"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Called without a device on a machine without a card, each entry point
+    raises; it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = {"last_frame": np.zeros((2, 2, 4), np.float32), "count": np.asarray(0)}
+    calls = {
+        "Scene.bake": lambda: Scene.from_built(cornell_box()).bake(),
+        "baked_scene_from_arrays": lambda: baked_scene_from_arrays(
+            baked_scene_arrays(Scene.from_built(cornell_box()).bake(device="cpu"))),
+        "AccumState.create": lambda: AccumState.create(2, 2),
+        "AccumState.from_arrays": lambda: AccumState.from_arrays(arrays),
+        "BMFRState.create": lambda: BMFRState.create(2, 2),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

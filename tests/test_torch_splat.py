@@ -161,6 +161,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     out = splat_reduce(torch.tensor([0, 1, 1], dtype=torch.int32),
                        torch.zeros(3, dtype=torch.int32), 4)
     assert out[:, 3].tolist() == [1.0, 2.0, 0.0, 0.0]
-    assert cuda.LAUNCHES == {"frame": 0, "compact": 0, "splat_tile": 0}
+    assert set(cuda.LAUNCHES) >= {"frame", "compact", "splat_tile"}
+    assert all(v == 0 for v in cuda.LAUNCHES.values())
     with pytest.raises(TypeError):
         compact_live(keys.to(torch.int64), pay, 9, 1024)
