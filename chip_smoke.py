@@ -4,18 +4,24 @@
 
 Builds every hand-written kernel from `fyp_bidirectionalpathtracer_tpu_
 torch/csrc/` (one nvcc process a source, in parallel): K1 (frame
-megakernel), K2 (splat compaction), K3 (splat tile reduction) and the K4
-intersectors (closest, shaded, any-hit).  Holds each against its plain
-PyTorch version at the shapes its path gives it, then drives both paths of
-the port through `Renderer` on the Cornell box at 1280x720, depth 3, BMFR
-off: the megakernel main path (K1 -> K2 -> sort -> K3) and the per-bounce
-wavefront (`megakernel="off"`: G-buffer and subpath extensions through the
-shaded kernel, three shadow batches through the any-hit kernel, the
-estimator-2 splat through K2 -> sort -> K3).  Each path is run with the
-launch counts set to 0 just before it and read just after; two renders of
-one frame must be bit-identical, the wavefront frame must agree with the
-megakernel frame and with its plain chain, and a 64x64 render through each
-path must match the checked-in golden image.
+megakernel), K2 (splat compaction), K3 (splat tile reduction), the dense K4
+intersectors (closest, shaded, any-hit) and the BVH kernels that replace
+the cluster and HBM tiers K4f-K4j (bvh_closest, bvh_shaded, bvh_occluded).
+Holds each against its plain PyTorch version at the shapes its path gives
+it (the BVH kernels bit for bit, on pink_room at 10,546, 41,266 and 164,146
+triangles), then drives three paths through `Renderer` at 1280x720, depth
+3, BMFR off: on the Cornell box the megakernel main path (K1 -> K2 -> sort
+-> K3) and the per-bounce wavefront (`megakernel="off"`: G-buffer and
+subpath extensions through the shaded kernel, three shadow batches through
+the any-hit kernel, the estimator-2 splat through K2 -> sort -> K3); and
+pink_room (`models/pink_room`, procedural textures, default config), which
+the megakernel gate sends to the wavefront: the BVH shaded kernel with the
+texture taps, the BVH any-hit kernel, the splat chain (and, at 41,266 and
+164,146 triangles, the BVH closest kernel with the attribute and texture
+gathers).  Each path is run with the launch counts set to 0 just before it
+and read just after; two renders of one frame must be bit-identical, the
+wavefront frames must agree with their plain chains (Cornell also with the
+megakernel frame), and small renders must match the checked-in goldens.
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
@@ -32,6 +38,7 @@ import sys
 import time
 import zlib
 from dataclasses import replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -48,6 +55,12 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # stage it reaches: n.d; t where dir_ok; u, v and u + v where t is in range
 STAGE_FLOPS = (5, 7, 27)
 MIN_T = 1e-3                 # BDPTConfig.min_t
+# operations of one slab test of the BVH walk (csrc/bvh.cuh slab_visit):
+# per axis 2 sub, 2 mul, a min and a max; 2 max and 2 min across the axes;
+# the widening's 2 abs, 2 mul, 2 add; 3 compares
+SLAB_FLOPS = 31
+PINK_SAMPLE = 14             # every 14th ray of a 1280x720 batch: 65,829 rays
+GOLDEN_PINK = os.path.join(REPO, "tests", "golden", "pink_room_fallback_2f_64x40.png")
 
 
 def log(*a):
@@ -73,7 +86,8 @@ def bound(n_bytes: float, flops: float) -> dict:
     over the float32 rate, whichever is larger."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops}
 
 
 def pair_flops(isect, tris, o, d, tmin, tmax, cull: bool, closest: bool) -> int:
@@ -172,10 +186,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
     from fyp_bidirectionalpathtracer_tpu_torch import cuda
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import cluster
     from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
     from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
     from fyp_bidirectionalpathtracer_tpu_torch.core import rng
     from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
+    from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
     from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
         cornell_box,
         icosphere,
@@ -363,22 +379,25 @@ def main() -> int:
         d = d / d.norm(dim=-1, keepdim=True)
         return bk.data.camera.pos_w.to(dev).expand(d.shape).contiguous(), d.contiguous()
 
-    def k4_rays(bk, w, h):
-        """The shapes the wavefront gives the kernels: G-buffer rays [H, W]
-        (cull on); one extension batch [H, W] (cull off): BRDF samples from
-        the G-buffer hits; an est-3-shaped shadow batch [4, H, W]: from the
-        G-buffer hits toward random points of the box, 30% of the lanes
-        empty (t_max = 0), as the pre-masking leaves them."""
+    def k4_rays(bk, w, h, shaded=isect.intersect_shaded_fm):
+        """The shapes the wavefront gives the intersectors: G-buffer rays
+        [H, W] (cull on); one extension batch [H, W] (cull off): BRDF
+        samples from the G-buffer hits; an est-3-shaped shadow batch
+        [4, H, W] from the hits toward random points of the scene's box, 30%
+        of the lanes empty (t_max = 0), as the pre-masking leaves them.
+        `shaded` traces the G-buffer (the dense kernel, or the BVH one)."""
         o_g, d_g = gbuffer_rays(bk, w, h)
-        hit, fields = isect.intersect_shaded_fm(bk.tri_pack, bk.n_tris, o_g, d_g, 0.0,
-                                                None, True)
+        hit, fields = shaded(bk.tri_pack, bk.n_tris, origin=o_g, direction=d_g, t_min=0.0,
+                             cull_backface=True)
         pos = o_g + hit.t[..., None] * d_g
         nrm = torch.movedim(fields[4:7], 0, -1)
         nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp(min=1e-20)
         seed = rng.pixel_seeds(w, h, BDPT_FRAME_INIT, device=dev)
         _, l_dir = cos_hemisphere_sample(seed, nrm)
         gen = torch.Generator(device=dev).manual_seed(3)
-        target = torch.rand((4, h, w, 3), generator=gen, device=dev)
+        lo = bk.data.bvh.node_min[0].to(dev)
+        hi = bk.data.bvh.node_max[0].to(dev)
+        target = lo + (hi - lo) * torch.rand((4, h, w, 3), generator=gen, device=dev)
         vec = target - pos
         length = vec.norm(dim=-1)
         empty = torch.rand((4, h, w), generator=gen, device=dev) < 0.3
@@ -438,8 +457,8 @@ def main() -> int:
         # times on the G-buffer rays (shaded, closest) and the shadow batch
         lib = cuda.library()
         stream = cuda.stream(dev)
-        rows_g, _ = isect._rays(o_g, d_g, 0.0, None)
-        rows_s, _ = isect._rays(o_s, d_s, MIN_T, tm_s)
+        rows_g, _ = isect.rays(o_g, d_g, 0.0, None)
+        rows_s, _ = isect.rays(o_s, d_s, MIN_T, tm_s)
         ns = rows_s.shape[1]
         fields = torch.empty((isect.OUT_W, n), device=dev)
         t_ = torch.empty(n, device=dev)
@@ -466,8 +485,8 @@ def main() -> int:
         # pair tests these rays need (pair_flops)
         out_bytes = {"shaded": 4.0 * isect.OUT_W, "closest": 16.0, "occluded": 1.0}
         tris = bk.tri_pack[:bk.n_tris]
-        o_g_, d_g_, tmin_g, tmax_g = isect._components(rows_g)
-        o_s_, d_s_, tmin_s, tmax_s = isect._components(rows_s)
+        o_g_, d_g_, tmin_g, tmax_g = isect.components(rows_g)
+        o_s_, d_s_, tmin_s, tmax_s = isect.components(rows_s)
         flops_g = pair_flops(isect, tris, o_g_, d_g_, tmin_g, tmax_g, True, True)
         flops = {"shaded": flops_g, "closest": flops_g,
                  "occluded": pair_flops(isect, tris, o_s_, d_s_, tmin_s, tmax_s, False, False)}
@@ -521,10 +540,163 @@ def main() -> int:
     if not img_ok:
         raise AssertionError("the wavefront frame differs from its plain chain")
 
+    # ---- phase 4d: the BVH kernels against their plain versions -----------
+    def pink(sub, w, h):
+        built = pink_room(asset_dir="", subdivisions=sub)
+        return Scene.from_built(built, aspect=w / h).bake(device=dev)
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def pick(x, step, width=3):
+        """Every step-th ray of rays [..., 3] (width 1: of values [...])."""
+        return x.reshape(-1, width)[::step].squeeze(-1).contiguous()
+
+    def walk_flops(bk, o, d, tmin, tmax, mode):
+        c = cluster.bvh_walk_counts(bk.tri_pack, bk.n_tris, bk.bvh_nodes, o, d, tmin, tmax,
+                                    mode).to(torch.int64).sum(1).tolist()
+        s1, s2, s3 = STAGE_FLOPS
+        return SLAB_FLOPS * c[0] + s1 * c[1] + s2 * c[2] + s3 * c[3], c
+
+    bvh_stats = {}
+
+    def check_bvh(bk, step, label):
+        """Bit-equality of the three BVH kernels and their plain versions on
+        every step-th ray of the 1280x720 batches, then each kernel's time
+        on the whole batch, its bound (bytes, and the walk's operations
+        counted by its counting instantiation) and the plain version's time
+        on the checked rays."""
+        (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(
+            bk, WIDTH, HEIGHT, partial(cluster.bvh_shaded_fm, nodes=bk.bvh_nodes))
+        tn_g, tn_e, tn_s = 0.0, MIN_T, MIN_T
+        args = (bk.tri_pack, bk.n_tris)
+        nodes = bk.bvh_nodes
+        for name, o, d, tmin, cull in (("G-buffer", o_g, d_g, tn_g, True),
+                                       ("extension", o_e, d_e, tn_e, False)):
+            o, d = pick(o, step), pick(d, step)
+            kh, kf = cluster.bvh_shaded_fm(*args, nodes, o, d, tmin, None, cull)
+            ph, pf = isect.shaded_plain(*args, o, d, tmin, None, cull)
+            kc = cluster.bvh_closest(*args, nodes, o, d, tmin, None, cull)
+            pc = isect.closest_plain(*args, o, d, tmin, None, cull)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(bits(a), bits(b)) for a, b in (
+                (kf, pf), (kh.t, ph.t), (kc.t, pc.t), (kc.tri, pc.tri), (kc.bary_u, pc.bary_u),
+                (kc.bary_v, pc.bary_v)))
+            log(f"BVH {label} {bk.n_tris} tris, {name} rays ({o.shape[0]} of every {step}): "
+                f"shaded and closest bit-equal to the plain versions {equal} (t, ids, u, v, "
+                f"32 fields); hits {int(kh.hit.sum())}")
+            if not equal:
+                raise AssertionError(f"a BVH kernel differs from its plain version ({label}, "
+                                     f"{name} rays)")
+        os_, ds_, ts_ = pick(o_s, step), pick(d_s, step), pick(tm_s, step, 1)
+        ko = cluster.bvh_occluded(*args, nodes, os_, ds_, tn_s, ts_)
+        po = isect.occluded_plain(*args, os_, ds_, tn_s, ts_)
+        torch.cuda.synchronize()
+        eq = bool(torch.equal(ko, po))
+        log(f"BVH {label} any-hit, shadow rays ({os_.shape[0]}, {int((ts_ > 0).sum())} live): "
+            f"bits equal {eq}, occluded {int(ko.sum())}")
+        if not eq:
+            raise AssertionError(f"the BVH any-hit kernel differs from its plain version "
+                                 f"({label})")
+        lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
+        rows_g, _ = isect.rays(o_g, d_g, tn_g, None)
+        rows_e, _ = isect.rays(o_e, d_e, tn_e, None)
+        rows_s, _ = isect.rays(o_s, d_s, tn_s, tm_s)
+        n, ns = rows_g.shape[1], rows_s.shape[1]
+        fields = torch.empty((isect.OUT_W, n), device=dev)
+        t_ = torch.empty(n, device=dev)
+        id_ = torch.empty(n, dtype=torch.int32, device=dev)
+        u_, v_ = torch.empty_like(t_), torch.empty_like(t_)
+        occ = torch.empty(ns, dtype=torch.bool, device=dev)
+        runs = {
+            "bvh_shaded": lambda rows, cull: lib.bdpt_bvh_shaded(
+                p(rows), n, p(bk.tri_pack), p(nodes), cull, p(fields), stream),
+            "bvh_closest": lambda rows, cull: lib.bdpt_bvh_closest(
+                p(rows), n, p(bk.tri_pack), p(nodes), cull, p(t_), p(id_), p(u_), p(v_), stream),
+        }
+        out = {}
+        pack_bytes = 4.0 * (bk.tri_pack.numel() + nodes.numel())
+        out_bytes = {"bvh_shaded": 4.0 * isect.OUT_W, "bvh_closest": 16.0}
+        o_c, d_c = pick(o_g, step), pick(d_g, step)
+        plains = {"bvh_shaded": lambda: isect.shaded_plain(*args, o_c, d_c, 0.0, None, True),
+                  "bvh_closest": lambda: isect.closest_plain(*args, o_c, d_c, 0.0, None, True),
+                  "bvh_occluded": lambda: isect.occluded_plain(*args, os_, ds_, tn_s, ts_)}
+        for name in ("bvh_shaded", "bvh_closest"):
+            ms = time_ms(lambda: cuda.check_error(name, runs[name](rows_g, 1)), 10)
+            ms_e = time_ms(lambda: cuda.check_error(name, runs[name](rows_e, 0)), 10)
+            flops, c = walk_flops(bk, o_g, d_g, 0.0, None, "closest_cull")
+            bd = bound(n * (32.0 + out_bytes[name]) + pack_bytes, float(flops))
+            out[name] = dict(ms=ms, extension_ms=ms_e, plain_ms=time_ms(plains[name], 1),
+                             plain_rays=o_c.shape[0], **bd)
+            log(f"BVH {name} {label} {bk.n_tris} tris, {n} G-buffer rays: kernel {ms:.4f} ms "
+                f"(extension rays {ms_e:.4f} ms), plain {out[name]['plain_ms']:.2f} ms on "
+                f"{o_c.shape[0]} rays, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; bytes "
+                f"{bd['bytes_ms']:.4f} ms, walk {c[0]} slab tests, pairs by stage {c[1:]}, "
+                f"{flops} operations {bd['operations_ms']:.4f} ms)")
+        ms = time_ms(lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(
+            p(rows_s), ns, p(bk.tri_pack), p(nodes), p(occ), stream)), 10)
+        flops, c = walk_flops(bk, o_s, d_s, tn_s, tm_s, "any")
+        bd = bound(ns * 33.0 + pack_bytes, float(flops))
+        out["bvh_occluded"] = dict(ms=ms, plain_ms=time_ms(plains["bvh_occluded"], 1),
+                                   plain_rays=os_.shape[0], **bd)
+        log(f"BVH bvh_occluded {label} {bk.n_tris} tris, [4, {HEIGHT}, {WIDTH}] shadow batch: "
+            f"kernel {ms:.4f} ms, plain {out['bvh_occluded']['plain_ms']:.2f} ms on "
+            f"{os_.shape[0]} rays, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; bytes "
+            f"{bd['bytes_ms']:.4f} ms, walk {c[0]} slab tests, pairs by stage {c[1:]}, "
+            f"{flops} operations {bd['operations_ms']:.4f} ms)")
+        bvh_stats[label] = out
+
+    pink_main = pink(3, WIDTH, HEIGHT)
+    check_bvh(pink_main, 1, "pink_room")
+    for sub in (4, 5):
+        big = pink(sub, WIDTH, HEIGHT)
+        check_bvh(big, PINK_SAMPLE, f"pink_room subdivisions={sub}")
+        del big
+    # Cornell + icosphere (1314 triangles): the BVH kernels against the dense
+    # K4 kernels, bit for bit, as well as against the plain versions
+    ci = scene("cornell_icosphere", 256, 144)
+    (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(ci, 256, 144)
+    same = []
+    for o, d, tmin, cull in ((o_g, d_g, 0.0, True), (o_e, d_e, MIN_T, False)):
+        bh, bf = cluster.bvh_shaded_fm(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o, d, tmin, None,
+                                       cull)
+        dh, df = isect.intersect_shaded_fm(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
+        _, pf = isect.shaded_plain(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
+        bc = cluster.bvh_closest(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o, d, tmin, None, cull)
+        dc = isect.intersect_closest(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
+        same += [torch.equal(bits(bf), bits(df)), torch.equal(bits(bf), bits(pf)),
+                 torch.equal(bits(bc.t), bits(dc.t)), torch.equal(bc.tri, dc.tri)]
+    bo = cluster.bvh_occluded(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o_s, d_s, MIN_T, tm_s)
+    same.append(torch.equal(bo, isect.occluded(ci.tri_pack, ci.n_tris, o_s, d_s, MIN_T, tm_s)))
+    torch.cuda.synchronize()
+    log(f"BVH on Cornell + icosphere ({ci.n_tris} tris) 256x144: equal to the dense K4 kernels "
+        f"and the plain versions bit for bit: {all(same)} ({same})")
+    if not all(same):
+        raise AssertionError("the BVH kernels differ from the dense K4 kernels")
+
+    # ---- phase 4e: the textured wavefront frame against its plain chain -----
+    pk = pink(3, 256, 144)
+    frames = []
+    for plain in (False, True):
+        ch, _, _ = render_frame_fn(replace(pk, plain=plain), pk.data.camera,
+                                   AccumState.create(144, 256, dev),
+                                   BMFRState.create(144, 256, dev), GBUF_FRAME_INIT,
+                                   BDPT_FRAME_INIT, False, cfg_for(256, 144))
+        frames.append(ch["BDPT"])
+    frac_img, mad, dmean, _ = image_stats(*frames)
+    identical = bool(torch.equal(*frames))
+    log(f"pink_room wavefront frame 256x144, kernels vs plain chain: identical {identical} "
+        f"(frac>1e-3 {frac_img:.4f}, mean|d| {mad:.2e}, mean radiance d {dmean:.2e})")
+    if not identical:
+        raise AssertionError("the pink_room wavefront frame differs from its plain chain")
+
     # ---- phase 5: the two paths at 1280x720 ---------------------------------
-    def drive(megakernel):
-        """3 warm-up and 10 timed frames through Renderer, counts from 0."""
-        renderer = Renderer(cornell, cfg_for(WIDTH, HEIGHT, megakernel))
+    def drive(megakernel, baked=None, label=None):
+        """3 warm-up and 10 timed frames through Renderer on a new
+        accumulation, counts from 0 (the Cornell box unless `baked`)."""
+        baked = cornell if baked is None else baked
+        label = label or f"{megakernel} path"
+        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel))
         warmup, frames = 3, 10
         cuda.reset_launch_counts()
         for _ in range(warmup):
@@ -541,22 +713,22 @@ def main() -> int:
         launches = dict(cuda.LAUNCHES)
         ms = start.elapsed_time(end) / frames
         mrays = n_pix * RAYS_PER_PIXEL / (ms * 1e-3) / 1e6
-        log(f"{megakernel} path {WIDTH}x{HEIGHT} d={DEPTH}: {ms:.4f} ms/frame, "
+        log(f"{label} {WIDTH}x{HEIGHT} d={DEPTH}: {ms:.4f} ms/frame, "
             f"{mrays:.1f} Mrays/s ({RAYS_PER_PIXEL} rays/pixel; host clock {host_ms:.4f} "
             f"ms/frame), launches in {warmup + frames} frames {launches}")
         if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"{megakernel} path output is not finite")
+            raise AssertionError(f"{label} output is not finite")
         if (tuple(out.shape) != (HEIGHT, WIDTH, 4)
                 or int(renderer.state.accum.count) != warmup + frames):
-            raise AssertionError(f"{megakernel} path output has the wrong shape or count")
+            raise AssertionError(f"{label} output has the wrong shape or count")
         twice = []
         for _ in range(2):
-            r = Renderer(cornell, cfg_for(WIDTH, HEIGHT, megakernel))
+            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel))
             r.render_frame()
             twice.append({k: v.clone() for k, v in r.channels.items()})
         if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
-            raise AssertionError(f"the same frame rendered twice differs ({megakernel})")
-        log(f"{megakernel}: the same frame rendered twice is bit-identical")
+            raise AssertionError(f"the same frame rendered twice differs ({label})")
+        log(f"{label}: the same frame rendered twice is bit-identical")
         return launches, warmup + frames, twice[0]["BDPT"]
 
     mk_launches, n_frames, mk_frame = drive("auto")
@@ -580,9 +752,37 @@ def main() -> int:
         f"{dmean:.2e} (< 5e-3)")
     if not img_ok:
         raise AssertionError("the wavefront frame differs from the megakernel frame")
+    # pink_room, the default config: the megakernel gate refuses the textured
+    # scene, so Renderer takes the wavefront and its BVH kernels
+    pk_launches, pk_frames, _ = drive("auto", pink_main, "pink_room (default config)")
+    per_frame_pk = {"bvh_shaded": 1 + (DEPTH - 1) + DEPTH, "bvh_occluded": 3, "compact": 1,
+                    "splat_tile": 1, "frame": 0, "shaded": 0, "occluded": 0, "closest": 0,
+                    "bvh_closest": 0}
+    for key, want in per_frame_pk.items():
+        if pk_launches[key] != want * pk_frames:
+            raise AssertionError(f"kernel {key} launched {pk_launches[key]} times in "
+                                 f"{pk_frames} pink_room frames, want {want} a frame")
+    log(f"pink_room launches a frame: {per_frame_pk} (as required)")
+    # ---- phase 5b: pink_room at 41,266 and 164,146 triangles ---------------
+    # above 32768 triangles the shaded tracer takes the BVH closest kernel
+    # and gathers the attributes and texels (JAX ops/shading.py:699-713)
+    big_launches = {}
+    for sub in (4, 5):
+        big = pink(sub, WIDTH, HEIGHT)
+        big_launches[sub], n_big, _ = drive("auto", big, f"pink_room subdivisions={sub} "
+                                            f"({big.n_tris} tris)")
+        for key, want in (("bvh_closest", 1 + (DEPTH - 1) + DEPTH), ("bvh_occluded", 3),
+                          ("bvh_shaded", 0)):
+            if big_launches[sub][key] != want * n_big:
+                raise AssertionError(f"kernel {key} launched {big_launches[sub][key]} times in "
+                                     f"{n_big} frames at subdivisions={sub}")
+        del big
     launches = {"frame": mk_launches["frame"], "compact": mk_launches["compact"],
                 "splat_tile": mk_launches["splat_tile"], "shaded": wf_launches["shaded"],
-                "occluded": wf_launches["occluded"]}
+                "occluded": wf_launches["occluded"],
+                "bvh_shaded": pk_launches["bvh_shaded"],
+                "bvh_occluded": pk_launches["bvh_occluded"],
+                "bvh_closest": big_launches[4]["bvh_closest"]}
     launches["closest"] = kernels["closest"].pop("launches")
     # the run each kernel's launch count comes from
     paths = {name: f"megakernel {WIDTH}x{HEIGHT}, {n_frames} frames"
@@ -590,6 +790,12 @@ def main() -> int:
     paths.update({name: f"wavefront {WIDTH}x{HEIGHT}, {n_frames} frames"
                   for name in ("shaded", "occluded")})
     paths["closest"] = "gbuffer force_fused=False 250x143, 1 frame"
+    paths.update({name: f"pink_room wavefront {WIDTH}x{HEIGHT}, {pk_frames} frames"
+                  for name in ("bvh_shaded", "bvh_occluded")})
+    paths["bvh_closest"] = f"pink_room subdivisions=4 wavefront {WIDTH}x{HEIGHT}, {n_big} frames"
+    for name in ("bvh_shaded", "bvh_closest", "bvh_occluded"):
+        kernels[name] = dict(max_abs_err=0.0, library_ms=None,
+                             **{k: v for k, v in bvh_stats["pink_room"][name].items()})
 
     # ---- phase 6: goldens ---------------------------------------------------
     golden = read_png_rgb8(GOLDEN)
@@ -603,7 +809,23 @@ def main() -> int:
         if not value >= MIN_PSNR:
             raise AssertionError(f"golden image mismatch (megakernel {mk})")
 
+    # the pink_room golden: with exact taps at every vertex (what JAX's CPU
+    # path renders) at the JAX package's bar; the default config's
+    # mean-albedo bounce decodes beside it
+    golden = read_png_rgb8(GOLDEN_PINK)
+    small = pink(3, 64, 40)
+    for mean in (False, True):
+        r = Renderer(small, RenderConfig(width=64, height=40,
+                                         bdpt=BDPTConfig(bounce_tex_mean=mean)))
+        r.render(2)
+        value = psnr_u8(r.display().cpu().numpy(), golden)
+        log(f"golden pink_room_fallback_2f_64x40 (bounce_tex_mean={mean}): PSNR {value:.2f} dB"
+            + ("" if mean else f" (>= {MIN_PSNR})"))
+        if not mean and not value >= MIN_PSNR:
+            raise AssertionError("pink_room golden image mismatch")
+
     pkg = "fyp_bidirectionalpathtracer_tpu_torch/csrc/"
+    cl = "fyp_bidirectionalpathtracer_tpu/accel/pallas_cluster.py"
     meta = {
         "frame": ("frame.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py:550"),
         "compact": ("compact.cu", "fyp_bidirectionalpathtracer_tpu/ops/compact.py:100"),
@@ -611,12 +833,18 @@ def main() -> int:
         "closest": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_intersect.py:109"),
         "shaded": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_lane.py:259"),
         "occluded": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_lane.py:205"),
+        "bvh_shaded": ("bvh.cu", cl + ":799"),
+        "bvh_closest": ("bvh.cu", cl + ":893"),
+        "bvh_occluded": ("bvh.cu", cl + ":502"),
     }
+    # the HBM tier's kernels that the same walk replaces
+    also = {"bvh_closest": [cl + ":602"], "bvh_occluded": [cl + ":546"]}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],
          "replaces": meta[name][1], "launches": launches[name], "path": paths[name],
-         **kernels[name]}
-        for name in ("frame", "compact", "splat_tile", "shaded", "closest", "occluded")]}))
+         **({"also_replaces": also[name]} if name in also else {}), **kernels[name]}
+        for name in ("frame", "compact", "splat_tile", "shaded", "closest", "occluded",
+                     "bvh_shaded", "bvh_closest", "bvh_occluded")]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,20 +2,22 @@
 
 A second package beside the JAX/Pallas renderer in
 `fyp_bidirectionalpathtracer_tpu/`, which stays the reference it is held
-against.  It covers untextured scenes of at most 2048 triangles with a
-constant env map, on two paths: the whole-frame megakernel and the
-per-bounce wavefront (`megakernel="off"`), each with the estimator-2 splat
-reduction and temporal accumulation.
+against.  It covers scenes with a constant env map on two paths: the
+whole-frame megakernel (untextured, at most 2048 triangles) and the
+per-bounce wavefront (textured materials, any triangle count: the dense
+intersectors up to 2048 triangles, a BVH walk above), each with the
+estimator-2 splat reduction and temporal accumulation.
 
 Layer map (JAX counterpart in parentheses):
   core/      TEA/LCG RNG, vector helpers, samplers     (core/)
-  models/    procedural scenes (a copy)                 (models/procedural.py)
+  models/    procedural scenes, pink_room (copies)      (models/)
   utils/     render configuration (a copy)              (utils/config.py)
   scene/     scene bake, camera, lights, types          (scene/)
-  accel/     triangle pack, BVH order (a copy), frame   (accel/)
-             megakernel K1, dense intersectors K4
+  accel/     triangle pack, BVH build (a copy), frame   (accel/)
+             megakernel K1, dense intersectors K4a-K4e,
+             BVH kernels for K4f-K4j
   ops/       splat K2 + K3, BRDF and materials,         (ops/)
-             shading decode
+             shading decode, texture taps
   passes/    G-buffer, BDPT wavefront, accumulation,    (passes/)
              BMFR passthrough
   pipeline/  render_frame_fn and Renderer, profiler     (pipeline/)

@@ -43,8 +43,6 @@ OUT_W = 32
 PACK_COLS = 48
 _PAIR_BUDGET = 1 << 24  # [rays x tris] elements per pair-test chunk
 MAX_DENSE_TRIS = 2048
-CLUSTER_ITEM = ("ROADMAP Queue 2 K4f-K4j (cluster and HBM intersector tiers, "
-                "scenes above 2048 triangles)")
 
 
 @dataclass(frozen=True)
@@ -62,9 +60,12 @@ class HitRecord:
 
 
 def check_dense(n_tris: int) -> None:
-    """Raise for a scene beyond the dense tier."""
+    """Raise for a scene beyond the dense tier: the dense kernels stage every
+    triangle in shared memory; larger scenes go to the BVH kernels
+    (`accel/cluster.py`)."""
     if n_tris > MAX_DENSE_TRIS:
-        raise NotImplementedError(f"{n_tris} triangles; see {CLUSTER_ITEM}")
+        raise ValueError(f"{n_tris} triangles: the dense kernels take at most "
+                         f"{MAX_DENSE_TRIS}; accel/cluster.py's BVH kernels take more")
 
 
 # ------------------------------------------------- the plain pair programs
@@ -135,7 +136,7 @@ def winner_uv(a, o, d, t):
 
 
 # ------------------------------------------------------------ ray rows
-def _rays(origin, direction, t_min, t_max):
+def rays(origin, direction, t_min, t_max):
     """The kernels' ray rows [8, N]: ox oy oz dx dy dz tmin tmax."""
     shape = tuple(origin.shape[:-1])
     n = 1
@@ -154,18 +155,19 @@ def _rays(origin, direction, t_min, t_max):
     return rows, shape
 
 
-def _components(rows):
+def components(rows):
     return (rows[0], rows[1], rows[2]), (rows[3], rows[4], rows[5]), rows[6], rows[7]
 
 
-def _hit_record(t, tri, u, v, shape) -> HitRecord:
+def hit_record(t, tri, u, v, shape) -> HitRecord:
     tri = tri.to(torch.int32)
     return HitRecord(t=torch.where(tri < 0, _BIG, t).reshape(shape),
                      tri=tri.reshape(shape), bary_u=u.reshape(shape),
                      bary_v=v.reshape(shape))
 
 
-def _check(tri_pack, n_tris, origin, direction):
+def check_rays(tri_pack, n_tris, origin, direction):
+    """The checks of every intersector wrapper on its pack and rays."""
     dev = origin.device
     cuda.check_tensor("tri_pack", tri_pack, torch.float32, dev)
     for name, x in (("origin", origin), ("direction", direction)):
@@ -175,7 +177,6 @@ def _check(tri_pack, n_tris, origin, direction):
     if direction.shape != origin.shape:
         raise ValueError(f"origin {tuple(origin.shape)} and direction "
                          f"{tuple(direction.shape)} differ")
-    check_dense(n_tris)
     if n_tris < 1 or tri_pack.dim() != 2 or tri_pack.shape[1] != PACK_COLS \
             or tri_pack.shape[0] < n_tris:
         raise ValueError(f"tri_pack must be [T_pad >= {n_tris} >= 1, {PACK_COLS}], "
@@ -183,8 +184,13 @@ def _check(tri_pack, n_tris, origin, direction):
 
 
 # ------------------------------------------------------------ closest hit
+def _check(tri_pack, n_tris, origin, direction):
+    check_dense(n_tris)
+    check_rays(tri_pack, n_tris, origin, direction)
+
+
 def _closest_fields(tri_pack, n_tris, rows, cull_backface):
-    o, d, tmin, tmax = _components(rows)
+    o, d, tmin, tmax = components(rows)
     hit, t, tri = closest_rows(tri_pack, n_tris, o, d, tmin, tmax, cull_backface)
     a = tri_pack[tri.clamp(min=0)]
     u, v = winner_uv(a, o, d, t)
@@ -195,9 +201,9 @@ def _closest_fields(tri_pack, n_tris, rows, cull_backface):
 def closest_plain(tri_pack, n_tris, origin, direction, t_min, t_max=None,
                   cull_backface=False) -> HitRecord:
     """The closest kernel's plain version (any device)."""
-    rows, shape = _rays(origin, direction, t_min, t_max)
+    rows, shape = rays(origin, direction, t_min, t_max)
     _, t, tri, u, v, _ = _closest_fields(tri_pack, n_tris, rows, cull_backface)
-    return _hit_record(t, tri, u, v, shape)
+    return hit_record(t, tri, u, v, shape)
 
 
 def intersect_closest(tri_pack, n_tris, origin, direction, t_min, t_max=None,
@@ -207,7 +213,7 @@ def intersect_closest(tri_pack, n_tris, origin, direction, t_min, t_max=None,
     if origin.device.type == "cpu":
         return closest_plain(tri_pack, n_tris, origin, direction, t_min, t_max,
                              cull_backface)
-    rows, shape = _rays(origin, direction, t_min, t_max)
+    rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = rows.shape[1], rows.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -215,14 +221,14 @@ def intersect_closest(tri_pack, n_tris, origin, direction, t_min, t_max=None,
     cuda.check_launch("closest", cuda.library().bdpt_intersect_closest(
         cuda.ptr(rows), n, cuda.ptr(tri_pack), n_tris, int(bool(cull_backface)),
         cuda.ptr(t), cuda.ptr(tri), cuda.ptr(u), cuda.ptr(v), cuda.stream(dev)))
-    return _hit_record(t, tri, u, v, shape)
+    return hit_record(t, tri, u, v, shape)
 
 
 # ---------------------------------------------------------------- any hit
 def occluded_plain(tri_pack, n_tris, origin, direction, t_min, t_max=None) -> torch.Tensor:
     """The any-hit kernel's plain version (any device)."""
-    rows, shape = _rays(origin, direction, t_min, t_max)
-    o, d, tmin, tmax = _components(rows)
+    rows, shape = rays(origin, direction, t_min, t_max)
+    o, d, tmin, tmax = components(rows)
     return any_hit_rows(tri_pack, n_tris, o, d, tmin, tmax).reshape(shape)
 
 
@@ -231,7 +237,7 @@ def occluded(tri_pack, n_tris, origin, direction, t_min, t_max=None) -> torch.Te
     _check(tri_pack, n_tris, origin, direction)
     if origin.device.type == "cpu":
         return occluded_plain(tri_pack, n_tris, origin, direction, t_min, t_max)
-    rows, shape = _rays(origin, direction, t_min, t_max)
+    rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = rows.shape[1], rows.device
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     cuda.check_launch("occluded", cuda.library().bdpt_occluded(
@@ -240,15 +246,15 @@ def occluded(tri_pack, n_tris, origin, direction, t_min, t_max=None) -> torch.Te
 
 
 # ------------------------------------------------- closest hit + attributes
-def _shaded_hit(fields, shape):
-    return _hit_record(fields[0], fields[1], fields[2], fields[3], shape)
+def shaded_hit(fields, shape):
+    return hit_record(fields[0], fields[1], fields[2], fields[3], shape)
 
 
 def shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max=None,
                  cull_backface=False):
     """The shaded kernel's plain version (any device): (HitRecord,
     fields_fm [32, ...])."""
-    rows, shape = _rays(origin, direction, t_min, t_max)
+    rows, shape = rays(origin, direction, t_min, t_max)
     hit, t, tri, u, v, a = _closest_fields(tri_pack, n_tris, rows, cull_backface)
     w = 1.0 - u - v
     mix = lambda k, s: w * a[:, k] + u * a[:, k + s] + v * a[:, k + 2 * s]  # noqa: E731
@@ -258,7 +264,7 @@ def shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max=None,
     fields = torch.stack(
         [t, tri.to(torch.float32), u, v] + [torch.where(hit, x, zero) for x in attrs]
         + [zero] * (OUT_W - 4 - len(attrs)))
-    return _shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
+    return shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
 
 
 def intersect_shaded_fm(tri_pack, n_tris, origin, direction, t_min, t_max=None,
@@ -269,13 +275,13 @@ def intersect_shaded_fm(tri_pack, n_tris, origin, direction, t_min, t_max=None,
     if origin.device.type == "cpu":
         return shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max,
                             cull_backface)
-    rows, shape = _rays(origin, direction, t_min, t_max)
+    rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = rows.shape[1], rows.device
     fields = torch.empty((OUT_W, n), dtype=torch.float32, device=dev)
     cuda.check_launch("shaded", cuda.library().bdpt_intersect_shaded(
         cuda.ptr(rows), n, cuda.ptr(tri_pack), n_tris, int(bool(cull_backface)),
         cuda.ptr(fields), cuda.stream(dev)))
-    return _shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
+    return shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
 
 
 # ------------------------------------------ adapters with the JAX names

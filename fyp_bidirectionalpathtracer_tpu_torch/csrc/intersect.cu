@@ -36,29 +36,12 @@
 namespace bdpt {
 
 constexpr int kRayThreads = 256;
-constexpr int kOutW = 32;
-constexpr int kAttrLo = 12;   // pack columns 12..44: attributes
-constexpr int kMatLo = 27;    // pack columns 27..44 -> fields 9..26
-
-struct Ray {
-  V3 o, d;
-  float tmin, tmax;
-};
 
 __device__ __forceinline__ void stage_bw(float* smem, const float* __restrict__ tris,
                                          int n_tris) {
   for (int i = threadIdx.x; i < n_tris * kBwCols; i += blockDim.x)
     smem[i] = tris[(i / kBwCols) * kPackCols + (i % kBwCols)];
   __syncthreads();
-}
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rows, size_t n, size_t i) {
-  Ray r;
-  r.o = mk3(rows[i], rows[n + i], rows[2 * n + i]);
-  r.d = mk3(rows[3 * n + i], rows[4 * n + i], rows[5 * n + i]);
-  r.tmin = rows[6 * n + i];
-  r.tmax = rows[7 * n + i];
-  return r;
 }
 
 template <bool kCull>
@@ -93,24 +76,7 @@ __global__ void __launch_bounds__(kRayThreads)
   float t;
   const int id = closest_hit<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax, kCull, t);
   float f[kOutW];
-#pragma unroll
-  for (int k = 0; k < kOutW; ++k) f[k] = 0.0f;
-  f[0] = t;
-  f[1] = (float)id;
-  if (id >= 0) {
-    const float* a = tris + (size_t)id * kPackCols;
-    float u, v;
-    hit_uv<true>(a, r.o, r.d, t, u, v);
-    const float w = sub_<true>(sub_<true>(1.0f, u), v);
-    f[2] = u;
-    f[3] = v;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) f[4 + k] = bary_mix<true>(a, kAttrLo + k, u, v, w, 3);
-#pragma unroll
-    for (int k = 0; k < 2; ++k) f[7 + k] = bary_mix<true>(a, 21 + k, u, v, w, 2);
-#pragma unroll
-    for (int k = 0; k < 18; ++k) f[9 + k] = a[kMatLo + k];
-  }
+  hit_fields(tris, id, t, r.o, r.d, f);
 #pragma unroll
   for (int k = 0; k < kOutW; ++k) out[k * N + i] = f[k];
 }

@@ -1,6 +1,6 @@
 // The port's one ray-triangle test and winner decode, shared by the frame
-// megakernel K1 (frame_program.cuh) and the wavefront intersectors K4
-// (intersect.cu).
+// megakernel K1 (frame_program.cuh), the wavefront's dense intersectors K4
+// (intersect.cu) and its BVH traversal (bvh.cuh, bvh.cu).
 //
 // The test is the Baldwin-Weber form of the TPU lane kernels
 // (accel/pallas_lane.py:_pair_test): each triangle is 12 floats (n, n.v0,
@@ -86,6 +86,52 @@ BDPT_DEV float bary_mix(const float* __restrict__ a, int k, float u, float v, fl
                         int stride) {
   return add_<kExact>(add_<kExact>(mul_<kExact>(w, a[k]), mul_<kExact>(u, a[k + stride])),
                       mul_<kExact>(v, a[k + 2 * stride]));
+}
+
+// ---------------------------------------- the wavefront kernels' rays and fields
+constexpr int kOutW = 32;    // field-major rows of the shaded output
+constexpr int kAttrLo = 12;  // pack columns 12..44: attributes
+constexpr int kMatLo = 27;   // pack columns 27..44 -> fields 9..26
+
+struct Ray {
+  V3 o, d;
+  float tmin, tmax;
+};
+
+// ray i of the eight structure-of-arrays rows [8, n] (ox oy oz dx dy dz
+// tmin tmax), so a warp's loads coalesce
+BDPT_DEV Ray load_ray(const float* __restrict__ rows, size_t n, size_t i) {
+  Ray r;
+  r.o = mk3(rows[i], rows[n + i], rows[2 * n + i]);
+  r.d = mk3(rows[3 * n + i], rows[4 * n + i], rows[5 * n + i]);
+  r.tmin = rows[6 * n + i];
+  r.tmax = rows[7 * n + i];
+  return r;
+}
+
+// The shaded kernels' 32 fields of a ray's closest hit (accel/intersect.py
+// has the table): t, id, u, v, the interpolated normal and uv, the 18
+// material floats of the winner's pack row; a miss (id -1) leaves every
+// field but t and the id 0.
+BDPT_DEV void hit_fields(const float* __restrict__ tris, int id, float t, V3 o, V3 d,
+                         float* f) {
+#pragma unroll
+  for (int k = 0; k < kOutW; ++k) f[k] = 0.0f;
+  f[0] = t;
+  f[1] = (float)id;
+  if (id < 0) return;
+  const float* a = tris + (size_t)id * kPackCols;
+  float u, v;
+  hit_uv<true>(a, o, d, t, u, v);
+  const float w = sub_<true>(sub_<true>(1.0f, u), v);
+  f[2] = u;
+  f[3] = v;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) f[4 + k] = bary_mix<true>(a, kAttrLo + k, u, v, w, 3);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) f[7 + k] = bary_mix<true>(a, 21 + k, u, v, w, 2);
+#pragma unroll
+  for (int k = 0; k < 18; ++k) f[9 + k] = a[kMatLo + k];
 }
 
 struct Surf {  // decoded shading data of a hit

@@ -30,14 +30,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu", "intersect.cu")
-HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh")
+SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu", "intersect.cu", "bvh.cu")
+HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "bvh.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libbdpt_kernels.so"
 
 LAUNCHES = {"frame": 0, "compact": 0, "splat_tile": 0,
-            "closest": 0, "shaded": 0, "occluded": 0}
+            "closest": 0, "shaded": 0, "occluded": 0,
+            "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -127,10 +128,15 @@ def _declare(lib) -> None:
     lib.bdpt_intersect_closest.argtypes = [p, i, p, i, i, p, p, p, p, p]
     lib.bdpt_intersect_shaded.argtypes = [p, i, p, i, i, p, p]
     lib.bdpt_occluded.argtypes = [p, i, p, i, p, p]
+    lib.bdpt_bvh_closest.argtypes = [p, i, p, p, i, p, p, p, p, p]
+    lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, i, p, p]
+    lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p]
+    lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
     for fn in (lib.bdpt_frame_launch, lib.bdpt_compact_count,
                lib.bdpt_compact_scatter, lib.bdpt_splat_reduce,
                lib.bdpt_intersect_closest, lib.bdpt_intersect_shaded,
-               lib.bdpt_occluded):
+               lib.bdpt_occluded, lib.bdpt_bvh_closest, lib.bdpt_bvh_shaded,
+               lib.bdpt_bvh_occluded, lib.bdpt_bvh_count):
         fn.restype = ctypes.c_int
 
 

@@ -244,7 +244,8 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     plain K2 and K3.  The JAX function's row-sharding arguments (`full_height`, `row0`,
     `axis_name`) come with ROADMAP Queue 1 item 13."""
     if trace is None:
-        trace = make_shaded_tracer(baked)
+        trace = make_shaded_tracer(baked, sort_divergent=cfg.sort_bounces,
+                                   bounce_tex_mean=cfg.bounce_tex_mean)
     cam = baked.data.camera
     light_rows, light_count = baked.light_rows, int(baked.data.lights.count)
     pos4, norm4 = channels["WorldPosition"], channels["WorldNormal"]

@@ -1,12 +1,15 @@
 """Where the main path's frame time goes on a CUDA device.
 
     python -m fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile \
-        [--megakernel auto|off] [--frames 5] [--repeats 2] [--out PATH.json]
-        [--trace PATH.json]
+        [--scene cornell|pink_room] [--megakernel auto|off] [--frames 5]
+        [--repeats 2] [--out PATH.json] [--trace PATH.json]
 
-Renders the Cornell box at 1280x720, depth 3, BMFR off (the frame that
-`chip_smoke.py` times) through `Renderer`, on the megakernel path (`auto`)
-or the per-bounce wavefront (`off`), and prints one JSON object:
+Renders a scene at 1280x720, depth 3, BMFR off, default config otherwise
+(the frames that `chip_smoke.py` times) through `Renderer`: the Cornell box
+on the megakernel path (`auto`) or the per-bounce wavefront (`off`), or
+pink_room (`models/pink_room.pink_room(asset_dir="")`, 10,546 triangles,
+procedural textures), which the megakernel gate sends to the wavefront and
+its BVH kernels.  Prints one JSON object:
 
 - `device`: the card's name and power limit as nvidia-smi prints them;
 - `ms_per_frame_host`: host-clock ms per frame of `--frames` frames, with a
@@ -34,7 +37,8 @@ from collections import defaultdict
 
 import torch
 
-from ..accel.frame import frame_args, frame_kernel
+from ..accel.frame import frame_args, frame_kernel, supports_megakernel
+from ..models.pink_room import pink_room
 from ..models.procedural import cornell_box
 from ..ops.shading import make_shaded_tracer
 from ..ops.splat import scatter_add_rgba_prepacked
@@ -73,8 +77,8 @@ def stage_times(renderer: Renderer) -> dict:
     frame = (BDPT_FRAME_INIT + r.state.frame_index) & 0xFFFFFFFF
     jitter = pixel_jitter_for_frame(frame)
     out = {}
-    if cfg.bdpt.megakernel == "off":
-        trace = make_shaded_tracer(scene)
+    if cfg.bdpt.megakernel == "off" or not supports_megakernel(scene, cfg):
+        trace = make_shaded_tracer(scene, bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
         out["G-buffer (ray_traced_gbuffer, one shaded launch)"], ch = _timed(
             lambda: ray_traced_gbuffer(scene, trace, cfg.width, cfg.height,
                                        GBUF_FRAME_INIT, jitter))
@@ -95,8 +99,11 @@ def stage_times(renderer: Renderer) -> dict:
     return out
 
 
+SCENES = {"cornell": cornell_box, "pink_room": lambda: pink_room(asset_dir="")}
+
+
 def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
-            megakernel: str = "auto") -> dict:
+            megakernel: str = "auto", scene: str = "cornell") -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -106,7 +113,7 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    baked = Scene.from_built(cornell_box(), aspect=WIDTH / HEIGHT).bake(device=dev)
+    baked = Scene.from_built(SCENES[scene](), aspect=WIDTH / HEIGHT).bake(device=dev)
     r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT,
                                      bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel)))
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
@@ -127,6 +134,8 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
                          timeout=60).stdout.strip()
     return {
         "device": smi,
+        "scene": scene,
+        "triangles": baked.n_tris,
         "megakernel": megakernel,
         "frames": frames,
         "ms_per_frame_host": plain_ms / frames,
@@ -141,13 +150,14 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=tuple(SCENES), default="cornell")
     ap.add_argument("--megakernel", choices=("auto", "off"), default="auto")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--out")
     ap.add_argument("--trace")
     a = ap.parse_args()
-    result = profile(a.frames, a.repeats, a.trace, a.megakernel)
+    result = profile(a.frames, a.repeats, a.trace, a.megakernel, a.scene)
     text = json.dumps(result, indent=1)
     if a.out:
         with open(a.out, "w") as f:

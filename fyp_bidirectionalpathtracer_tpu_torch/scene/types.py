@@ -2,13 +2,13 @@
 
 Port of `fyp_bidirectionalpathtracer_tpu/scene/types.py`: the flax
 `struct.dataclass` pytrees become frozen dataclasses, updated with
-`dataclasses.replace`.  The BVH arrays are not carried: the slice's
-megakernel tests every triangle, and the bake only needs the BVH's
-triangle order.
+`dataclasses.replace`.  Every tensor here lives on the host; the bake
+moves the tables the kernels and the texture taps read to the device
+(`scene/scene.BakedScene`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -62,7 +62,9 @@ class LightArray:
 
 @dataclass(frozen=True)
 class MaterialArray:
-    """Material table; texture slots are -1 (the slice is untextured)."""
+    """Material table; texture slots index the atlas (-1: none).  For a
+    textured kind the bake overwrites the constant with the texture's mean
+    (the base colour's rgb floored at 1e-3), as JAX's bake does."""
 
     base_color: torch.Tensor      # [M,4]
     specular: torch.Tensor        # [M,4]
@@ -79,10 +81,28 @@ class MaterialArray:
 
 @dataclass(frozen=True)
 class TextureAtlas:
-    """The dummy 1x1 atlas of an untextured scene."""
+    """All scene textures resampled onto fixed-size slots [T, R, R, 4]
+    (JAX `scene/types.TextureAtlas`); an untextured scene has the dummy
+    [1, 1, 1, 4] atlas of ones."""
 
-    data: torch.Tensor            # [1,1,1,4]
-    sizes: torch.Tensor           # [1,2] int32
+    data: torch.Tensor            # [T, R, R, 4] float32
+    sizes: torch.Tensor           # [T, 2] int32 (w, h) of the source images
+    # [T, R, R, 16] wrap-packed 2x2 texel neighbourhoods (c00 c10 c01 c11):
+    # one gather a bilinear tap
+    packed: torch.Tensor | None = None
+    # [M*R*R, 12] material-indexed combined texel table: the 2x2 wrap
+    # neighbourhoods of base, specular and emissive, u8 a channel, four
+    # channels to a 32-bit word (int32 here, the same bits as JAX's uint32)
+    combined: torch.Tensor | None = None
+    # bake-time facts: does any material carry this texture kind?  False
+    # removes the kind's tap (ops/texture.sample_or_constant static_used)
+    any_base: bool = True
+    any_spec: bool = True
+    any_emissive: bool = True
+
+    @property
+    def resolution(self) -> int:
+        return int(self.data.shape[1]) if self.data.dim() == 4 else 0
 
 
 @dataclass(frozen=True)
@@ -97,10 +117,32 @@ class GeometryArrays:
 
 
 @dataclass(frozen=True)
+class BVHArrays:
+    """Flattened threaded BVH (`accel/bvh.build_bvh`), DFS pre-order: an
+    inner node's first child is the next node, `node_hit` / `node_miss`
+    thread the walk, so it needs no stack."""
+
+    node_min: torch.Tensor        # [N,3]
+    node_max: torch.Tensor        # [N,3]
+    node_left: torch.Tensor       # [N] int32: leaf -> first triangle
+    node_count: torch.Tensor      # [N] int32: leaf -> triangle count (0 inner)
+    node_hit: torch.Tensor        # [N] int32: next node if the box is hit
+    node_miss: torch.Tensor       # [N] int32: next node if missed (-1 done)
+    tri_order: torch.Tensor       # [F] int32 leaf-contiguous permutation
+
+
+@dataclass(frozen=True)
 class SceneData:
     geometry: GeometryArrays
+    bvh: BVHArrays
     materials: MaterialArray
     textures: TextureAtlas
     lights: LightArray
     camera: CameraData
     env_map: torch.Tensor         # [1,1,4]
+
+
+def on_device(obj, device):
+    """A dataclass of tensors with every tensor field moved to `device`."""
+    return replace(obj, **{f.name: getattr(obj, f.name).to(device) for f in fields(obj)
+                           if isinstance(getattr(obj, f.name), torch.Tensor)})

@@ -1,5 +1,6 @@
-"""K1, K2, K3 and the K4 intersectors against their plain versions on an
-H100, and the wavefront frame against the plain chain.
+"""K1, K2, K3, the K4 intersectors and the BVH kernels against their plain
+versions on an H100, and the wavefront frames (Cornell, pink_room) against
+the plain chain.
 
 Marked `cuda`: they need the card and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from fyp_bidirectionalpathtracer_tpu_torch import cuda
+from fyp_bidirectionalpathtracer_tpu_torch.accel import cluster
 from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
 from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
 from fyp_bidirectionalpathtracer_tpu_torch.ops.compact import compact_live, compact_plain
@@ -18,6 +20,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     reduce_sorted_plain,
     splat_reduce,
 )
+from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box, icosphere
 from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
 from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
@@ -68,6 +71,8 @@ def test_splat_reduce_kernel(dev):
 
 
 def _baked(dev, scene, w, h):
+    if scene == "pink_room":
+        return Scene.from_built(pink_room(asset_dir=""), aspect=w / h).bake(device=dev)
     built = cornell_box()
     if scene == "cornell_icosphere":
         built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
@@ -177,3 +182,89 @@ def test_wavefront_frame_matches_plain_chain(dev, w, h):
     assert (d.amax(-1) > 1e-3).float().mean() <= 0.02
     assert d.mean() < 5e-3
     assert abs(imgs[0][..., :3].mean() - imgs[1][..., :3].mean()) < 2e-3
+
+
+def _scene_rays(baked, w, h, kind, dev):
+    """[h, w] rays of one kind inside the scene's bounds: 'gbuffer' (camera
+    rays), 'bounce' (random origins and directions) or 'shadow' (finite
+    t_max, 30% of the lanes empty)."""
+    if kind == "gbuffer":
+        return _k4_rays(baked, w, h, kind, dev)
+    g = torch.Generator().manual_seed(11)
+    lo, hi = baked.data.bvh.node_min[0], baked.data.bvh.node_max[0]
+    o = lo + (hi - lo) * torch.rand((h, w, 3), generator=g)
+    d = torch.randn((h, w, 3), generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    tmax = None
+    if kind == "shadow":
+        tmax = torch.where(torch.rand((h, w), generator=g) < 0.3, 0.0,
+                           torch.rand((h, w), generator=g) * float((hi - lo).norm())).to(dev)
+    return o.contiguous().to(dev), d.contiguous().to(dev), tmax
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+# 50x37 is no multiple of the BVH kernels' 128-thread block
+@pytest.mark.parametrize("w,h", [(64, 36), (50, 37)])
+@pytest.mark.parametrize("scene", ["pink_room", "cornell_icosphere"])
+def test_bvh_kernels_match_plain(dev, scene, w, h):
+    """t, ids, u, v, the 32 fields and the occlusion bits equal their plain
+    versions (the dense programs) bit for bit; on Cornell + icosphere they
+    also equal the dense K4 kernels."""
+    baked = _baked(dev, scene, w, h)
+    args = (baked.tri_pack, baked.n_tris)
+    nodes = baked.bvh_nodes
+    cuda.reset_launch_counts()
+    for kind, cull in (("gbuffer", True), ("bounce", False), ("shadow", False)):
+        o, d, tmax = _scene_rays(baked, w, h, kind, dev)
+        kh, kf = cluster.bvh_shaded_fm(*args, nodes, o, d, 1e-3, tmax, cull)
+        ph, pf = isect.shaded_plain(*args, o, d, 1e-3, tmax, cull)
+        kc = cluster.bvh_closest(*args, nodes, o, d, 1e-3, tmax, cull)
+        pc = isect.closest_plain(*args, o, d, 1e-3, tmax, cull)
+        for got, want in ((kf, pf), (kc.t, pc.t), (kc.tri, pc.tri), (kc.bary_u, pc.bary_u),
+                          (kc.bary_v, pc.bary_v), (kh.t, ph.t)):
+            assert torch.equal(_bits(got), _bits(want)), kind
+        assert int(kh.hit.sum()) > 0
+        if scene == "cornell_icosphere":
+            assert torch.equal(_bits(kf), _bits(isect.intersect_shaded_fm(
+                *args, o, d, 1e-3, tmax, cull)[1]))
+    # direction components of +-0 and +-1e-13 from the camera: the walk's
+    # 1/d is infinite or huge there
+    tiny = torch.tensor([0.0, -0.0, 1e-13, -1e-13], device=dev)
+    o, d = _k4_rays(baked, w, h, "gbuffer", dev)[:2]
+    dz = d.reshape(-1, 3)[:16].clone()
+    dz[:, 0] = tiny.repeat(4)
+    dz[:, 1] = tiny.repeat_interleave(4)
+    dz = dz / dz.norm(dim=-1, keepdim=True)
+    oz = o.reshape(-1, 3)[:16].contiguous()
+    for cull in (False, True):
+        kc = cluster.bvh_closest(*args, nodes, oz, dz, 1e-3, None, cull)
+        pc = isect.closest_plain(*args, oz, dz, 1e-3, None, cull)
+        assert torch.equal(_bits(kc.t), _bits(pc.t)) and torch.equal(kc.tri, pc.tri)
+    o, d, tmax = _scene_rays(baked, w, h, "shadow", dev)
+    got = cluster.bvh_occluded(*args, nodes, o, d, 1e-3, tmax)
+    assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax))
+    assert 0 < int(got.sum()) < int((tmax > 0).sum())
+    if scene == "cornell_icosphere":
+        assert torch.equal(got, isect.occluded(*args, o, d, 1e-3, tmax))
+    assert cuda.LAUNCHES["bvh_shaded"] == 3 and cuda.LAUNCHES["bvh_closest"] == 5
+    assert cuda.LAUNCHES["bvh_occluded"] == 1
+
+
+@pytest.mark.parametrize("w,h", [(64, 36), (50, 37)])
+def test_textured_wavefront_frame_matches_plain_chain(dev, w, h):
+    """pink_room through the wavefront (the BVH kernels and the texture
+    taps) equals the frame of the plain chain."""
+    baked = _baked(dev, "pink_room", w, h)
+    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig())
+    imgs = []
+    cuda.reset_launch_counts()
+    for plain in (False, True):
+        ch, _, _ = render_frame_fn(replace(baked, plain=plain), baked.data.camera,
+                                   AccumState.create(h, w, dev), BMFRState.create(h, w, dev),
+                                   0xDEADBEEF, 0x1337, False, cfg)
+        imgs.append(ch["BDPT"])
+    assert cuda.LAUNCHES["bvh_shaded"] == 6 and cuda.LAUNCHES["bvh_occluded"] == 3
+    assert torch.equal(imgs[0], imgs[1])

@@ -57,10 +57,13 @@ def jax_scene_arrays(jb) -> dict:
     """A JAX BakedScene as the flat numpy dict the port's carry takes."""
     out = {f"tris.{f.name}": np.asarray(getattr(jb.tris, f.name))
            for f in dataclasses.fields(jb.tris)}
-    for group in ("geometry", "materials", "lights", "camera"):
+    for group in ("geometry", "bvh", "materials", "lights", "camera"):
         obj = getattr(jb.data, group)
         out.update({f"{group}.{f.name}": np.asarray(getattr(obj, f.name))
                     for f in dataclasses.fields(obj)})
+    atlas = jb.data.textures
+    out.update({f"textures.{k}": np.asarray(getattr(atlas, k))
+                for k in ("data", "sizes", "packed", "combined") if getattr(atlas, k) is not None})
     out["env_map"] = np.asarray(jb.data.env_map)
     return out
 

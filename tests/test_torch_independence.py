@@ -1,6 +1,8 @@
 """The port imports nothing of JAX and nothing of the JAX package: neither
 in its source (a static check of every import statement) nor at run time
-(a subprocess that refuses those imports renders through both paths)."""
+(a subprocess that refuses those imports, and PIL, which the machine with
+the card lacks, renders the Cornell box through both paths and pink_room
+with its procedural textures)."""
 import ast
 import os
 import subprocess
@@ -11,6 +13,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "fyp_bidirectionalpathtracer_tpu_torch"
 JAX_PACKAGE = "fyp_bidirectionalpathtracer_tpu"
 FORBIDDEN = ("jax", "flax", "jaxlib", JAX_PACKAGE)
+REFUSED_AT_RUN_TIME = FORBIDDEN + ("PIL",)  # pink_room's texture loader is lazy
 
 
 def _forbidden(name: str) -> bool:
@@ -41,7 +44,7 @@ _BLOCKED_RUN = f"""
 import importlib.abc
 import sys
 
-FORBIDDEN = {FORBIDDEN!r}
+FORBIDDEN = {REFUSED_AT_RUN_TIME!r}
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -52,6 +55,7 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Refuse())
+from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
@@ -63,6 +67,10 @@ for mk in ("on", "off"):
                                        bdpt=BDPTConfig(megakernel=mk))).render_frame()
     assert tuple(out.shape) == (16, 16, 4) and bool(out.isfinite().all()), mk
     print(mk, "ok")
+room = Scene.from_built(pink_room(asset_dir=""), aspect=1.6).bake(device="cpu")
+out = Renderer(room, RenderConfig(width=16, height=10)).render_frame()
+assert tuple(out.shape) == (10, 16, 4) and bool(out.isfinite().all())
+print("pink_room", "ok")
 assert not [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
 """
 
@@ -73,4 +81,4 @@ def test_port_renders_with_jax_imports_refused():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["on", "ok", "off", "ok"], proc.stdout
+    assert proc.stdout.split() == ["on", "ok", "off", "ok", "pink_room", "ok"], proc.stdout

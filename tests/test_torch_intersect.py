@@ -45,10 +45,13 @@ T_ATOL = 1e-7
 def jax_scene_arrays(jb) -> dict:
     out = {f"tris.{f.name}": np.asarray(getattr(jb.tris, f.name))
            for f in dataclasses.fields(jb.tris)}
-    for group in ("geometry", "materials", "lights", "camera"):
+    for group in ("geometry", "bvh", "materials", "lights", "camera"):
         obj = getattr(jb.data, group)
         out.update({f"{group}.{f.name}": np.asarray(getattr(obj, f.name))
                     for f in dataclasses.fields(obj)})
+    atlas = jb.data.textures
+    out.update({f"textures.{k}": np.asarray(getattr(atlas, k))
+                for k in ("data", "sizes", "packed", "combined") if getattr(atlas, k) is not None})
     out["env_map"] = np.asarray(jb.data.env_map)
     return out
 
@@ -201,11 +204,14 @@ def test_nan_and_empty_rays_miss(bakes):
 
 
 def test_dense_tier_refuses_more_than_2048_triangles():
+    """The dense kernels stage every triangle in shared memory; above 2048
+    triangles the intersector takes the BVH kernels (accel/cluster.py),
+    and needs the bake's node table for them."""
     pack = torch.zeros((2056, 48))
     o = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="K4f-K4j"):
+    with pytest.raises(ValueError, match="2048"):
         isect.occluded(pack, 2049, o, o, T_MIN)
-    with pytest.raises(NotImplementedError, match="K4f-K4j"):
+    with pytest.raises(ValueError, match="node table"):
         make_intersector(pack, 2049)
 
 
@@ -235,13 +241,13 @@ def test_shading_decodes_match_jax(bakes):
     hit = np.asarray(jhit.tri) >= 0
     pview = torch.from_numpy(np.array(view))
     want = jshading.shading_from_fields_fm(ffm, jb.data.textures, jhit, jo, jd, view)
-    got = shading.shading_from_fields_fm(torch.from_numpy(np.array(ffm)), None,
+    got = shading.shading_from_fields_fm(torch.from_numpy(np.array(ffm)), pb.atlas,
                                          _port_hit(jhit), torch.from_numpy(o),
                                          torch.from_numpy(d), pview)
     _assert_shading_close(got, want, hit)
     bhit = intersect_brute(jb.tris, jo, jd, T_MIN)
     want = jshading.prepare_shading_data(jb.tris, jb.data.materials, jb.data.textures,
                                          bhit, jo, jd, view)
-    got = shading.prepare_shading_data(pb.tris, pb.data.materials, None, _port_hit(bhit),
+    got = shading.prepare_shading_data(pb.tris, pb.data.materials, pb.atlas, _port_hit(bhit),
                                        torch.from_numpy(o), torch.from_numpy(d), pview)
     _assert_shading_close(got, want, np.asarray(bhit.tri) >= 0)

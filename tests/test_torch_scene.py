@@ -17,11 +17,7 @@ from fyp_bidirectionalpathtracer_tpu.utils import config as jconfig
 from fyp_bidirectionalpathtracer_tpu_torch.accel import bvh
 from fyp_bidirectionalpathtracer_tpu_torch.accel.frame import supports_megakernel
 from fyp_bidirectionalpathtracer_tpu_torch.models import procedural
-from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
-    MaterialDesc,
-    cornell_box,
-    icosphere,
-)
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import MaterialDesc, cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.ops.splat import scatter_add_rgba
 from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
 from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
@@ -43,10 +39,13 @@ def jax_scene_arrays(jb) -> dict:
     """A JAX BakedScene as the flat numpy dict the port's carry takes."""
     out = {f"tris.{f.name}": np.asarray(getattr(jb.tris, f.name))
            for f in dataclasses.fields(jb.tris)}
-    for group in ("geometry", "materials", "lights", "camera"):
+    for group in ("geometry", "bvh", "materials", "lights", "camera"):
         obj = getattr(jb.data, group)
         out.update({f"{group}.{f.name}": np.asarray(getattr(obj, f.name))
                     for f in dataclasses.fields(obj)})
+    atlas = jb.data.textures
+    out.update({f"textures.{k}": np.asarray(getattr(atlas, k))
+                for k in ("data", "sizes", "packed", "combined") if getattr(atlas, k) is not None})
     out["env_map"] = np.asarray(jb.data.env_map)
     return out
 
@@ -128,8 +127,10 @@ def test_accum_state_carry():
 
 
 def _textured():
+    """A normal-map texture: the port taps base, specular and emissive
+    textures, not normal maps yet."""
     b = cornell_box()
-    b.materials[0] = MaterialDesc("tex", base_color_image=np.ones((4, 4, 4), np.float32))
+    b.materials[0] = MaterialDesc("tex", normal_map_image=np.ones((4, 4, 4), np.float32))
     return b
 
 
@@ -152,21 +153,22 @@ def test_env_map_refused():
         s.bake(device="cpu")
 
 
-def _beyond_dense_tier():
-    """5154 triangles: the wavefront's dense intersectors stop at 2048."""
+def _base_textured():
+    """Only base colour textured: JAX's deferred-texture megakernel takes it
+    when defer_textures is on (tex_defer_ok)."""
     b = cornell_box()
-    b.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=4))
+    b.materials[0] = MaterialDesc("tex", base_color_image=np.ones((4, 4, 4), np.float32))
     return b
 
 
 @pytest.mark.parametrize("cfg,built", [
-    (RenderConfig(width=8, height=8, bdpt=BDPTConfig(megakernel="off")), _beyond_dense_tier),
+    (RenderConfig(width=8, height=8, bdpt=BDPTConfig(defer_textures=True)), _base_textured),
     (RenderConfig(width=8, height=8, bmfr=BMFRConfig(enabled=True)), cornell_box),
     (RenderConfig(width=8, height=8, tone_map_operator="aces"), cornell_box),
-], ids=["megakernel-off", "bmfr", "tonemap"])
+], ids=["defer-textures", "bmfr", "tonemap"])
 def test_pipeline_refuses_unported_options(cfg, built):
-    """megakernel-off: the wavefront runs, but not on a scene beyond the
-    dense tier (the cluster tiers K4f-K4j are still to port)."""
+    """defer-textures: a scene JAX sends to its deferred-texture megakernel
+    raises rather than quietly taking the wavefront (ROADMAP item 11)."""
     r = Renderer(Scene.from_built(built(), aspect=1.0).bake(device="cpu"), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render_frame()
