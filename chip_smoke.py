@@ -4,24 +4,32 @@
 
 Builds every hand-written kernel from `fyp_bidirectionalpathtracer_tpu_
 torch/csrc/` (one nvcc process a source, in parallel): K1 (frame
-megakernel), K2 (splat compaction), K3 (splat tile reduction), the dense K4
-intersectors (closest, shaded, any-hit) and the BVH kernels that replace
-the cluster and HBM tiers K4f-K4j (bvh_closest, bvh_shaded, bvh_occluded).
-Holds each against its plain PyTorch version at the shapes its path gives
-it (the BVH kernels bit for bit, on pink_room at 10,546, 41,266 and 164,146
-triangles), then drives three paths through `Renderer` at 1280x720, depth
-3, BMFR off: on the Cornell box the megakernel main path (K1 -> K2 -> sort
--> K3) and the per-bounce wavefront (`megakernel="off"`: G-buffer and
-subpath extensions through the shaded kernel, three shadow batches through
-the any-hit kernel, the estimator-2 splat through K2 -> sort -> K3); and
-pink_room (`models/pink_room`, procedural textures, default config), which
-the megakernel gate sends to the wavefront: the BVH shaded kernel with the
-texture taps, the BVH any-hit kernel, the splat chain (and, at 41,266 and
-164,146 triangles, the BVH closest kernel with the attribute and texture
-gathers).  Each path is run with the launch counts set to 0 just before it
-and read just after; two renders of one frame must be bit-identical, the
-wavefront frames must agree with their plain chains (Cornell also with the
-megakernel frame), and small renders must match the checked-in goldens.
+megakernel, and its textured variant `frame_textured`), K2 (splat
+compaction), K3 (splat tile reduction), K5 (`splat_rows`, the tiled splat
+reduction of unpacked rows), the dense K4 intersectors (closest, shaded,
+any-hit), the BVH kernels that replace the cluster and HBM tiers K4f-K4j
+(bvh_closest, bvh_shaded, bvh_occluded) and K6 (`subpath`, the fused
+subpath builder).  Holds each against its plain PyTorch version at the
+shapes its path gives it (the BVH kernels bit for bit, on pink_room at
+10,546, 41,266 and 164,146 triangles), then drives the paths through their
+entry points at 1280x720, depth 3, BMFR off: on the Cornell box the
+megakernel main path (K1 -> K2 -> sort -> K3) and the per-bounce wavefront
+(`megakernel="off"`: G-buffer and subpath extensions through the shaded
+kernel, three shadow batches through the any-hit kernel, the estimator-2
+splat through K2 -> sort -> K3); pink_room (`models/pink_room`, procedural
+textures, default config), which the megakernel gate sends to the
+wavefront: the BVH shaded kernel with the texture taps, the BVH any-hit
+kernel, the splat chain (and, at 41,266 and 164,146 triangles, the BVH
+closest kernel with the attribute and texture gathers); the textured room
+(`models/procedural.textured_room`) with `defer_textures=True`, the
+deferred-texture megakernel (K1's textured variant, the replay, and the
+splat through K2 -> sort -> K3 with "auto" or K5 with "tiled"), beside its
+wavefront; and `accel/subpath.build_subpath` (K6) on 921,600 Cornell rays.
+Each path is run with the launch counts set to 0 just before it and read
+just after; two renders of one frame must be bit-identical, the wavefront
+frames must agree with their plain chains (Cornell also with the
+megakernel frame, the textured room with both of its megakernel frames),
+and small renders must match the checked-in goldens.
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
@@ -189,6 +197,7 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.accel import cluster
     from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
     from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import subpath
     from fyp_bidirectionalpathtracer_tpu_torch.core import rng
     from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
     from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
@@ -196,8 +205,10 @@ def main() -> int:
         cornell_box,
         icosphere,
         many_light_scene,
+        textured_room,
     )
     from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, splat_tile
+    from fyp_bidirectionalpathtracer_tpu_torch.ops import splat as splat_mod
     from fyp_bidirectionalpathtracer_tpu_torch.ops.shading import make_shaded_tracer
     from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
     from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
@@ -279,6 +290,72 @@ def main() -> int:
                                  library_ms=k3_lib,
                                  **bound(8.0 * n_live + 16.0 * n_pix, 0.0))
 
+    # ---- phase 3b: K5 on all U sorted updates (the 'tiled' modes) ---------
+    # what scatter_add_rgba_tiled hands K5 on the main path's shape: the U
+    # keys sorted (the sentinel n_pix rounded up to 1024 for a dead update)
+    # and the gathered value rows; float32 rows with a real alpha ('tiled'),
+    # bfloat16 rows ('tiled_bf16w'), float32 rgb with a count alpha (the
+    # estimator-2 splat, 'tiled')
+    sent_keys = torch.where(keys_d < n_pix, keys_d, sent)
+    ks5, order5 = torch.sort(sent_keys, stable=True)
+    vals_all = torch.cat([rgb.T.to(dev), torch.rand((1, u), generator=g).to(dev)], 0)
+    vals_all = vals_all[:, order5].contiguous()
+    k5 = {}
+    for label, vals in (("f32", vals_all), ("bf16", vals_all.to(torch.bfloat16)),
+                        ("f32 count", vals_all[:3].contiguous())):
+        got = splat_tile.splat_reduce_rows(ks5, vals, n_pix)
+        want = splat_tile.reduce_rows_plain(ks5, vals, n_pix)
+        torch.cuda.synchronize()
+        count = vals.shape[0] == 3
+        if count and not torch.equal(got[:, 3], want[:, 3]):
+            raise AssertionError("K5 counts differ from its plain version")
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+        err = float((got - want).abs().max())
+        bit_eq = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        ms = time_ms(lambda: splat_tile.splat_reduce_rows(ks5, vals, n_pix), 20)
+        plain_ms = time_ms(lambda: splat_tile.reduce_rows_plain(ks5, vals, n_pix), 3)
+        # one PyTorch call for the same sums: index_add_ of the live rows
+        # (the sorted prefix of n_live keys below n_pix) into the pixels
+        src = vals[:, :n_live].T.float()
+        if count:
+            src = torch.cat([src, torch.ones((n_live, 1), device=dev)], 1)
+        src = src.contiguous()
+        idx5 = ks5[:n_live].long()
+        lib_ms = time_ms(lambda: torch.zeros((n_pix, 4), device=dev).index_add_(
+            0, idx5, src), 20)
+        # bytes: the live keys and value rows read once (the dropped updates
+        # sort past the last run and are never read), [n_pix, 4] float32
+        # written
+        bd = bound((4.0 + vals.element_size() * vals.shape[0]) * n_live + 16.0 * n_pix, 0.0)
+        k5[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        log(f"K5 rows {label} U={u} ({n_live} live): counts exact, max |err| {err:.3e} "
+            f"(rtol 1e-6), bit-equal {bit_eq}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_add_ of the live rows {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+    kernels["splat_rows"] = dict(k5["f32 count"], variants={
+        k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        for k, v in k5.items()})
+    # the whole splat of the estimator-2 updates (unpacked rows, count
+    # alpha) by mode: exact float32 rows through sort + K5 against the rgb8e
+    # payload through K2 + live-count sync + sort + K3; host clock with a
+    # sync, as a frame pays it
+    lin_all, rgb_all = keys_d, rgb.to(dev)
+    ones_u = torch.ones(u, device=dev)
+    splat_ms = {}
+    for mode in ("tiled", "tiled_bf16", "tiled_rgb8e"):
+        def run(mode=mode):
+            return splat_mod.scatter_add_rgba(mode, lin_all, rgb_all, ones_u, n_pix,
+                                              alpha_is_count=True)
+        run()
+        torch.cuda.synchronize()
+        t_h = time.perf_counter()
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+        splat_ms[mode] = ((time.perf_counter() - t_h) * 100.0, time_ms(run, 10))
+    log("splat of U={} updates by mode (host ms with a sync, device ms): {}".format(
+        u, {k: (round(a, 4), round(b, 4)) for k, (a, b) in splat_ms.items()}))
+
     # ---- phase 4: K1 against its plain version ---------------------------
     def scene(name, w, h):
         built = many_light_scene() if name == "many_light" else cornell_box()
@@ -286,9 +363,12 @@ def main() -> int:
             built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
         return Scene.from_built(built, aspect=w / h).bake(device=dev)
 
-    def cfg_for(w, h, megakernel="auto"):
+    def cfg_for(w, h, megakernel="auto", **bdpt_kw):
         return RenderConfig(width=w, height=h,
-                            bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel))
+                            bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel, **bdpt_kw))
+
+    def room(w, h):
+        return Scene.from_built(textured_room(), aspect=w / h).bake(device=dev)
 
     jitter = pixel_jitter_for_frame(BDPT_FRAME_INIT)
 
@@ -332,24 +412,30 @@ def main() -> int:
     # two int32 splat rows a depth; operations: the pair tests of the rays
     # the plain frame traces (those the kernel traces), by the stage each
     # pair reaches; the shading arithmetic is left out, so the bound is low
-    k1_flops = 0
-    closest_rows, any_hit_rows = frame_mod.closest_rows, frame_mod.any_hit_rows
+    def frame_flops(fargs, bk) -> int:
+        """The pair-test operations of the rays frame_plain traces (those
+        the kernel traces), by the stage each pair reaches."""
+        total = 0
+        closest_rows, any_hit_rows = frame_mod.closest_rows, frame_mod.any_hit_rows
 
-    def counted_closest(tris, n_tris, o, d, tmin, tmax, cull_backface):
-        nonlocal k1_flops
-        k1_flops += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, cull_backface, True)
-        return closest_rows(tris, n_tris, o, d, tmin, tmax, cull_backface)
+        def counted_closest(tris, n_tris, o, d, tmin, tmax, cull_backface):
+            nonlocal total
+            total += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, cull_backface, True)
+            return closest_rows(tris, n_tris, o, d, tmin, tmax, cull_backface)
 
-    def counted_any_hit(tris, n_tris, o, d, tmin, tmax):
-        nonlocal k1_flops
-        k1_flops += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, False, False)
-        return any_hit_rows(tris, n_tris, o, d, tmin, tmax)
+        def counted_any_hit(tris, n_tris, o, d, tmin, tmax):
+            nonlocal total
+            total += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, False, False)
+            return any_hit_rows(tris, n_tris, o, d, tmin, tmax)
 
-    frame_mod.closest_rows, frame_mod.any_hit_rows = counted_closest, counted_any_hit
-    try:
-        frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
-    finally:
-        frame_mod.closest_rows, frame_mod.any_hit_rows = closest_rows, any_hit_rows
+        frame_mod.closest_rows, frame_mod.any_hit_rows = counted_closest, counted_any_hit
+        try:
+            frame_mod.frame_plain(fargs, bk.light_rows, bk.tri_pack)
+        finally:
+            frame_mod.closest_rows, frame_mod.any_hit_rows = closest_rows, any_hit_rows
+        return total
+
+    k1_flops = frame_flops(args, baked)
     k1_bytes = n_pix * 4.0 * (4 + 20 + 2 * DEPTH)
     log(f"K1 bound: {k1_bytes:.0f} bytes, {k1_flops} pair-test operations")
     # max_abs_err includes the edge-tie pixels the statistical bounds admit;
@@ -372,6 +458,140 @@ def main() -> int:
         if not img_ok:
             raise AssertionError(f"the frame with splats differs from the plain chain "
                                  f"at {w}x{h}")
+
+    # ---- phase 4f: K1's textured variant against its plain version --------
+    def rows_off(a, b):
+        """Share of pixels with a row off by more than 1e-3 (NaN as 0)."""
+        a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+        return float(((a - b).abs().max(0).values > 1e-3).float().mean())
+
+    tex_err = tex_frac = 0.0
+    for w, h in ((250, 143), (WIDTH, HEIGHT)):
+        bk = room(w, h)
+        targs = frame_mod.frame_args(bk, w, h, BDPT_FRAME_INIT, jitter,
+                                     cfg_for(w, h, defer_textures=True),
+                                     gbuf_frame=GBUF_FRAME_INIT)
+        ko = frame_mod.frame_kernel(targs, bk.light_rows, bk.tri_pack)
+        po = frame_mod.frame_plain(targs, bk.light_rows, bk.tri_pack)
+        torch.cuda.synchronize()
+        fr = {name: rows_off(getattr(ko, name), getattr(po, name))
+              for name in ("gbuf", "vrec", "e1_parts", "e3_parts")}
+        fr["splat_rgba"] = rows_off(ko.splat_rgba.reshape(-1, targs.n_pix),
+                                    po.splat_rgba.reshape(-1, targs.n_pix))
+        live_k, live_p = ko.splat_pix < targs.n_pix, po.splat_pix < targs.n_pix
+        either = live_k | live_p
+        pix_eq = float((ko.splat_pix[either] == po.splat_pix[either]).float().mean())
+        bits = float(torch.cat([(a.view(torch.int32) == b.view(torch.int32)).all(0)[None]
+                                for a, b in ((ko.gbuf, po.gbuf), (ko.vrec, po.vrec),
+                                             (ko.e1_parts, po.e1_parts),
+                                             (ko.e3_parts, po.e3_parts))]).all(0)
+                     .float().mean())
+        for name in ("gbuf", "vrec", "e1_parts", "e3_parts"):
+            tex_err = max(tex_err, float(torch.nan_to_num(
+                (getattr(ko, name) - getattr(po, name)).abs(), nan=0.0).max()))
+        tex_frac = max(tex_frac, *fr.values())
+        log(f"K1 textured {bk.n_tris} tris {w}x{h} d={DEPTH}: rows off by > 1e-3 on "
+            f"{ {k: round(v, 5) for k, v in fr.items()} } of pixels (G-buffer and records "
+            f"<= 0.01, estimator and splat rows <= 0.02), splat ids equal on {pix_eq:.4f} "
+            f"of {int(either.sum())} lanes live on either side (>= 0.98), pixels with every "
+            f"row bit-equal {bits:.4f}")
+        if not (fr["gbuf"] <= 0.01 and fr["vrec"] <= 0.01 and fr["e1_parts"] <= 0.02
+                and fr["e3_parts"] <= 0.02 and fr["splat_rgba"] <= 0.02 and pix_eq >= 0.98
+                and int(either.sum()) > 0):
+            raise AssertionError(f"K1's textured variant differs from its plain version at "
+                                 f"{w}x{h}")
+    tex_main = bk
+    tk_ms = time_ms(lambda: frame_mod.frame_kernel(targs, bk.light_rows, bk.tri_pack), 10)
+    tk_plain = time_ms(lambda: frame_mod.frame_plain(targs, bk.light_rows, bk.tri_pack),
+                       1, warmup=1)
+    tk_flops = frame_flops(targs, bk)
+    # bytes: the G-buffer, record, estimator-part and splat rows written
+    tk_rows = (frame_mod.N_GBUF_ROWS + 2 * frame_mod.N_REC_ROWS * DEPTH + 1 + 6 * targs.n_e1
+               + 4 * targs.n_pairs + 5 * DEPTH)
+    tk_bd = bound(4.0 * tk_rows * n_pix, float(tk_flops))
+    log(f"K1 textured alone at {WIDTH}x{HEIGHT}: kernel {tk_ms:.4f} ms, plain {tk_plain:.2f} ms, "
+        f"bound {tk_bd['bound_ms']:.4f} ms ({tk_bd['bound_by']}; {tk_rows} rows written, "
+        f"{tk_flops} pair-test operations)")
+    kernels["frame_textured"] = dict(max_abs_err=tex_err, max_frac_over_1e_3=tex_frac,
+                                     ms=tk_ms, plain_ms=tk_plain, library_ms=None, **tk_bd)
+    # the whole deferred-texture frame: K1 textured, the replay and the
+    # splat through K2 + sort + K3 ('auto') or K5 ('tiled'), against the
+    # plain chain
+    for mode in ("auto", "tiled"):
+        bk = room(250, 143)
+        got = [frame_mod.render_frame_megakernel(
+            replace(bk, plain=plain), 250, 143, BDPT_FRAME_INIT, jitter,
+            cfg_for(250, 143, defer_textures=True, splat_mode=mode),
+            gbuf_frame=GBUF_FRAME_INIT)[1] for plain in (False, True)]
+        frac_img, mad, dmean, img_ok = image_stats(*got)
+        log(f"textured frame with splats ({mode}) 250x143, kernels vs plain chain: frac>1e-3 "
+            f"{frac_img:.4f} (<= 0.02), mean|d| {mad:.2e} (< 5e-3), mean radiance d "
+            f"{dmean:.2e} (< 2e-3)")
+        if not img_ok:
+            raise AssertionError(f"the textured frame ({mode}) differs from the plain chain")
+
+    # ---- phase 4g: K6, the fused subpath builder -----------------------------
+    # 921,600 camera subpaths of the Cornell box at 1280x720: the camera's
+    # jittered rays, the frame's pixel seeds, 3 bounces
+    o6, d6 = (x.reshape(-1, 3).contiguous() for x in (
+        cornell.data.camera.pos_w.to(dev).expand(HEIGHT, WIDTH, 3),
+        camera_ray_dirs(cornell.data.camera, WIDTH, HEIGHT, jitter, device=dev)))
+    d6 = (d6 / d6.norm(dim=-1, keepdim=True)).contiguous()
+    seed6 = rng.pixel_seeds(WIDTH, HEIGHT, BDPT_FRAME_INIT, device=dev).reshape(-1)
+    c6 = torch.ones_like(o6)
+    t6 = torch.zeros(n_pix, dtype=torch.bool, device=dev)
+    sp_args = (cornell.tri_pack, cornell.n_tris, o6, d6, c6, seed6, t6, MIN_T, DEPTH, 0, False)
+    kv, kf = subpath.build_subpath(*sp_args)
+    pv, pf = subpath.build_subpath(*sp_args, plain=True)
+    torch.cuda.synchronize()
+    active, k6_err, k6_ok = ~t6, 0.0, True
+    lanes_eq = torch.ones(n_pix, dtype=torch.bool, device=dev)
+    for b in range(DEPTH):
+        for name in ("hit", "take", "is_spec"):
+            k6_ok &= bool(torch.equal(kv[b][name], pv[b][name]))
+        for name in ("color", "pos", "n", "v", "dif", "spec", "rough", "pdf"):
+            a, c = kv[b][name], pv[b][name]
+            diff = torch.nan_to_num((a - c).abs(), nan=0.0)
+            diff = diff if diff.dim() == 1 else diff.amax(-1)
+            k6_err = max(k6_err, float(diff[active].max()))
+            same = (a.view(torch.int32) == c.view(torch.int32))
+            lanes_eq &= same if same.dim() == 1 else same.all(-1)
+        active = active & pv[b]["take"]
+    k6_ok &= (k6_err <= 5e-4 and bool(torch.equal(kf["terminated"], pf["terminated"]))
+              and bool(torch.equal(kf["seed"], pf["seed"])))
+    share = float(lanes_eq.float().mean())
+    hits = [int(v["hit"].sum()) for v in kv]
+    log(f"K6 subpath {n_pix} Cornell rays, {DEPTH} bounces: fields max |err| {k6_err:.3e} on "
+        f"active lanes (<= 5e-4), hit/take/is_spec/terminated/seed exact {k6_ok}, lanes "
+        f"bit-equal in every field {share:.6f}, hits by bounce {hits}")
+    if not k6_ok:
+        raise AssertionError("K6 differs from its plain version")
+    state6 = torch.cat([o6.T, d6.T, c6.T, t6.float()[None], subpath._seed_bits(seed6)[None],
+                        torch.full((1, n_pix), MIN_T, device=dev)]).contiguous()
+    k6_ms = time_ms(lambda: subpath.subpath_kernel(state6, cornell.tri_pack, cornell.n_tris,
+                                                   DEPTH, 0, False), 10)
+    k6_plain = time_ms(lambda: subpath.subpath_plain(state6, cornell.tri_pack,
+                                                     cornell.n_tris, DEPTH, 0, False), 1)
+    # operations: the pair tests of the rays each bounce traces (K6's test:
+    # no cull, t in (min_t, best so far)), counted by stage on the plain
+    # version's rays bounce by bounce; bytes: the state read, the vertex
+    # rows and the final state written
+    k6_flops, st = 0, state6
+    tris6 = cornell.tri_pack[:cornell.n_tris]
+    for _ in range(DEPTH):
+        live = st[9] < 0.5
+        o_b, d_b = tuple(st[k][live] for k in range(3)), tuple(st[k][live] for k in range(3, 6))
+        nl = int(live.sum())
+        k6_flops += pair_flops(isect, tris6, o_b, d_b, torch.full((nl,), MIN_T, device=dev),
+                               torch.full((nl,), 1e30, device=dev), False, True)
+        _, st = subpath.subpath_plain(st, cornell.tri_pack, cornell.n_tris, 1, 0, False)
+    k6_bd = bound(4.0 * n_pix * (2 * subpath.STATE_ROWS + subpath.VERT_ROWS * DEPTH)
+                  + 48.0 * 4 * cornell.n_tris, float(k6_flops))
+    log(f"K6 alone: kernel {k6_ms:.4f} ms, plain {k6_plain:.2f} ms, bound "
+        f"{k6_bd['bound_ms']:.4f} ms ({k6_bd['bound_by']}; {k6_flops} pair-test operations, "
+        f"bytes {k6_bd['bytes_ms']:.4f} ms)")
+    kernels["subpath"] = dict(max_abs_err=k6_err, lanes_bit_equal=share, ms=k6_ms,
+                              plain_ms=k6_plain, library_ms=None, **k6_bd)
 
     # ---- phase 4b: the K4 intersectors against their plain versions ------
     def gbuffer_rays(bk, w, h):
@@ -691,12 +911,12 @@ def main() -> int:
         raise AssertionError("the pink_room wavefront frame differs from its plain chain")
 
     # ---- phase 5: the two paths at 1280x720 ---------------------------------
-    def drive(megakernel, baked=None, label=None):
+    def drive(megakernel, baked=None, label=None, **bdpt_kw):
         """3 warm-up and 10 timed frames through Renderer on a new
         accumulation, counts from 0 (the Cornell box unless `baked`)."""
         baked = cornell if baked is None else baked
         label = label or f"{megakernel} path"
-        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel))
+        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, **bdpt_kw))
         warmup, frames = 3, 10
         cuda.reset_launch_counts()
         for _ in range(warmup):
@@ -723,20 +943,20 @@ def main() -> int:
             raise AssertionError(f"{label} output has the wrong shape or count")
         twice = []
         for _ in range(2):
-            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel))
+            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, **bdpt_kw))
             r.render_frame()
             twice.append({k: v.clone() for k, v in r.channels.items()})
         if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
             raise AssertionError(f"the same frame rendered twice differs ({label})")
         log(f"{label}: the same frame rendered twice is bit-identical")
-        return launches, warmup + frames, twice[0]["BDPT"]
+        return launches, warmup + frames, twice[0]["BDPT"], ms
 
-    mk_launches, n_frames, mk_frame = drive("auto")
+    mk_launches, n_frames, mk_frame, _ = drive("auto")
     for key in ("frame", "compact", "splat_tile"):
         if mk_launches[key] != n_frames:
             raise AssertionError(f"kernel {key} launched {mk_launches[key]} times in "
                                  f"{n_frames} megakernel frames")
-    wf_launches, n_frames, wf_frame = drive("off")
+    wf_launches, n_frames, wf_frame, _ = drive("off")
     # shaded: the G-buffer, DEPTH - 1 camera and DEPTH light extensions;
     # any-hit: the est-1, est-3 and est-2 shadow batches
     per_frame = {"shaded": 1 + (DEPTH - 1) + DEPTH, "occluded": 3, "compact": 1,
@@ -754,7 +974,7 @@ def main() -> int:
         raise AssertionError("the wavefront frame differs from the megakernel frame")
     # pink_room, the default config: the megakernel gate refuses the textured
     # scene, so Renderer takes the wavefront and its BVH kernels
-    pk_launches, pk_frames, _ = drive("auto", pink_main, "pink_room (default config)")
+    pk_launches, pk_frames, _, _ = drive("auto", pink_main, "pink_room (default config)")
     per_frame_pk = {"bvh_shaded": 1 + (DEPTH - 1) + DEPTH, "bvh_occluded": 3, "compact": 1,
                     "splat_tile": 1, "frame": 0, "shaded": 0, "occluded": 0, "closest": 0,
                     "bvh_closest": 0}
@@ -769,20 +989,76 @@ def main() -> int:
     big_launches = {}
     for sub in (4, 5):
         big = pink(sub, WIDTH, HEIGHT)
-        big_launches[sub], n_big, _ = drive("auto", big, f"pink_room subdivisions={sub} "
-                                            f"({big.n_tris} tris)")
+        big_launches[sub], n_big, _, _ = drive("auto", big, f"pink_room subdivisions={sub} "
+                                               f"({big.n_tris} tris)")
         for key, want in (("bvh_closest", 1 + (DEPTH - 1) + DEPTH), ("bvh_occluded", 3),
                           ("bvh_shaded", 0)):
             if big_launches[sub][key] != want * n_big:
                 raise AssertionError(f"kernel {key} launched {big_launches[sub][key]} times in "
                                      f"{n_big} frames at subdivisions={sub}")
         del big
+
+    # ---- phase 5c: the textured room's deferred-texture megakernel ----------
+    # with splat_mode "auto" (K2 + sort + K3) and "tiled" (K5), beside the
+    # textured room's wavefront; the wavefront taps the textures at every
+    # vertex (bounce_tex_mean off), as the JAX package's textured test does
+    tex_runs = {}
+    others = ("frame", "shaded", "occluded", "closest", "bvh_shaded", "bvh_occluded",
+              "bvh_closest", "subpath")
+    for mode, want in (("auto", {"frame_textured": 1, "compact": 1, "splat_tile": 1,
+                                 "splat_rows": 0}),
+                       ("tiled", {"frame_textured": 1, "splat_rows": 1, "compact": 0,
+                                  "splat_tile": 0})):
+        want.update({k: 0 for k in others})
+        tl, tn, tframe, tms = drive("auto", tex_main, f"textured room megakernel ({mode})",
+                                    defer_textures=True, splat_mode=mode)
+        for key, per in want.items():
+            if tl[key] != per * tn:
+                raise AssertionError(f"kernel {key} launched {tl[key]} times in {tn} textured "
+                                     f"megakernel frames ({mode}), want {per} a frame")
+        log(f"textured room megakernel ({mode}) launches a frame: {want} (as required)")
+        tex_runs[mode] = (tl, tn, tframe, tms)
+    twl, twn, twframe, twms = drive("off", tex_main, "textured room wavefront",
+                                    defer_textures=True, bounce_tex_mean=False)
+    for key, per in (("shaded", 1 + (DEPTH - 1) + DEPTH), ("occluded", 3), ("compact", 1),
+                     ("splat_tile", 1), ("frame_textured", 0), ("splat_rows", 0)):
+        if twl[key] != per * twn:
+            raise AssertionError(f"kernel {key} launched {twl[key]} times in {twn} textured "
+                                 f"wavefront frames, want {per} a frame")
+    for mode, (_, _, tframe, tms) in tex_runs.items():
+        # tests/test_frame_kernel_textured.py's megakernel-vs-wavefront bounds
+        d_img = (tframe - twframe).abs()
+        frac = float((d_img.amax(-1) > 1e-2).float().mean())
+        mad = float(d_img.mean())
+        dmean = abs(float(tframe[..., :3].mean() - twframe[..., :3].mean()))
+        log(f"textured room megakernel ({mode}) {tms:.4f} ms/frame vs wavefront {twms:.4f} "
+            f"ms/frame; frames: frac>1e-2 {frac:.4f} (< 0.10), mean|d| {mad:.2e} (< 0.02), "
+            f"mean radiance d {dmean:.2e} (< 5e-3)")
+        if not (frac < 0.10 and mad < 0.02 and dmean < 5e-3):
+            raise AssertionError(f"the textured megakernel frame ({mode}) differs from the "
+                                 f"wavefront frame")
+
+    # ---- phase 5d: the fused subpath builder's entry point ----------------
+    cuda.reset_launch_counts()
+    verts6, final6 = subpath.build_subpath(*sp_args)
+    torch.cuda.synchronize()
+    sp_launches = dict(cuda.LAUNCHES)
+    if not (sp_launches["subpath"] == 1 and all(bool(torch.isfinite(v["pos"]).all())
+                                                for v in verts6)
+            and tuple(final6["seed"].shape) == (n_pix,)):
+        raise AssertionError(f"build_subpath did not run K6 once with finite vertices: "
+                             f"{sp_launches}")
+    log(f"build_subpath {n_pix} rays x {DEPTH} bounces: launches {sp_launches}")
+
     launches = {"frame": mk_launches["frame"], "compact": mk_launches["compact"],
                 "splat_tile": mk_launches["splat_tile"], "shaded": wf_launches["shaded"],
                 "occluded": wf_launches["occluded"],
                 "bvh_shaded": pk_launches["bvh_shaded"],
                 "bvh_occluded": pk_launches["bvh_occluded"],
-                "bvh_closest": big_launches[4]["bvh_closest"]}
+                "bvh_closest": big_launches[4]["bvh_closest"],
+                "frame_textured": tex_runs["auto"][0]["frame_textured"],
+                "splat_rows": tex_runs["tiled"][0]["splat_rows"],
+                "subpath": sp_launches["subpath"]}
     launches["closest"] = kernels["closest"].pop("launches")
     # the run each kernel's launch count comes from
     paths = {name: f"megakernel {WIDTH}x{HEIGHT}, {n_frames} frames"
@@ -793,6 +1069,11 @@ def main() -> int:
     paths.update({name: f"pink_room wavefront {WIDTH}x{HEIGHT}, {pk_frames} frames"
                   for name in ("bvh_shaded", "bvh_occluded")})
     paths["bvh_closest"] = f"pink_room subdivisions=4 wavefront {WIDTH}x{HEIGHT}, {n_big} frames"
+    paths["frame_textured"] = (f"textured room megakernel (defer_textures, auto) "
+                               f"{WIDTH}x{HEIGHT}, {tex_runs['auto'][1]} frames")
+    paths["splat_rows"] = (f"textured room megakernel (defer_textures, splat_mode tiled) "
+                           f"{WIDTH}x{HEIGHT}, {tex_runs['tiled'][1]} frames")
+    paths["subpath"] = f"build_subpath, {n_pix} Cornell camera rays x {DEPTH} bounces, 1 call"
     for name in ("bvh_shaded", "bvh_closest", "bvh_occluded"):
         kernels[name] = dict(max_abs_err=0.0, library_ms=None,
                              **{k: v for k, v in bvh_stats["pink_room"][name].items()})
@@ -836,6 +1117,10 @@ def main() -> int:
         "bvh_shaded": ("bvh.cu", cl + ":799"),
         "bvh_closest": ("bvh.cu", cl + ":893"),
         "bvh_occluded": ("bvh.cu", cl + ":502"),
+        "frame_textured": ("frame.cu",
+                           "fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py:550"),
+        "splat_rows": ("splat_rows.cu", "fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py:44"),
+        "subpath": ("subpath.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_subpath.py:191"),
     }
     # the HBM tier's kernels that the same walk replaces
     also = {"bvh_closest": [cl + ":602"], "bvh_occluded": [cl + ":546"]}
@@ -844,7 +1129,8 @@ def main() -> int:
          "replaces": meta[name][1], "launches": launches[name], "path": paths[name],
          **({"also_replaces": also[name]} if name in also else {}), **kernels[name]}
         for name in ("frame", "compact", "splat_tile", "shaded", "closest", "occluded",
-                     "bvh_shaded", "bvh_closest", "bvh_occluded")]}))
+                     "bvh_shaded", "bvh_closest", "bvh_occluded", "frame_textured",
+                     "splat_rows", "subpath")]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

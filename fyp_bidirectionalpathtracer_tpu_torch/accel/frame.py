@@ -23,8 +23,15 @@ The sampler helpers the JAX kernel imports from `accel/pallas_subpath.py`
 (`_sample_brdf_tiles`, `_perpendicular`, `_normalize3`, `_next_rand`) are
 `sample_brdf` here and the core/ helpers it uses.
 
-Scope (`supports_megakernel`): untextured, 1x1 env map, no alpha,
-at most 2048 triangles, 1 <= max_depth <= 8.
+Scope (`supports_megakernel`): 1x1 env map, at most 2048 triangles,
+1 <= max_depth <= 8; a textured scene only through deferred texturing
+(`defer_textures`, base colour and emissive the only textured kinds,
+max_depth <= 4, uniform weights).  The textured variant of the program
+(`FrameArgs.textured`, JAX `frame_kernel(textured=True)`) shades with each
+material's mean albedo and writes, instead of the own-pixel result, the
+per-vertex texture records and the raw estimator parts; `textured_replay`
+then applies the texel/mean ratios in the reference's accumulation order
+(JAX `_textured_replay`).  Alpha-tested scenes do not bake.
 """
 from __future__ import annotations
 
@@ -43,14 +50,14 @@ from ..core.vecmath import (
     add3,
     dot3,
     neg3,
-    normalize3,
-    normed,
+    normalize3_rn,
     perpendicular3,
     scale3,
     sub3,
     where3,
 )
 from ..ops.splat_tile import pack_rgb8e
+from ..ops.texture import sample_or_constant_fm
 from ..scene.types import LIGHT_DIRECTIONAL, SHADING_METAL_ROUGH
 from .intersect import any_hit_rows, closest_rows, winner_uv
 
@@ -58,6 +65,8 @@ _BIG = 1e30
 N_GBUF_ROWS = 20
 MAX_TRIS = 2048
 MAX_DEPTH = 8
+MAX_TEXTURED_DEPTH = 4   # the deferred row budget grows ~O(d^2) (JAX gate)
+N_REC_ROWS = 7           # a vertex record: u, v, base slot, is_spec, base rgb
 _WEIGHTS = {"uniform": 0, "power": 1, "balance": 2}
 
 # scalar-row layout (the JAX kernel's scal_ref)
@@ -94,6 +103,7 @@ class FrameArgs:
     connection_weight: str   # 'uniform' | 'power' | 'balance'
     use_thin_lens: bool
     splat_rgb8e: bool        # pack est-2 splats to rgb8e in the kernel
+    textured: bool = False   # the deferred-texture variant
 
     @property
     def n_pix(self) -> int:
@@ -103,17 +113,53 @@ class FrameArgs:
     def n_splat_depths(self) -> int:
         return self.d_max if self.enable_e2 else 0
 
+    @property
+    def n_e1(self) -> int:
+        return self.d_max if self.enable_e1 else 0
+
+    @property
+    def n_pairs(self) -> int:
+        return len(e3_pair_list(self.d_max, self.enable_e3))
+
 
 @dataclass(frozen=True)
 class FrameOut:
-    """Per-pixel kernel outputs, field-major ([rows, N], N = W*H)."""
+    """Per-pixel kernel outputs, field-major ([rows, N], N = W*H).
 
-    res: torch.Tensor        # [4, N] own-pixel rgba
+    The textured variant writes no own-pixel result (`res` is None; the
+    replay computes it) and its splat rows hold the raw shade (no 1/(i+2),
+    clamp or NaN guard); it adds the rows of JAX's `frame_kernel` `:1036-
+    1052`: `vrec`, for camera vertices 1..D then light vertices 1..D, 7
+    rows each (u, v, base-colour slot, is_spec, base-colour constant rgb;
+    slot -1 and constant 1 for a zero vertex), then the primary hit's
+    emissive slot (-1 off the scene); `e1_parts`, per NEE depth i the
+    diffuse-linear and the specular part x the camera throughput (6 rows);
+    `e3_parts`, per (s, t) pair of `e3_pair_list` the raw shade rgb and the
+    visibility mask (4 rows).  Lanes that trace nothing hold zeros there."""
+
+    res: torch.Tensor | None  # [4, N] own-pixel rgba
     gbuf: torch.Tensor       # [20, N] pos3 valid normal3 dist dif3 opacity
     #                          spec3 lrough ior emissive3
     splat_pix: torch.Tensor  # [D, N] int32 splat target pixel, n_pix = dead
     splat_pay: torch.Tensor | None   # [D, N] int32 rgb8e payload
     splat_rgba: torch.Tensor | None  # [D, 4, N] float32 r, g, b, live
+    vrec: torch.Tensor | None = None      # [14 D + 1, N] textured
+    e1_parts: torch.Tensor | None = None  # [6 n_e1, N] textured
+    e3_parts: torch.Tensor | None = None  # [4 P, N] textured
+
+
+def out_rows(d_max: int, enable_e2: bool, emit_gbuffer: bool, textured: bool = False,
+             enable_e1: bool = True, enable_e3: bool = True,
+             splat_rgb8e: bool = False) -> int:
+    """Rows of the JAX kernel's one [R, N] output (JAX `out_rows`); the
+    port's FrameOut holds the same rows in separate tensors."""
+    r = 4 + ((2 if splat_rgb8e else 5) * d_max if enable_e2 else 0) + (
+        N_GBUF_ROWS if emit_gbuffer else 0)
+    if textured:
+        r += 2 * N_REC_ROWS * d_max + 1
+        r += 6 * (d_max if enable_e1 else 0)
+        r += 4 * len(e3_pair_list(d_max, enable_e3))
+    return r
 
 
 def e3_pair_list(d_max: int, enable_e3: bool):
@@ -128,17 +174,37 @@ def e3_pair_list(d_max: int, enable_e3: bool):
     return tuple(pairs)
 
 
+def is_textured(baked) -> bool:
+    """Whether the bake carries a real atlas (not the 1x1 dummy)."""
+    return tuple(baked.data.textures.data.shape[:2]) != (1, 1)
+
+
 def supports_megakernel(baked, cfg, max_tris: int = MAX_TRIS) -> bool:
-    """Static scope gate (JAX `supports_megakernel`, untextured branch)."""
+    """Static scope gate (JAX `supports_megakernel`, `pallas_frame.py:
+    1155-1185`): a textured scene qualifies through deferred texturing when
+    only base colour (and emissive) is textured (`tex_defer_ok`), at
+    depth <= 4 and with uniform weights (the replay bakes 1/totalLength
+    into its clamp).  Alpha-tested scenes do not bake; the port's kernel
+    takes depth <= 8."""
+    b = cfg.bdpt
+    untextured = not is_textured(baked)
+    tex_ok = untextured or (b.defer_textures and baked.tex_defer_ok
+                            and b.max_depth <= MAX_TEXTURED_DEPTH)
     return (
         baked.n_tris <= max_tris
         and tuple(baked.data.env_map.shape[:2]) == (1, 1)
-        and tuple(baked.data.textures.data.shape[:2]) == (1, 1)
-        and 1 <= cfg.bdpt.max_depth <= MAX_DEPTH
+        and tex_ok
+        and (b.connection_weight == "uniform" or untextured)
+        and 1 <= b.max_depth <= MAX_DEPTH
     )
 
 
 # ------------------------------------------------------------ tile helpers
+def _normed(a):
+    """normalize with K1's correctly rounded 1/sqrt (core.vecmath.normalize3_rn)."""
+    return normalize3_rn(a[0], a[1], a[2], eps=0.0)
+
+
 def _saturate(x):
     return torch.clamp(x, 0.0, 1.0)
 
@@ -173,7 +239,7 @@ def sample_brdf(seed, n, v, dif, spec, rough, mat_model: int):
         seed, u_lobe = next_rand(seed)
     seed, su0 = next_rand(seed)
     seed, su1 = next_rand(seed)
-    bx, by, bz = normalize3(*perpendicular3(nx, ny, nz))
+    bx, by, bz = normalize3_rn(*perpendicular3(nx, ny, nz))
     tx = by * nz - bz * ny
     ty = bz * nx - bx * nz
     tz = bx * ny - by * nx
@@ -203,8 +269,8 @@ def sample_brdf(seed, n, v, dif, spec, rough, mat_model: int):
     hy = ty * (sin_th * cph) + by * (sin_th * sph) + ny * cos_th
     hz = tz * (sin_th * cph) + bz * (sin_th * sph) + nz * cos_th
     vdh = vx * hx + vy * hy + vz * hz
-    sdx, sdy, sdz = normalize3(2.0 * vdh * hx - vx, 2.0 * vdh * hy - vy,
-                               2.0 * vdh * hz - vz)
+    sdx, sdy, sdz = normalize3_rn(2.0 * vdh * hx - vx, 2.0 * vdh * hy - vy,
+                                  2.0 * vdh * hz - vz)
     lx = torch.where(choose_diff, ldx, sdx)
     ly = torch.where(choose_diff, ldy, sdy)
     lz = torch.where(choose_diff, ldz, sdz)
@@ -253,7 +319,7 @@ def _eval_brdf(v, l, n, dif, spec, rough, is_spec, mat_model: int):
     if mat_model != 0:  # Lambertian: albedo (the reference omits 1/pi)
         return dif
     below = dot3(n, l) <= 0.0
-    h = normed(add3(l, v))
+    h = _normed(add3(l, v))
     spec_col = _ggx_spec(h, l, n, _saturate(dot3(n, l)), _saturate(dot3(n, v)),
                          rough, spec)
     out = where3(is_spec, spec_col, tuple(c * M_1_PI for c in dif))
@@ -263,12 +329,22 @@ def _eval_brdf(v, l, n, dif, spec, rough, is_spec, mat_model: int):
 
 def _nee_shade(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model):
     """ops.materials.nee_shade per lane (diffuse plus specular part)."""
+    difp, specp = _nee_shade_split(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model)
+    if mat_model != 0:
+        return difp
+    return tuple(dp + sp for dp, sp in zip(difp, specp))
+
+
+def _nee_shade_split(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model):
+    """nee_shade split into (diffuse-albedo-linear part, specular part), as
+    the deferred-texture records need them (JAX `_nee_shade_tiles_split`)."""
     n_dot_l = _saturate(dot3(n, l))
     shadow_mult = torch.where(vis, lcnt, 0.0)
     if mat_model != 0:
+        zero = torch.zeros_like(n_dot_l)
         return tuple(shadow_mult * n_dot_l * ic * dc / M_PI
-                     for ic, dc in zip(inten, dif))
-    h = normed(add3(v, l))
+                     for ic, dc in zip(inten, dif)), (zero, zero, zero)
+    h = _normed(add3(v, l))
     n_dot_h = _saturate(dot3(n, h))
     l_dot_h = _saturate(dot3(l, h))
     n_dot_v = _saturate(dot3(n, v))
@@ -283,7 +359,7 @@ def _nee_shade(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model):
                  for ic, dc in zip(inten, dif))
     specp = tuple(shadow_mult * ic * (sc + (1.0 - sc) * f5) * dg4
                   for ic, sc in zip(inten, spec))
-    return tuple(dp + sp for dp, sp in zip(difp, specp))
+    return difp, specp
 
 
 # ---------------------------------------------------------- intersection
@@ -329,12 +405,17 @@ def _trace(tris, n_tris, o, d, tmin, cull_backface, lanes=None):
         "hit": hit,
         "pos": add3(o, scale3(d, t_)),
         "n_raw": n_raw,
+        # uv and the texture slots feed the deferred-texture records
+        "uv": tuple(w * attr(21 + k) + u * attr(23 + k) + v * attr(25 + k)
+                    for k in range(2)),
         "base": tuple(attr(27 + k) for k in range(4)),
         "spec": tuple(attr(31 + k) for k in range(4)),
         "emissive": tuple(attr(35 + k) for k in range(3)),
         "ior": attr(38),
         "shading_model": attr(39),
         "double_sided": attr(40),
+        "bc_tex": attr(41),
+        "em_tex": attr(43),
     }
 
 
@@ -349,8 +430,8 @@ def _decode_shading(tr, view_origin):
     spc = where3(metal_rough, tuple(0.04 * (1.0 - metal) + b * metal
                                     for b in (b0, b1, b2)), (s0, s1, s2))
     lrough = torch.clamp(torch.where(metal_rough, s1, 1.0 - s3), min=0.08)
-    n = normed(tr["n_raw"])
-    v = normed(sub3(view_origin, tr["pos"]))
+    n = _normed(tr["n_raw"])
+    v = _normed(sub3(view_origin, tr["pos"]))
     flip = (dot3(n, v) <= 0.0) & (tr["double_sided"] > 0.5)
     n = where3(flip, neg3(n), n)
     return {"pos": tr["pos"], "n": n, "v": v, "dif": dif, "spec": spc,
@@ -397,14 +478,26 @@ def _eval_light(lrow, surf_pos):
 
 # ------------------------------------------------------------ plain frame
 _VFIELDS3 = ("color", "pos", "n", "v", "dif", "spec")
-_VFIELDS1 = ("rough", "pdf", "is_spec")
+# the deferred-texture record of a vertex: uv, base-colour slot and constant
+_TFIELDS = ("tu", "tv", "bslot", "bc0", "bc1", "bc2")
+_VFIELDS1 = ("rough", "pdf", "is_spec") + _TFIELDS
 
 
 def _zeros_vertex(n, device):
+    """A zero vertex; its record has slot -1 (ratio 1) and constant 1 (no
+    0/0 in the replay's ratio)."""
     z = torch.zeros((n,), dtype=torch.float32, device=device)
+    one = torch.ones_like(z)
     out = {k: (z, z, z) for k in _VFIELDS3}
     out.update({k: z for k in _VFIELDS1})
+    out.update(bslot=-one, bc0=one, bc1=one, bc2=one)
     return out
+
+
+def _record(tr):
+    """The texture record fields of a traced hit."""
+    return {"tu": tr["uv"][0], "tv": tr["uv"][1], "bslot": tr["bc_tex"],
+            "bc0": tr["base"][0], "bc1": tr["base"][1], "bc2": tr["base"][2]}
 
 
 def _vertex_where(mask, a, b):
@@ -469,10 +562,10 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         origin0 = tuple(cam_tiles[k] + lx * sc[_C_UN + k] + ly * sc[_C_VN + k]
                         for k in range(3))
         focal_pt = add3(cam_tiles, scale3(d_raw, sc[_C_FOCAL]))
-        prim_dir = normed(sub3(focal_pt, origin0))
+        prim_dir = _normed(sub3(focal_pt, origin0))
     else:
         origin0 = cam_tiles
-        prim_dir = normed(d_raw)
+        prim_dir = _normed(d_raw)
     tr = _trace(tris, n_tris, origin0, prim_dir, zero_t, True)
     sd = _decode_shading(tr, cam_tiles)
     valid = tr["hit"]
@@ -485,7 +578,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     rough = lrough * lrough
     emis = where3(valid, sd["emissive"], (zero_t,) * 3)
     # the camera vertex's view vector uses the pinhole even under thin lens
-    v_tiles = normed(sub3(cam_tiles, world_pos))
+    v_tiles = _normed(sub3(cam_tiles, world_pos))
 
     seed = tea_init(lin, torch.full_like(lin, args.bdpt_frame))
 
@@ -501,7 +594,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     cam_path[1] = _vertex_where(valid, {
         "color": wgt, "pos": world_pos, "n": world_norm, "v": v_tiles,
         "dif": dif, "spec": spc, "rough": rough,
-        "is_spec": is_spec1.to(torch.float32), "pdf": pdf1,
+        "is_spec": is_spec1.to(torch.float32), "pdf": pdf1, **_record(tr),
     }, zeros_vert)
     min_t_tiles = full(args.min_t)
 
@@ -527,6 +620,8 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         new["is_spec"] = torch.where(got, isspec_b.to(torch.float32),
                                      state["is_spec"])
         new["pdf"] = torch.where(got, pdf_b, state["pdf"])
+        # a miss keeps the stale record (JAX `:713-718`)
+        new.update({k: torch.where(got, x, state[k]) for k, x in _record(tr_b).items()})
         new["o"] = where3(got, sd_b["pos"], state["o"])
         new["d"] = where3(got, l_b, state["d"])
         new["term"] = state["term"] | missed
@@ -569,6 +664,9 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     seed = lstate["seed"]
 
     # ---------------- accumulate own pixel ----------------
+    # (textured: the raw parts instead, replayed by textured_replay)
+    textured = args.textured
+    e1_rows, e3_rows = [], []
     has_emis = (emis[0] > 0.0) | (emis[1] > 0.0) | (emis[2] > 0.0)
     em_mask = valid & has_emis
     out = [torch.where(em_mask, emis[k], zero_t) for k in range(3)] + [zero_t]
@@ -587,8 +685,15 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
             c = cam_path[i]["color"]
             traced = valid & ~((c[0] == 0.0) & (c[1] == 0.0) & (c[2] == 0.0))
             occ = _any_hit_on(traced, tris, n_tris, vtx["pos"], l3, min_t_tiles, dist)
-            direct = _nee_shade(~occ, l3, inten3, vtx["n"], vtx["v"], vtx["dif"],
-                                vtx["spec"], vtx["rough"], lcnt_f, mat_model)
+            nee = (~occ, l3, inten3, vtx["n"], vtx["v"], vtx["dif"], vtx["spec"],
+                   vtx["rough"], lcnt_f, mat_model)
+            if textured:
+                # raw parts x the camera throughput; the ratios, 1/(i+2),
+                # clamp and NaN guard replay after the kernel (JAX `:821-828`)
+                for part in _nee_shade_split(*nee):
+                    e1_rows += [torch.where(traced, cc * p, zero_t) for cc, p in zip(c, part)]
+                continue
+            direct = _nee_shade(*nee)
             shade = tuple(c * dc for c, dc in zip(cam_path[i]["color"], direct))
             shade = _nan_guard3(_clamp3(scale3(shade, 1.0 / (i + 2)),
                                         args.clamp_upper))
@@ -618,26 +723,31 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
             a_e = cam_path[sx - 1]["color"]
             a_l = (light_path[sx - 1]["color"] if args.reference_quirks
                    else light_path[tx - 1]["color"])
-            connect_dir = normed(sub3(cam_end["pos"], light_end["pos"]))
-            wo_l = normed(sub3(light_path[tx - 1]["pos"], light_end["pos"]))
+            connect_dir = _normed(sub3(cam_end["pos"], light_end["pos"]))
+            wo_l = _normed(sub3(light_path[tx - 1]["pos"], light_end["pos"]))
             fs_l = _eval_brdf(connect_dir, wo_l, light_end["n"], light_end["dif"],
                               light_end["spec"], light_end["rough"],
                               light_end["is_spec"] > 0.5, mat_model)
-            wo_e = normed(sub3(cam_path[sx - 1]["pos"], cam_end["pos"]))
+            wo_e = _normed(sub3(cam_path[sx - 1]["pos"], cam_end["pos"]))
             fs_e = _eval_brdf(neg3(connect_dir), wo_e, cam_end["n"],
                               cam_end["dif"], cam_end["spec"], cam_end["rough"],
                               cam_end["is_spec"] > 0.5, mat_model)
             shade = tuple(al * (fl * g * fe) * ae
                           for al, fl, fe, ae in zip(a_l, fs_l, fs_e, a_e))
-            if args.connection_weight != "uniform":
-                wgt_mis = mis_weight(sx, tx, total_len)
-                shade = tuple(c * wgt_mis for c in shade)
-            else:
-                shade = scale3(shade, 1.0 / float(total_len))
-            shade = _nan_guard3(_clamp3(shade, args.clamp_upper))
+            # textured: the raw shade; the replay weights, clamps and guards
+            if not textured:
+                if args.connection_weight != "uniform":
+                    wgt_mis = mis_weight(sx, tx, total_len)
+                    shade = tuple(c * wgt_mis for c in shade)
+                else:
+                    shade = scale3(shade, 1.0 / float(total_len))
+                shade = _nan_guard3(_clamp3(shade, args.clamp_upper))
         else:
             shade = (zero_t, zero_t, zero_t)
         mask = valid & ~occ
+        if textured:  # JAX `:939-944`
+            e3_rows += [torch.where(mask, c, zero_t) for c in shade] + [mask.to(torch.float32)]
+            continue
         for k in range(3):
             out[k] = torch.where(mask, _saturate(out[k] + shade[k]), out[k])
         out[3] = torch.where(mask, _saturate(out[3] + 1.0), out[3])
@@ -671,7 +781,8 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
                           last["spec"], last["rough"], last["is_spec"] > 0.5,
                           mat_model)
         shade = tuple(lc * bc * g for lc, bc in zip(light_path[i]["color"], brdf))
-        shade = _nan_guard3(_clamp3(scale3(shade, 1.0 / (i + 2)), args.clamp_upper))
+        if not textured:  # textured splat rows stay raw (JAX `:986-988`)
+            shade = _nan_guard3(_clamp3(scale3(shade, 1.0 / (i + 2)), args.clamp_upper))
         ok = active2 & in_range
         pix = torch.where(ok, ry.clamp(0, h_ - 1).to(torch.int64) * w_
                           + rx.clamp(0, w_ - 1).to(torch.int64),
@@ -683,9 +794,11 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         else:
             splat_rgba.append(torch.stack(list(live) + [ok.to(torch.float32)]))
 
-    # background early-out wrote (env, 1) (BDPTMain:62-66)
-    res = torch.stack([torch.where(valid, out[k], dif[k]) for k in range(3)]
-                      + [torch.where(valid, out[3], ones)])
+    # background early-out wrote (env, 1) (BDPTMain:62-66); the textured
+    # variant writes no own-pixel result (JAX `:1012-1015`)
+    res = None if textured else torch.stack(
+        [torch.where(valid, out[k], dif[k]) for k in range(3)]
+        + [torch.where(valid, out[3], ones)])
     dvec = sub3(world_pos, cam_tiles)
     gbuf = torch.stack([
         world_pos[0], world_pos[1], world_pos[2], valid.to(torch.float32),
@@ -701,11 +814,19 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
             return torch.stack(rows)
         return torch.zeros((0,) + row_shape, dtype=dtype, device=dev)
 
+    tex = {}
+    if textured:  # JAX `:1036-1052`
+        rec = [vtx[k] for path in (cam_path, light_path) for vtx in path[1:]
+               for k in ("tu", "tv", "bslot", "is_spec", "bc0", "bc1", "bc2")]
+        rec.append(torch.where(valid, tr["em_tex"], -ones))
+        tex = dict(vrec=torch.stack(rec), e1_parts=stack(e1_rows, (n_pix,), torch.float32),
+                   e3_parts=stack(e3_rows, (n_pix,), torch.float32))
     return FrameOut(
         res=res, gbuf=gbuf,
         splat_pix=stack(splat_pix, (n_pix,), torch.int32),
         splat_pay=stack(splat_pay, (n_pix,), torch.int32) if args.splat_rgb8e else None,
         splat_rgba=None if args.splat_rgb8e else stack(splat_rgba, (4, n_pix), torch.float32),
+        **tex,
     )
 
 
@@ -807,24 +928,39 @@ def _check_args(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor):
         raise ValueError(f"n_tris {args.n_tris} outside [1, {MAX_TRIS}]")
     if len(args.scal) != NSCAL or args.connection_weight not in _WEIGHTS:
         raise ValueError("bad scal row or connection_weight")
+    if args.textured and (args.splat_rgb8e or args.d_max > MAX_TEXTURED_DEPTH
+                          or args.connection_weight != "uniform"):
+        raise ValueError(f"the textured frame takes d_max <= {MAX_TEXTURED_DEPTH}, uniform "
+                         f"weights and unpacked splat rows")
 
 
 def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> FrameOut:
-    """K1 wrapper: frame_plain for CPU tensors, the CUDA kernel otherwise."""
+    """K1 wrapper: frame_plain for CPU tensors, the CUDA kernel otherwise
+    (its textured variant for `args.textured`)."""
     _check_args(args, lights, tris)
     if tris.device.type == "cpu":
         return frame_plain(args, lights, tris)
     n, d2 = args.n_pix, args.n_splat_depths
     dev = tris.device
-    res = torch.empty((4, n), dtype=torch.float32, device=dev)
-    gbuf = torch.empty((N_GBUF_ROWS, n), dtype=torch.float32, device=dev)
-    pix = torch.empty((d2, n), dtype=torch.int32, device=dev)
-    pay = (torch.empty((d2, n), dtype=torch.int32, device=dev)
-           if args.splat_rgb8e else None)
-    rgba = (None if args.splat_rgb8e else
-            torch.empty((d2, 4, n), dtype=torch.float32, device=dev))
+
+    def rows(r, dtype=torch.float32):
+        return torch.empty((r, n), dtype=dtype, device=dev)
+
+    gbuf, pix = rows(N_GBUF_ROWS), rows(d2, torch.int32)
+    pay = rows(d2, torch.int32) if args.splat_rgb8e else None
+    rgba = None if args.splat_rgb8e else torch.empty((d2, 4, n), dtype=torch.float32, device=dev)
     params = _params(args)
     lib = cuda.library()
+    if args.textured:
+        vrec, e1, e3 = (rows(2 * N_REC_ROWS * args.d_max + 1), rows(6 * args.n_e1),
+                        rows(4 * args.n_pairs))
+        cuda.check_launch("frame_textured", lib.bdpt_frame_textured_launch(
+            ctypes.byref(params), args.d_max, cuda.ptr(lights), cuda.ptr(tris),
+            cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(rgba), cuda.ptr(vrec), cuda.ptr(e1),
+            cuda.ptr(e3), cuda.stream(dev)))
+        return FrameOut(res=None, gbuf=gbuf, splat_pix=pix, splat_pay=None, splat_rgba=rgba,
+                        vrec=vrec, e1_parts=e1, e3_parts=e3)
+    res = rows(4)
     cuda.check_launch("frame", lib.bdpt_frame_launch(
         ctypes.byref(params), args.d_max, cuda.ptr(lights), cuda.ptr(tris),
         cuda.ptr(res), cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(pay),
@@ -871,22 +1007,108 @@ def frame_args(baked, width: int, height: int, bdpt_frame: int, pixel_jitter,
         enable_e3=bcfg.enable_connections,
         connection_weight=bcfg.connection_weight,
         use_thin_lens=bool(gcfg.use_thin_lens), splat_rgb8e=splat_rgb8e,
+        textured=is_textured(baked),
     )
+
+
+def textured_replay(out: FrameOut, bcfg, atlas):
+    """The deferred-texture replay after the textured frame (JAX
+    `_textured_replay`, `pallas_frame.py:1188-1310`).
+
+    Taps each vertex's base-colour texel, multiplies the texel/mean ratios
+    into the raw estimator parts and replays the own-pixel accumulation in
+    the reference's order: emissive add, est-1 adds, the est-3 saturate
+    chain, the background fold (BDPTMain.rt.hlsl:155-233).  The math stays
+    field-major ([3, N] and [N] lane vectors); transposes happen at the
+    return.  Returns (res4 [N, 4], splats [(lin [N], rgb [N, 3], alpha [N])]
+    a light-tracing depth, dif_ratio1 [N, 3], em3 [N, 3]); the last two fix
+    the G-buffer's MaterialDiffuse and Emissive to their texel values."""
+    d_max = bcfg.max_depth
+    n_e1 = d_max if bcfg.enable_path_tracing else 0
+    n_e2 = d_max if bcfg.enable_light_tracing else 0
+    pairs = e3_pair_list(d_max, bcfg.enable_connections)
+    gbuf, vrec = out.gbuf, out.vrec
+    n = gbuf.shape[1]
+    ones4 = torch.ones((4, n), dtype=torch.float32, device=gbuf.device)
+    valid = gbuf[3] > 0.0
+    dif_env, emis_const = gbuf[8:11], gbuf[17:20]
+
+    def vertex(base):
+        u, v = vrec[base], vrec[base + 1]
+        slot = vrec[base + 2].to(torch.int32)
+        lobe, bconst = vrec[base + 3], vrec[base + 4:base + 7]
+        tap = sample_or_constant_fm(atlas, slot, u, v, ones4, static_used=atlas.any_base)
+        # [N] masks broadcast against [3, N]
+        ratio = torch.where(slot >= 0, tap[:3] / torch.clamp(bconst, min=1e-6), 1.0)
+        rhat = torch.where(lobe > 0.5, 1.0, ratio)
+        return (u, v), slot, ratio, rhat
+
+    cam = [vertex(N_REC_ROWS * k) for k in range(d_max)]
+    lig = [vertex(N_REC_ROWS * (d_max + k)) for k in range(d_max)]
+    one = torch.tensor(1.0, dtype=torch.float32, device=gbuf.device)
+    r_c, r_l = [one], [one]
+    for vtx in cam:
+        r_c.append(r_c[-1] * vtx[3])
+    for vtx in lig:
+        r_l.append(r_l[-1] * vtx[3])
+
+    em_slot = vrec[2 * N_REC_ROWS * d_max].to(torch.int32)
+    u1, v1 = cam[0][0]
+    em3 = sample_or_constant_fm(atlas, em_slot, u1, v1, torch.cat([emis_const, ones4[:1]], 0),
+                                static_used=atlas.any_emissive)[:3]
+
+    def guard(c):
+        return torch.where(torch.isnan(c).any(0), 0.0, c)
+
+    out_rgb = torch.where(valid & (em3 > 0.0).any(0), em3, 0.0)
+    out_a = torch.zeros_like(out_rgb[0])
+    for i in range(n_e1):
+        difp, specp = out.e1_parts[6 * i:6 * i + 3], out.e1_parts[6 * i + 3:6 * i + 6]
+        full = r_c[i] * (difp * cam[i][2] + specp)
+        full = guard(torch.clamp(full / (i + 2), 0.0, bcfg.clamp_upper))
+        out_rgb = out_rgb + torch.where(valid, full, 0.0)
+        out_a = out_a + torch.where(valid, 1.0, 0.0)
+    for p, (total_len, sx, tx) in enumerate(pairs):
+        shade = out.e3_parts[4 * p:4 * p + 3]
+        mask = out.e3_parts[4 * p + 3] > 0.5
+        if tx >= 1:
+            # reference_quirks' aL index is the spec: copied, not fixed
+            a_l_ratio = r_l[sx - 1] if bcfg.reference_quirks else r_l[tx - 1]
+            full = shade * r_c[sx - 1] * cam[sx - 1][3] * lig[tx - 1][3] * a_l_ratio
+            full = guard(torch.clamp(full / float(total_len), 0.0, bcfg.clamp_upper))
+        else:
+            full = torch.zeros_like(shade)
+        out_rgb = torch.where(mask, torch.clamp(out_rgb + full, 0.0, 1.0), out_rgb)
+        out_a = torch.where(mask, torch.clamp(out_a + 1.0, 0.0, 1.0), out_a)
+
+    res4 = torch.cat([torch.where(valid, out_rgb, dif_env),
+                      torch.where(valid, out_a, 1.0)[None]], 0).T
+    splats = []
+    for i in range(n_e2):
+        raw, alpha = out.splat_rgba[i, :3], out.splat_rgba[i, 3]
+        full = raw * r_l[i] * lig[i][3]
+        full = guard(torch.clamp(full / (i + 2), 0.0, bcfg.clamp_upper))
+        splats.append((out.splat_pix[i], torch.where(alpha > 0.5, full, 0.0).T, alpha))
+    return res4, splats, cam[0][2].T, em3.T
 
 
 def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
                             pixel_jitter, cfg, gbuf_frame=0):
     """Run K1, then the est-2 splat reduction; returns (channels, frame_img
-    [H, W, 4]) like the JAX `render_frame_megakernel` (single device).
+    [H, W, 4]) like the JAX `render_frame_megakernel` (single device).  A
+    textured scene runs K1's textured variant and `textured_replay`, whose
+    splats go to `scatter_add_rgba` (JAX `pallas_frame.py:1446-1527`).
 
-    A bake with `plain=True` runs the plain versions of K1, K2 and K3 on its
+    A bake with `plain=True` runs the plain versions of the kernels on its
     device instead: the reference the kernels' whole frame is held against."""
     from ..ops import splat as splat_mod
 
+    bcfg = cfg.bdpt
+    textured = is_textured(baked)
     # pack the est-2 splats to rgb8e in the kernel for splat_mode
     # 'tiled_rgb8e', or 'auto' on a CUDA device (as 'auto' on the TPU)
-    mode = cfg.bdpt.splat_mode
-    packed = cfg.bdpt.enable_light_tracing and (
+    mode = bcfg.splat_mode
+    packed = (not textured) and bcfg.enable_light_tracing and (
         mode == "tiled_rgb8e" or (mode == "auto" and baked.device.type == "cuda"))
     args = frame_args(baked, width, height, bdpt_frame, pixel_jitter, cfg,
                       gbuf_frame=gbuf_frame, splat_rgb8e=packed)
@@ -896,18 +1118,27 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
     def img(rows):
         return rows.T.reshape(height, width, rows.shape[0])
 
-    result = img(out.res)
-    if cfg.bdpt.enable_light_tracing:
+    if textured:
+        res4, tex_splats, dif_ratio1, em3 = textured_replay(out, bcfg, baked.atlas)
+        result = res4.reshape(height, width, 4)
+    else:
+        result = img(out.res)
+    if bcfg.enable_light_tracing:
         # the splats in the reference's depth order (depth-major concat)
         if packed:
             splat_flat = splat_mod.scatter_add_rgba_prepacked(
                 out.splat_pix.reshape(-1), out.splat_pay.reshape(-1), n_pix,
                 plain=baked.plain)
+        elif textured:
+            splat_flat = splat_mod.scatter_add_rgba(
+                mode, torch.cat([s[0] for s in tex_splats]),
+                torch.cat([s[1] for s in tex_splats]), torch.cat([s[2] for s in tex_splats]),
+                n_pix, alpha_is_count=True, plain=baked.plain)
         else:
             rgba = out.splat_rgba.permute(0, 2, 1).reshape(-1, 4)
             splat_flat = splat_mod.scatter_add_rgba(
-                cfg.bdpt.splat_mode, out.splat_pix.reshape(-1), rgba[:, :3],
-                rgba[:, 3], n_pix, alpha_is_count=True)
+                mode, out.splat_pix.reshape(-1), rgba[:, :3], rgba[:, 3], n_pix,
+                alpha_is_count=True, plain=baked.plain)
         splat = splat_flat.reshape(height, width, 4)
         got_splat = (splat != 0.0).any(dim=-1, keepdim=True)
         frame_img = torch.where(got_splat, torch.clamp(result + splat, 0.0, 1.0),
@@ -916,14 +1147,21 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
         frame_img = result
 
     gbuf = img(out.gbuf)
+    mat_dif, emis3 = gbuf[..., 8:12], gbuf[..., 17:20]
+    if textured:
+        # the kernel shaded with mean albedos; the G-buffer channels carry
+        # the texel values (lightProbeGBuffer.rt.hlsl:110-116)
+        mat_dif = torch.cat([gbuf[..., 8:11] * dif_ratio1.reshape(height, width, 3),
+                             gbuf[..., 11:12]], -1)
+        emis3 = em3.reshape(height, width, 3)
     zeros3 = torch.zeros((height, width, 3), dtype=torch.float32, device=gbuf.device)
     channels = {
         "WorldPosition": gbuf[..., 0:4],
         "WorldNormal": gbuf[..., 4:8],
-        "MaterialDiffuse": gbuf[..., 8:12],
+        "MaterialDiffuse": mat_dif,
         "MaterialSpecRough": gbuf[..., 12:16],
         "MaterialExtraParams": torch.cat([gbuf[..., 16:17], zeros3], -1),
-        "Emissive": torch.cat([gbuf[..., 17:20], zeros3[..., :1]], -1),
+        "Emissive": torch.cat([emis3, zeros3[..., :1]], -1),
         "BDPT": frame_img,
     }
     return channels, frame_img

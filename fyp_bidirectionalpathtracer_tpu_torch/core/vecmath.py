@@ -96,6 +96,15 @@ def normalize3(x, y, z, eps: float = 1e-20):
     return x * inv, y * inv, z * inv
 
 
+def normalize3_rn(x, y, z, eps: float = 1e-20):
+    """normalize3 with a correctly rounded 1/sqrt, as the CUDA kernels
+    compute it (torch.rsqrt is approximate on a CUDA device; on the CPU it
+    is the same 1/sqrt): for the plain versions that must repeat a kernel
+    bit for bit."""
+    inv = 1.0 / torch.sqrt(x * x + y * y + z * z + eps)
+    return x * inv, y * inv, z * inv
+
+
 def normed(a):
     return normalize3(a[0], a[1], a[2], eps=0.0)
 

@@ -21,6 +21,12 @@
 // global memory.  Outputs are field-major [rows, W*H], so a warp's stores
 // coalesce.  Splat pixel ids and rgb8e payloads are int32 outputs of their
 // own.
+//
+// The textured variant (Textured = true, d_max 1..4, the TPU kernel's
+// textured=True program) stores the deferred-texture records and raw
+// estimator parts to their own field-major outputs as each is produced,
+// in place of the own-pixel result; the untextured instantiations are
+// unchanged by it.
 #include <cuda_runtime.h>
 
 #include "frame_program.cuh"
@@ -29,7 +35,7 @@ namespace bdpt {
 
 constexpr int kFrameThreads = 128;
 
-template <int D>
+template <int D, bool Textured>
 __global__ void __launch_bounds__(kFrameThreads)
     frame_kernel(FrameParams p, const float* __restrict__ lights,
                  const float* __restrict__ tris, FrameOutPtrs out) {
@@ -40,19 +46,19 @@ __global__ void __launch_bounds__(kFrameThreads)
   __syncthreads();
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= p.width * p.height) return;
-  frame_pixel<D>(p, lights, bw_smem, tris, lin, out);
+  frame_pixel<D, Textured>(p, lights, bw_smem, tris, lin, out);
 }
 
-template <int D>
+template <int D, bool Textured = false>
 int launch_frame(const FrameParams& p, const float* lights, const float* tris,
                  const FrameOutPtrs& out, cudaStream_t stream) {
   const int n = p.width * p.height;
   const size_t smem = (size_t)(p.n_tris > 0 ? p.n_tris : 1) * kBwCols * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      frame_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      frame_kernel<D, Textured>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + kFrameThreads - 1) / kFrameThreads);
-  frame_kernel<D><<<grid, kFrameThreads, smem, stream>>>(p, lights, tris, out);
+  frame_kernel<D, Textured><<<grid, kFrameThreads, smem, stream>>>(p, lights, tris, out);
   return (int)cudaGetLastError();
 }
 
@@ -63,7 +69,8 @@ extern "C" int bdpt_frame_launch(const bdpt::FrameParams* params, int d_max,
                                  float* gbuf, int* splat_pix, int* splat_pay,
                                  float* splat_rgba, void* stream) {
   const bdpt::FrameParams& p = *params;
-  const bdpt::FrameOutPtrs out = {res, gbuf, splat_pix, splat_pay, splat_rgba};
+  const bdpt::FrameOutPtrs out = {res, gbuf, splat_pix, splat_pay, splat_rgba,
+                                  nullptr, nullptr, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   switch (d_max) {
     case 1: return bdpt::launch_frame<1>(p, lights, tris, out, s);
@@ -74,6 +81,24 @@ extern "C" int bdpt_frame_launch(const bdpt::FrameParams* params, int d_max,
     case 6: return bdpt::launch_frame<6>(p, lights, tris, out, s);
     case 7: return bdpt::launch_frame<7>(p, lights, tris, out, s);
     case 8: return bdpt::launch_frame<8>(p, lights, tris, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int bdpt_frame_textured_launch(const bdpt::FrameParams* params, int d_max,
+                                          const float* lights, const float* tris, float* gbuf,
+                                          int* splat_pix, float* splat_rgba, float* vrec,
+                                          float* e1, float* e3, void* stream) {
+  const bdpt::FrameParams& p = *params;
+  const bdpt::FrameOutPtrs out = {nullptr, gbuf, splat_pix, nullptr, splat_rgba,
+                                  vrec, e1, e3};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p.splat_rgb8e) return (int)cudaErrorInvalidValue;
+  switch (d_max) {
+    case 1: return bdpt::launch_frame<1, true>(p, lights, tris, out, s);
+    case 2: return bdpt::launch_frame<2, true>(p, lights, tris, out, s);
+    case 3: return bdpt::launch_frame<3, true>(p, lights, tris, out, s);
+    case 4: return bdpt::launch_frame<4, true>(p, lights, tris, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

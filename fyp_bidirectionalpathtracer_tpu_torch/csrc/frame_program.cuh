@@ -7,6 +7,13 @@
 // masks it away, this program skips the work when the skip cannot change
 // an output (a missed primary ray, a terminated subpath, a zero throughput
 // or a splat that is already dead).
+//
+// The Textured instantiation is the TPU kernel's textured=True program
+// (pallas_frame.py:803-828, 885-944, 986-988, 1012-1052): it shades with
+// each material's mean albedo and, instead of the own-pixel result, stores
+// each vertex's texture record and each raw estimator part to its
+// field-major output row as soon as it exists, so no record stays in a
+// register; accel/frame.py:textured_replay applies the texel ratios.
 #pragma once
 
 #include "intersect.cuh"
@@ -35,12 +42,59 @@ struct FrameParams {  // mirrored by accel/frame.py:_FrameParams
 };
 
 struct FrameOutPtrs {
-  float* res;         // [4, N]
+  float* res;         // [4, N] (not textured)
   float* gbuf;        // [20, N]
   int* splat_pix;     // [D, N]
   int* splat_pay;     // [D, N] rgb8e (splat_rgb8e)
   float* splat_rgba;  // [D, 4, N] (otherwise)
+  // textured only (accel/frame.py:FrameOut has the row tables)
+  float* vrec;        // [14 D + 1, N] vertex records, then the emissive slot
+  float* e1;          // [6 D, N] est-1 raw parts (enable_e1)
+  float* e3;          // [4 P, N] est-3 raw shade + mask
 };
+
+// the deferred-texture record of a vertex: uv, base-colour slot and
+// constant; a zero vertex has slot -1 (ratio 1) and constant 1
+struct TexRec {
+  float u, v, slot;
+  V3 base;
+};
+constexpr int kRecRows = 7;  // u, v, slot, is_spec, base rgb
+
+BDPT_DEV TexRec zero_rec() {
+  TexRec r;
+  r.u = r.v = 0.0f;
+  r.slot = -1.0f;
+  r.base = mk3(1.0f, 1.0f, 1.0f);
+  return r;
+}
+
+BDPT_DEV TexRec surf_rec(const Surf& s) {
+  TexRec r;
+  r.u = s.tu;
+  r.v = s.tv;
+  r.slot = s.bslot;
+  r.base = s.base;
+  return r;
+}
+
+BDPT_DEV void store_rec(float* rows, size_t N, int lin, int vtx, const TexRec& r,
+                        float is_spec) {
+  float* o = rows + (size_t)vtx * kRecRows * N + lin;
+  o[0] = r.u;
+  o[N] = r.v;
+  o[2 * N] = r.slot;
+  o[3 * N] = is_spec;
+  o[4 * N] = r.base.x;
+  o[5 * N] = r.base.y;
+  o[6 * N] = r.base.z;
+}
+
+BDPT_DEV void store3(float* rows, size_t N, int lin, int row, V3 c) {
+  rows[(size_t)row * N + lin] = c.x;
+  rows[(size_t)(row + 1) * N + lin] = c.y;
+  rows[(size_t)(row + 2) * N + lin] = c.z;
+}
 
 // scalar-row layout (accel/frame.py)
 enum {
@@ -219,14 +273,18 @@ BDPT_DEV V3 eval_brdf(V3 v, V3 l, V3 n, V3 dif, V3 spec, float rough, bool is_sp
   return below ? mk3(0.0f, 0.0f, 0.0f) : out;
 }
 
-// ops.materials.nee_shade (diffuse plus specular part)
-BDPT_DEV V3 nee_shade(bool vis, V3 l, V3 inten, V3 n, V3 v, V3 dif, V3 spec, float rough,
-                      float lcnt, int mat_model) {
+// ops.materials.nee_shade split into its diffuse-albedo-linear part and
+// its specular part (zero for Lambertian), as the textured records need
+BDPT_DEV void nee_shade_split(bool vis, V3 l, V3 inten, V3 n, V3 v, V3 dif, V3 spec,
+                              float rough, float lcnt, int mat_model, V3& difp, V3& specp) {
   float n_dot_l = saturate(dot3(n, l));
   float sm = vis ? lcnt : 0.0f;
-  if (mat_model != 0)
-    return mk3(sm * n_dot_l * inten.x * dif.x / kPi, sm * n_dot_l * inten.y * dif.y / kPi,
+  if (mat_model != 0) {
+    difp = mk3(sm * n_dot_l * inten.x * dif.x / kPi, sm * n_dot_l * inten.y * dif.y / kPi,
                sm * n_dot_l * inten.z * dif.z / kPi);
+    specp = mk3(0.0f, 0.0f, 0.0f);
+    return;
+  }
   V3 h = normed(add3(v, l));
   float n_dot_h = saturate(dot3(n, h));
   float l_dot_h = saturate(dot3(l, h));
@@ -238,12 +296,19 @@ BDPT_DEV V3 nee_shade(bool vis, V3 l, V3 inten, V3 n, V3 v, V3 dif, V3 spec, flo
   float g = (n_dot_l / (n_dot_l * (1.0f - k) + k)) * (n_dot_v / (n_dot_v * (1.0f - k) + k));
   float f5 = powf(jmax(0.0f, 1.0f - l_dot_h), 5.0f);
   float dg4 = d * g / (4.0f * n_dot_v);
-  V3 difp = mk3(sm * inten.x * n_dot_l * dif.x * kInvPi, sm * inten.y * n_dot_l * dif.y * kInvPi,
-                sm * inten.z * n_dot_l * dif.z * kInvPi);
-  V3 specp = mk3(sm * inten.x * (spec.x + (1.0f - spec.x) * f5) * dg4,
-                 sm * inten.y * (spec.y + (1.0f - spec.y) * f5) * dg4,
-                 sm * inten.z * (spec.z + (1.0f - spec.z) * f5) * dg4);
-  return add3(difp, specp);
+  difp = mk3(sm * inten.x * n_dot_l * dif.x * kInvPi, sm * inten.y * n_dot_l * dif.y * kInvPi,
+             sm * inten.z * n_dot_l * dif.z * kInvPi);
+  specp = mk3(sm * inten.x * (spec.x + (1.0f - spec.x) * f5) * dg4,
+              sm * inten.y * (spec.y + (1.0f - spec.y) * f5) * dg4,
+              sm * inten.z * (spec.z + (1.0f - spec.z) * f5) * dg4);
+}
+
+// ops.materials.nee_shade (diffuse plus specular part)
+BDPT_DEV V3 nee_shade(bool vis, V3 l, V3 inten, V3 n, V3 v, V3 dif, V3 spec, float rough,
+                      float lcnt, int mat_model) {
+  V3 difp, specp;
+  nee_shade_split(vis, l, inten, n, v, dif, spec, rough, lcnt, mat_model, difp, specp);
+  return mat_model != 0 ? difp : add3(difp, specp);
 }
 
 struct LightEval {
@@ -312,7 +377,8 @@ BDPT_DEV float mis_weight(const float* lc, const float* ll, int sx, int tx, int 
 
 // ------------------------------------------------------------ subpaths
 struct PathState {
-  Vtx vtx;  // the vertex the state records (stale after a miss)
+  Vtx vtx;     // the vertex the state records (stale after a miss)
+  TexRec rec;  // its texture record (textured; stale after a miss)
   V3 o, d;
   uint32_t seed;
   bool term;
@@ -343,12 +409,22 @@ BDPT_DEV void shoot(PathState& s, const FrameParams& p, const float* bw,
   s.vtx.rough = sd.rough;
   s.vtx.is_spec = bs.is_spec ? 1.0f : 0.0f;
   s.vtx.pdf = bs.pdf;
+  s.rec = surf_rec(sd);
   s.o = sd.pos;
   s.d = bs.l;
 }
 
-// ---------------------------------------------------------------- program
+// the number of (s, t) pairs of the est-3 loop (accel/frame.py:e3_pair_list)
 template <int D>
+BDPT_DEV int n_e3_pairs(bool enable_e3) {
+  int n = 0;
+  for (int total_len = 2; enable_e3 && total_len <= D; ++total_len)
+    for (int sx = 1; sx < D; ++sx) n += (total_len - sx >= 0 && total_len - sx <= D);
+  return n;
+}
+
+// ---------------------------------------------------------------- program
+template <int D, bool Textured>
 BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights,
                           const float* bw, const float* __restrict__ tris, int lin,
                           const FrameOutPtrs& out) {
@@ -356,6 +432,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   const int W = p.width, H = p.height;
   const size_t N = (size_t)W * (size_t)H;
   const int n_e2 = p.enable_e2 ? D : 0;
+  const int n_e1_rows = Textured && p.enable_e1 ? 6 * D : 0;
   V3 cam_pos = mk3(sc[C_POS], sc[C_POS + 1], sc[C_POS + 2]);
   V3 cam_u = mk3(sc[C_U], sc[C_U + 1], sc[C_U + 2]);
   V3 cam_v = mk3(sc[C_V], sc[C_V + 1], sc[C_V + 2]);
@@ -396,7 +473,14 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     const float bg[4] = {env.x, env.y, env.z, 1.0f};
     const float gb[20] = {0, 0, 0, 0, 0, 0, 0, 0, env.x, env.y, env.z, 1,
                           0, 0, 0, 0, 0, 0, 0, 0};
-    for (int r = 0; r < 4; ++r) out.res[r * N + lin] = bg[r];
+    if constexpr (Textured) {  // zero records, emissive slot -1, no parts
+      for (int k = 0; k < 2 * D; ++k) store_rec(out.vrec, N, lin, k, zero_rec(), 0.0f);
+      out.vrec[(size_t)2 * D * kRecRows * N + lin] = -1.0f;
+      for (int r = 0; r < n_e1_rows; ++r) out.e1[r * N + lin] = 0.0f;
+      for (int r = 0; r < 4 * n_e3_pairs<D>(p.enable_e3); ++r) out.e3[r * N + lin] = 0.0f;
+    } else {
+      for (int r = 0; r < 4; ++r) out.res[r * N + lin] = bg[r];
+    }
     for (int r = 0; r < 20; ++r) out.gbuf[r * N + lin] = gb[r];
     for (int i = 0; i < n_e2; ++i) {
       out.splat_pix[i * N + lin] = (int)N;
@@ -434,10 +518,15 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   cam[1].rough = rough;
   cam[1].is_spec = bs0.is_spec ? 1.0f : 0.0f;
   cam[1].pdf = bs0.pdf;
+  if constexpr (Textured) {
+    store_rec(out.vrec, N, lin, 0, surf_rec(sd), cam[1].is_spec);
+    out.vrec[(size_t)2 * D * kRecRows * N + lin] = sd.eslot;
+  }
   PathState st;
   st.vtx = zero_vtx();
   st.vtx.color = bs0.w;
   st.vtx.pos = world_pos;
+  st.rec = zero_rec();
   st.o = world_pos;
   st.d = bs0.l;
   st.seed = seed;
@@ -447,6 +536,8 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     bool was_active = !st.term;
     shoot(st, p, bw, tris);
     cam[depth + 1] = was_active ? st.vtx : zero_vtx();
+    if constexpr (Textured)
+      store_rec(out.vrec, N, lin, depth, was_active ? st.rec : zero_rec(), cam[depth + 1].is_spec);
   }
   seed = st.seed;
 
@@ -468,6 +559,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   st.vtx = zero_vtx();
   st.vtx.color = l_inten;
   st.vtx.pos = l_origin;
+  st.rec = zero_rec();
   st.o = l_origin;
   st.d = l_dir0;
   st.seed = seed;
@@ -478,6 +570,9 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     shoot(st, p, bw, tris);
     lig[depth + 1] = was_active ? st.vtx : zero_vtx();
     take[depth + 1] = was_active ? !st.term : true;
+    if constexpr (Textured)
+      store_rec(out.vrec, N, lin, D + depth, was_active ? st.rec : zero_rec(),
+                lig[depth + 1].is_spec);
   }
   seed = st.seed;
 
@@ -495,10 +590,23 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
       acc_a = acc_a + 1.0f;
       // a zero throughput makes the term 0 (or NaN, guarded to 0) whatever
       // the shadow ray says
-      if (is_zero3(cam[i].color)) continue;
+      if (is_zero3(cam[i].color)) {
+        if constexpr (Textured)
+          for (int r = 0; r < 6; ++r) out.e1[(6 * i + r) * N + lin] = 0.0f;
+        continue;
+      }
       const Vtx& x = cam[i + 1];
       LightEval le = eval_light(lights + idx * kLightRow, x.pos);
       bool occ = occluded<false>(bw, p.n_tris, x.pos, le.l, p.min_t, le.dist);
+      if constexpr (Textured) {
+        // raw parts x the camera throughput (pallas_frame.py:821-828)
+        V3 difp, specp;
+        nee_shade_split(!occ, le.l, le.inten, x.n, x.v, x.dif, x.spec, x.rough, lcnt_f,
+                        p.mat_model, difp, specp);
+        store3(out.e1, N, lin, 6 * i, mul3(cam[i].color, difp));
+        store3(out.e1, N, lin, 6 * i + 3, mul3(cam[i].color, specp));
+        continue;
+      }
       V3 direct = nee_shade(!occ, le.l, le.inten, x.n, x.v, x.dif, x.spec, x.rough, lcnt_f,
                             p.mat_model);
       V3 shade = nan_guard3(clip3(scale3(mul3(cam[i].color, direct), 1.0f / (float)(i + 2)),
@@ -515,6 +623,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
       cum_logpdf<D>(cam, lc);
       cum_logpdf<D>(lig, ll);
     }
+    int pair = 0;  // the textured parts' pair index
 #pragma unroll
     for (int total_len = 2; total_len <= D; ++total_len) {
 #pragma unroll
@@ -526,7 +635,12 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
         V3 dir_ab = scale3(vec, 1.0f / length_ab);
         // interval shortened by min_t to exclude far-endpoint self-hits
         bool occ = occluded<false>(bw, p.n_tris, cam[sx].pos, dir_ab, p.min_t, length_ab - p.min_t);
-        if (occ) continue;
+        const int pi = pair++;
+        if (occ) {
+          if constexpr (Textured)
+            for (int r = 0; r < 4; ++r) out.e3[(4 * pi + r) * N + lin] = 0.0f;
+          continue;
+        }
         V3 shade = zero;
         if (tx >= 1) {
           // evalGWithoutV (BDPTUtils.hlsli:172-184)
@@ -547,11 +661,19 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
           shade = mk3(a_l.x * (fs_l.x * g * fs_e.x) * a_e.x,
                       a_l.y * (fs_l.y * g * fs_e.y) * a_e.y,
                       a_l.z * (fs_l.z * g * fs_e.z) * a_e.z);
-          if (p.connection_weight != 0)
-            shade = scale3(shade, mis_weight(lc, ll, sx, tx, total_len, mis_power));
-          else
-            shade = scale3(shade, 1.0f / (float)total_len);
-          shade = nan_guard3(clip3(shade, p.clamp_upper));
+          // textured: the raw shade (pallas_frame.py:939-944)
+          if constexpr (!Textured) {
+            if (p.connection_weight != 0)
+              shade = scale3(shade, mis_weight(lc, ll, sx, tx, total_len, mis_power));
+            else
+              shade = scale3(shade, 1.0f / (float)total_len);
+            shade = nan_guard3(clip3(shade, p.clamp_upper));
+          }
+        }
+        if constexpr (Textured) {
+          store3(out.e3, N, lin, 4 * pi, shade);
+          out.e3[(4 * pi + 3) * N + lin] = 1.0f;
+          continue;
         }
         acc = mk3(saturate(acc.x + shade.x), saturate(acc.y + shade.y), saturate(acc.z + shade.z));
         acc_a = saturate(acc_a + 1.0f);
@@ -586,10 +708,12 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
                           last.is_spec > 0.5f, p.mat_model);
       V3 lc0 = lig[i].color;
       shade = mk3(lc0.x * brdf.x * g, lc0.y * brdf.y * g, lc0.z * brdf.z * g);
-      shade = nan_guard3(clip3(scale3(shade, 1.0f / (float)(i + 2)), p.clamp_upper));
+      // textured: the raw shade (pallas_frame.py:986-988)
+      if constexpr (!Textured)
+        shade = nan_guard3(clip3(scale3(shade, 1.0f / (float)(i + 2)), p.clamp_upper));
     }
     out.splat_pix[i * N + lin] = ok ? (int)ry * W + (int)rx : (int)N;
-    if (p.splat_rgb8e) {
+    if (!Textured && p.splat_rgb8e) {
       out.splat_pay[i * N + lin] = pack_rgb8e(shade.x, shade.y, shade.z);
     } else {
       out.splat_rgba[(i * 4 + 0) * N + lin] = shade.x;
@@ -600,10 +724,12 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   }
 
   // ---------------- outputs ----------------
-  out.res[0 * N + lin] = acc.x;
-  out.res[1 * N + lin] = acc.y;
-  out.res[2 * N + lin] = acc.z;
-  out.res[3 * N + lin] = acc_a;
+  if constexpr (!Textured) {  // textured: the replay computes it
+    out.res[0 * N + lin] = acc.x;
+    out.res[1 * N + lin] = acc.y;
+    out.res[2 * N + lin] = acc.z;
+    out.res[3 * N + lin] = acc_a;
+  }
   V3 dvec = sub3(world_pos, cam_pos);
   const float gb[20] = {world_pos.x, world_pos.y, world_pos.z, 1.0f,
                         world_norm.x, world_norm.y, world_norm.z,

@@ -137,6 +137,10 @@ BDPT_DEV void hit_fields(const float* __restrict__ tris, int id, float t, V3 o, 
 struct Surf {  // decoded shading data of a hit
   V3 pos, n, v, dif, spec, emissive;
   float lrough, rough, opacity, ior;
+  // the deferred-texture record (K1's textured variant; dead code
+  // elsewhere): uv, the base-colour and emissive slots, the base constant
+  float tu, tv, bslot, eslot;
+  V3 base;
 };
 
 // The winner's attributes from its pack row, then the untextured
@@ -170,6 +174,11 @@ BDPT_DEV Surf decode_hit(const float* __restrict__ tris, int id, float t, V3 o, 
   s.emissive = mk3(a[35], a[36], a[37]);
   s.opacity = a[30];
   s.ior = a[38];
+  s.tu = bary_mix<false>(a, 21, u, v, w, 2);
+  s.tv = bary_mix<false>(a, 22, u, v, w, 2);
+  s.bslot = a[41];
+  s.eslot = a[43];
+  s.base = mk3(b0, b1, b2);
   return s;
 }
 

@@ -6,9 +6,11 @@ source, all started together, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c
 
-and linked (`nvcc -shared`) into one library with a plain `extern "C"`
-interface, loaded with ctypes.  The library lands in `build/torch_kernels/<hash>/` at the root of
-the checkout, keyed by a hash of the sources, so a checkout builds its own
+(`subpath.cu` also with `-fmad=false`, so K6 repeats its plain version's
+float operations one for one) and linked (`nvcc -shared`) into one
+library with a plain `extern "C"` interface, loaded with ctypes.  The
+library lands in `build/torch_kernels/<hash>/` at the root of the
+checkout, keyed by a hash of the sources, so a checkout builds its own
 kernels from its own sources.  A failed build raises with nvcc's output.
 
 Each kernel wrapper counts its launches in `LAUNCHES`; a run resets the
@@ -30,15 +32,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu", "intersect.cu", "bvh.cu")
-HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "bvh.cuh")
+SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu", "intersect.cu", "bvh.cu",
+           "splat_rows.cu", "subpath.cu")
+HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "bvh.cuh", "subpath.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"subpath.cu": ("-fmad=false",)}
 LIB_NAME = "libbdpt_kernels.so"
 
-LAUNCHES = {"frame": 0, "compact": 0, "splat_tile": 0,
-            "closest": 0, "shaded": 0, "occluded": 0,
-            "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0}
+LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
+            "splat_rows": 0, "closest": 0, "shaded": 0, "occluded": 0,
+            "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0, "subpath": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -75,6 +79,7 @@ def source_hash() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -107,8 +112,8 @@ def build(verbose: bool = False) -> Path:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / (s + ".o") for s in SOURCES]
         extra = ["-Xptxas=-v"] if verbose else []
-        log = _run([_start([nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c",
-                            str(CSRC / s), "-o", str(o)])
+        log = _run([_start([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), *extra, "-I",
+                            str(CSRC), "-c", str(CSRC / s), "-o", str(o)])
                     for s, o in zip(SOURCES, objs)])
         tmp_lib = Path(tmp) / LIB_NAME
         log += _run([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
@@ -122,6 +127,7 @@ def build(verbose: bool = False) -> Path:
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bdpt_frame_launch.argtypes = [p, i, p, p, p, p, p, p, p, p]
+    lib.bdpt_frame_textured_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, p]
     lib.bdpt_compact_count.argtypes = [p, i, i, p, p]
     lib.bdpt_compact_scatter.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.bdpt_splat_reduce.argtypes = [p, p, i, i, p, p]
@@ -132,11 +138,14 @@ def _declare(lib) -> None:
     lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, i, p, p]
     lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p]
     lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
-    for fn in (lib.bdpt_frame_launch, lib.bdpt_compact_count,
+    lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, p, p]
+    lib.bdpt_subpath.argtypes = [p, i, p, i, i, i, i, p, p, p]
+    for fn in (lib.bdpt_frame_launch, lib.bdpt_frame_textured_launch, lib.bdpt_compact_count,
                lib.bdpt_compact_scatter, lib.bdpt_splat_reduce,
                lib.bdpt_intersect_closest, lib.bdpt_intersect_shaded,
                lib.bdpt_occluded, lib.bdpt_bvh_closest, lib.bdpt_bvh_shaded,
-               lib.bdpt_bvh_occluded, lib.bdpt_bvh_count):
+               lib.bdpt_bvh_occluded, lib.bdpt_bvh_count, lib.bdpt_splat_rows,
+               lib.bdpt_subpath):
         fn.restype = ctypes.c_int
 
 

@@ -63,6 +63,53 @@ def sample_atlas_bilinear_packed(packed, slot, uv):
     return _lerp2(row[..., 0:4], row[..., 4:8], row[..., 8:12], row[..., 12:16], fx, fy)
 
 
+def _uv_to_texels_fm(u, v, res):
+    """Field-major _uv_to_texels: u, v [N] -> (x0i, y0i, fx, fy), all [N]."""
+    u = u - torch.floor(u)
+    v = v - torch.floor(v)
+    x = u * res - 0.5
+    y = v * res - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    return (torch.remainder(x0.to(torch.int64), res), torch.remainder(y0.to(torch.int64), res),
+            x - x0, y - y0)
+
+
+def sample_bilinear_packed_fm(packed, slot, u, v):
+    """Field-major bilinear tap: slot, u, v [N] -> [4, N] rgba, one gather
+    of a flat [T*R*R, 16] row a lane and the lerps on [N] lane vectors."""
+    t, res = packed.shape[0], packed.shape[1]
+    s = torch.clamp(slot.long(), 0, t - 1)
+    x0i, y0i, fx, fy = _uv_to_texels_fm(u, v, res)
+    row_t = packed.reshape(t * res * res, 16)[(s * res + y0i) * res + x0i].T  # [16, N]
+    w00 = (1.0 - fx) * (1.0 - fy)
+    w10 = fx * (1.0 - fy)
+    w01 = (1.0 - fx) * fy
+    w11 = fx * fy
+    return row_t[0:4] * w00 + row_t[4:8] * w10 + row_t[8:12] * w01 + row_t[12:16] * w11
+
+
+def sample_or_constant_fm(atlas, slot, u, v, constant, static_used: bool = True):
+    """Field-major sample_or_constant: slot, u, v [N], constant [C <= 4, N]
+    (or a broadcastable scalar) -> [4, N] (the constant as it is when the
+    kind is statically unused).  Without the packed table the tap is the
+    four-gather `sample_atlas_bilinear`."""
+    if not static_used:
+        return constant
+    data = atlas.data
+    if data.shape[1] == 1 and data.shape[2] == 1:
+        if data.shape[0] == 1:
+            tex = data[0, 0, 0][:, None]
+        else:
+            tex = data[torch.clamp(slot.long(), 0, data.shape[0] - 1), 0, 0].T
+        return torch.where(slot >= 0, tex, constant)
+    if atlas.packed is not None:
+        tex = sample_bilinear_packed_fm(atlas.packed, slot, u, v)
+    else:
+        tex = sample_atlas_bilinear(data, slot, torch.stack([u, v], -1)).T
+    return torch.where(slot >= 0, tex, constant)
+
+
 def _u32_rgba(u):
     """Unpack 32-bit words (int32 bits of a little-endian u32) into [..., 4]
     float32 rgba in [0, 1]."""

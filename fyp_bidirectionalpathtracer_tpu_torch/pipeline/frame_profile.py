@@ -1,15 +1,20 @@
 """Where the main path's frame time goes on a CUDA device.
 
     python -m fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile \
-        [--scene cornell|pink_room] [--megakernel auto|off] [--frames 5]
-        [--repeats 2] [--out PATH.json] [--trace PATH.json]
+        [--scene cornell|pink_room|textured] [--megakernel auto|off]
+        [--defer-textures] [--frames 5] [--repeats 2] [--out PATH.json]
+        [--trace PATH.json]
 
 Renders a scene at 1280x720, depth 3, BMFR off, default config otherwise
 (the frames that `chip_smoke.py` times) through `Renderer`: the Cornell box
-on the megakernel path (`auto`) or the per-bounce wavefront (`off`), or
+on the megakernel path (`auto`) or the per-bounce wavefront (`off`);
 pink_room (`models/pink_room.pink_room(asset_dir="")`, 10,546 triangles,
 procedural textures), which the megakernel gate sends to the wavefront and
-its BVH kernels.  Prints one JSON object:
+its BVH kernels; or the textured room (`models/procedural.textured_room`,
+342 triangles, two base-colour textures), which takes the wavefront by
+default and, with `--defer-textures` (`BDPTConfig(defer_textures=True)`),
+the deferred-texture megakernel: K1's textured variant, the replay and the
+splat.  Prints one JSON object:
 
 - `device`: the card's name and power limit as nvidia-smi prints them;
 - `ms_per_frame_host`: host-clock ms per frame of `--frames` frames, with a
@@ -37,11 +42,17 @@ from collections import defaultdict
 
 import torch
 
-from ..accel.frame import frame_args, frame_kernel, supports_megakernel
+from ..accel.frame import (
+    frame_args,
+    frame_kernel,
+    is_textured,
+    supports_megakernel,
+    textured_replay,
+)
 from ..models.pink_room import pink_room
-from ..models.procedural import cornell_box
+from ..models.procedural import cornell_box, textured_room
 from ..ops.shading import make_shaded_tracer
-from ..ops.splat import scatter_add_rgba_prepacked
+from ..ops.splat import scatter_add_rgba, scatter_add_rgba_prepacked
 from ..passes.bdpt import bdpt_pass
 from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
 from ..scene.camera import begin_frame
@@ -86,24 +97,34 @@ def stage_times(renderer: Renderer) -> dict:
             lambda: bdpt_pass(scene, scene.intersector(), ch, frame, jitter, cfg.bdpt,
                               trace=trace))
     else:
+        textured = is_textured(scene)
         out["frame_args (host)"], args = _timed(lambda: frame_args(
             scene, cfg.width, cfg.height, frame, jitter, cfg,
-            gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=True))
-        out["K1 frame_kernel"], fo = _timed(
+            gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=not textured))
+        out["K1 frame_kernel" + (" (textured)" if textured else "")], fo = _timed(
             lambda: frame_kernel(args, scene.light_rows, scene.tri_pack))
-        out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
-            lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
-                                               fo.splat_pay.reshape(-1), args.n_pix))
+        if textured:
+            out["textured_replay (taps, ratios, accumulation)"], rep = _timed(
+                lambda: textured_replay(fo, cfg.bdpt, scene.atlas))
+            out[f"splat ({cfg.bdpt.splat_mode})"], _ = _timed(lambda: scatter_add_rgba(
+                cfg.bdpt.splat_mode, *(torch.cat(x) for x in zip(*rep[1])), args.n_pix,
+                alpha_is_count=True))
+        else:
+            out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
+                lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
+                                                   fo.splat_pay.reshape(-1), args.n_pix))
     out["begin_frame (camera update)"], _ = _timed(lambda: begin_frame(r.camera))
     out["whole render_frame"], _ = _timed(r.render_frame)
     return out
 
 
-SCENES = {"cornell": cornell_box, "pink_room": lambda: pink_room(asset_dir="")}
+SCENES = {"cornell": cornell_box, "pink_room": lambda: pink_room(asset_dir=""),
+          "textured": textured_room}
 
 
 def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
-            megakernel: str = "auto", scene: str = "cornell") -> dict:
+            megakernel: str = "auto", scene: str = "cornell",
+            defer_textures: bool = False) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -115,7 +136,8 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
     dev = torch.device("cuda", 0)
     baked = Scene.from_built(SCENES[scene](), aspect=WIDTH / HEIGHT).bake(device=dev)
     r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT,
-                                     bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel)))
+                                     bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel,
+                                                     defer_textures=defer_textures)))
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
     plain_ms, _ = _timed(lambda: r.render(frames))
     # before the profiler: CUPTI slows every launch after it has traced
@@ -137,6 +159,9 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
         "scene": scene,
         "triangles": baked.n_tris,
         "megakernel": megakernel,
+        "defer_textures": defer_textures,
+        "path": "megakernel" if megakernel != "off" and supports_megakernel(r.baked, r.cfg)
+                else "wavefront",
         "frames": frames,
         "ms_per_frame_host": plain_ms / frames,
         "ms_per_frame_host_profiled": host_ms / frames,
@@ -152,12 +177,15 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=tuple(SCENES), default="cornell")
     ap.add_argument("--megakernel", choices=("auto", "off"), default="auto")
+    ap.add_argument("--defer-textures", action="store_true",
+                    help="BDPTConfig(defer_textures=True): the textured room takes the "
+                         "deferred-texture megakernel")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--out")
     ap.add_argument("--trace")
     a = ap.parse_args()
-    result = profile(a.frames, a.repeats, a.trace, a.megakernel, a.scene)
+    result = profile(a.frames, a.repeats, a.trace, a.megakernel, a.scene, a.defer_textures)
     text = json.dumps(result, indent=1)
     if a.out:
         with open(a.out, "w") as f:

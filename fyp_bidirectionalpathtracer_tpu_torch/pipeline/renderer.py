@@ -8,13 +8,13 @@ passthrough while disabled).
 
 Routing: megakernel 'auto' and 'on' run the frame program for a scene in
 its gate, as the kernel K1 on a CUDA device and as its plain version on
-CPU tensors (JAX's interpret-mode megakernel plays that role on the CPU).
-megakernel 'off', and a scene the gate refuses (textured, or above 2048
-triangles), run the per-bounce wavefront (JAX `renderer.py:91-117`):
-`ray_traced_gbuffer`, then `bdpt_pass`, every trace through the dense K4
-intersectors or, above 2048 triangles, the BVH kernels.  A scene JAX would
-send to its deferred-texture megakernel (`defer_textures=True`) raises and
-names its ROADMAP item rather than quietly taking the wavefront.
+CPU tensors (JAX's interpret-mode megakernel plays that role on the CPU);
+a base-colour-textured scene with `defer_textures=True` is in the gate and
+runs K1's textured variant and the deferred-texture replay.  megakernel
+'off', and a scene the gate refuses (other textures, deferral off, or
+above 2048 triangles), run the per-bounce wavefront (JAX `renderer.py:
+91-117`): `ray_traced_gbuffer`, then `bdpt_pass`, every trace through the
+dense K4 intersectors or, above 2048 triangles, the BVH kernels.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from ..accel.frame import MAX_TRIS, render_frame_megakernel, supports_megakernel
+from ..accel.frame import render_frame_megakernel, supports_megakernel
 from ..ops.shading import make_shaded_tracer
 from ..passes.accumulate import AccumState, accumulate, camera_moved
 from ..passes.bdpt import bdpt_pass
@@ -35,17 +35,6 @@ from ..utils.config import RenderConfig
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
 _TONEMAP_ITEM = "ROADMAP Queue 1 item 12 (tone-map operators)"
-_DEFER_ITEM = "ROADMAP Queue 1 item 11 (deferred-texture megakernel, K5)"
-
-
-def defers_textures(baked: BakedScene, cfg: RenderConfig) -> bool:
-    """Would JAX's megakernel gate take this textured scene through its
-    deferred-texture variant (`pallas_frame.supports_megakernel`)?"""
-    b = cfg.bdpt
-    return (b.defer_textures and baked.tex_defer_ok and 1 <= b.max_depth <= 4
-            and baked.n_tris <= MAX_TRIS
-            and tuple(baked.data.env_map.shape[:2]) == (1, 1)
-            and b.connection_weight == "uniform")
 
 
 @dataclass
@@ -64,10 +53,6 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
     `plain=True` runs every kernel's plain version on its device."""
     scene = baked.with_camera(camera)
     jitter = pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
-    if cfg.bdpt.megakernel != "off" and defers_textures(scene, cfg):
-        raise NotImplementedError(
-            f"a base-colour-textured scene with defer_textures=True takes JAX's "
-            f"deferred-texture megakernel; see {_DEFER_ITEM}")
     if cfg.bdpt.megakernel != "off" and supports_megakernel(scene, cfg):
         channels, frame_img = render_frame_megakernel(
             scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,

@@ -1,6 +1,7 @@
-"""K1, K2, K3, the K4 intersectors and the BVH kernels against their plain
-versions on an H100, and the wavefront frames (Cornell, pink_room) against
-the plain chain.
+"""K1 (and its textured variant), K2, K3, K5, K6, the K4 intersectors and
+the BVH kernels against their plain versions on an H100, and the frames
+(Cornell, pink_room, the textured room's deferred-texture megakernel)
+against the plain chain.
 
 Marked `cuda`: they need the card and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
@@ -14,14 +15,23 @@ from fyp_bidirectionalpathtracer_tpu_torch import cuda
 from fyp_bidirectionalpathtracer_tpu_torch.accel import cluster
 from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
 from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
+from fyp_bidirectionalpathtracer_tpu_torch.accel import subpath
+from fyp_bidirectionalpathtracer_tpu_torch.core import rng
 from fyp_bidirectionalpathtracer_tpu_torch.ops.compact import compact_live, compact_plain
 from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     pack_rgb8e,
+    reduce_rows_plain,
     reduce_sorted_plain,
+    scatter_add_rgba_tiled,
     splat_reduce,
+    splat_reduce_rows,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
-from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box, icosphere
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
+    cornell_box,
+    icosphere,
+    textured_room,
+)
 from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
 from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
 from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
@@ -73,6 +83,8 @@ def test_splat_reduce_kernel(dev):
 def _baked(dev, scene, w, h):
     if scene == "pink_room":
         return Scene.from_built(pink_room(asset_dir=""), aspect=w / h).bake(device=dev)
+    if scene == "textured_room":
+        return Scene.from_built(textured_room(), aspect=w / h).bake(device=dev)
     built = cornell_box()
     if scene == "cornell_icosphere":
         built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
@@ -268,3 +280,124 @@ def test_textured_wavefront_frame_matches_plain_chain(dev, w, h):
         imgs.append(ch["BDPT"])
     assert cuda.LAUNCHES["bvh_shaded"] == 6 and cuda.LAUNCHES["bvh_occluded"] == 3
     assert torch.equal(imgs[0], imgs[1])
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.float32, 4), (torch.float32, 3),
+                                        (torch.bfloat16, 4), (torch.bfloat16, 3)])
+def test_splat_rows_kernel_bit_equal(dev, dtype, rows):
+    """K5 sums each pixel's run in the plain version's order: bit-equal."""
+    g = torch.Generator().manual_seed(5)
+    m, n_t = 360_000, 50_000
+    keys = torch.sort(torch.randint(0, n_t + 2000, (m,), generator=g))[0].to(torch.int32)
+    vals = (torch.rand(rows, m, generator=g) * 3.0).to(dtype)
+    cuda.reset_launch_counts()
+    got = splat_reduce_rows(keys.to(dev), vals.to(dev), n_t).cpu()
+    assert cuda.LAUNCHES["splat_rows"] == 1
+    want = reduce_rows_plain(keys, vals, n_t)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("pack,count", [("f32", True), ("f32", False), ("bf16", False),
+                                        ("rgb8e", True)])
+def test_tiled_splat_matches_plain(dev, pack, count):
+    g = torch.Generator().manual_seed(6)
+    u, n_t = 3 * 40_000, 30_000
+    lin = torch.randint(-100, n_t + 100, (u,), generator=g).to(torch.int32)
+    rgb, alpha = torch.rand(u, 3, generator=g), torch.rand(u, generator=g)
+    got = scatter_add_rgba_tiled(lin.to(dev), rgb.to(dev), alpha.to(dev), n_t, count,
+                                 pack=pack).cpu()
+    want = scatter_add_rgba_tiled(lin, rgb, alpha, n_t, count, pack=pack, plain=True)
+    if count:
+        assert torch.equal(got[:, 3], want[:, 3])
+    # K5 is bit-equal to its plain version; rgb8e takes K3, whose plain
+    # version sums a run by a segment sum (K3's bound)
+    tol = 1e-5 if pack == "rgb8e" else 1e-6
+    torch.testing.assert_close(got, want, rtol=tol, atol=1e-6)
+
+
+def _subpath_state(baked, n, dev):
+    g = torch.Generator().manual_seed(8)
+    o = torch.rand(n, 3, generator=g) * 0.9 + 0.05
+    d = torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    seed = rng.tea_init(torch.arange(n), 5)
+    term = torch.rand(n, generator=g) < 0.1
+    return [x.to(dev) for x in (o, d, torch.ones(n, 3), seed, term)]
+
+
+@pytest.mark.parametrize("mat_model,faithful", [(0, False), (1, True)])
+def test_subpath_kernel_matches_plain(dev, mat_model, faithful):
+    """K6 against its plain version on Cornell: fields within atol 5e-4 on
+    the lanes active before each bounce; hit, take, terminated and seed
+    exact."""
+    baked = _baked(dev, "cornell", 64, 64)
+    ray = _subpath_state(baked, 50_000, dev)
+    cuda.reset_launch_counts()
+    kv, kf = subpath.build_subpath(baked.tri_pack, baked.n_tris, *ray, 1e-3, 3, mat_model,
+                                   faithful)
+    assert cuda.LAUNCHES["subpath"] == 1
+    pv, pf = subpath.build_subpath(baked.tri_pack, baked.n_tris, *ray, 1e-3, 3, mat_model,
+                                   faithful, plain=True)
+    active = ~ray[4]
+    for b in range(3):
+        for name in ("hit", "take", "is_spec"):
+            assert torch.equal(kv[b][name], pv[b][name]), (b, name)
+        for name in ("color", "pos", "n", "v", "dif", "spec", "rough", "pdf"):
+            torch.testing.assert_close(torch.nan_to_num(kv[b][name][active], nan=-7.0),
+                                       torch.nan_to_num(pv[b][name][active], nan=-7.0),
+                                       rtol=0, atol=5e-4)
+        active = active & pv[b]["take"]
+    assert torch.equal(kf["terminated"], pf["terminated"])
+    assert torch.equal(kf["seed"], pf["seed"])
+
+
+@pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
+@pytest.mark.parametrize("d", [2, 3])
+def test_textured_frame_kernel_matches_plain(dev, w, h, d):
+    """K1's textured variant against its plain version with K1's bounds:
+    G-buffer and records <= 1% of pixels off by more than 1e-3, estimator
+    rows (NaN as 0) <= 2%, splat ids equal on >= 98% of lanes."""
+    baked = _baked(dev, "textured_room", w, h)
+    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig(max_depth=d, defer_textures=True))
+    args = frame_mod.frame_args(baked, w, h, 0x1337, pixel_jitter_for_frame(0x1337), cfg)
+    assert args.textured
+    cuda.reset_launch_counts()
+    k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack)
+    assert cuda.LAUNCHES["frame_textured"] == 1 and cuda.LAUNCHES["frame"] == 0
+    p = frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
+    torch.cuda.synchronize()
+
+    def frac(a, b):
+        a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+        return float(((a - b).abs().max(0).values > 1e-3).float().mean())
+
+    assert frac(k.gbuf, p.gbuf) <= 0.01 and frac(k.vrec, p.vrec) <= 0.01
+    for name in ("e1_parts", "e3_parts"):
+        assert frac(getattr(k, name), getattr(p, name)) <= 0.02, name
+    assert frac(k.splat_rgba.reshape(4 * d, -1), p.splat_rgba.reshape(4 * d, -1)) <= 0.02
+    assert float((k.splat_pix == p.splat_pix).float().mean()) >= 0.98
+
+
+@pytest.mark.parametrize("mode", ["auto", "tiled"])
+def test_textured_frame_with_splats_matches_plain_chain(dev, mode):
+    """The deferred-texture megakernel path through render_frame_fn: K1's
+    textured variant, the replay and the splat ('auto': K2, sort, K3;
+    'tiled': K5) against the plain chain, with the image bounds."""
+    w, h = 64, 48
+    baked = _baked(dev, "textured_room", w, h)
+    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig(defer_textures=True, splat_mode=mode))
+    imgs = []
+    cuda.reset_launch_counts()
+    for plain in (False, True):
+        ch, _, _ = render_frame_fn(replace(baked, plain=plain), baked.data.camera,
+                                   AccumState.create(h, w, dev), BMFRState.create(h, w, dev),
+                                   0xDEADBEEF, 0x1337, False, cfg)
+        imgs.append(ch["BDPT"])
+    want = {"frame_textured": 1, "frame": 0, "shaded": 0, "occluded": 0,
+            "compact": int(mode == "auto"), "splat_tile": int(mode == "auto"),
+            "splat_rows": int(mode == "tiled")}
+    assert {k: cuda.LAUNCHES[k] for k in want} == want
+    d = (imgs[0] - imgs[1]).abs()
+    assert (d.amax(-1) > 1e-3).float().mean() <= 0.02
+    assert d.mean() < 5e-3
+    assert abs(imgs[0][..., :3].mean() - imgs[1][..., :3].mean()) < 2e-3

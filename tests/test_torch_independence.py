@@ -1,8 +1,10 @@
 """The port imports nothing of JAX and nothing of the JAX package: neither
 in its source (a static check of every import statement) nor at run time
 (a subprocess that refuses those imports, and PIL, which the machine with
-the card lacks, renders the Cornell box through both paths and pink_room
-with its procedural textures)."""
+the card lacks, renders the Cornell box through both paths, pink_room with
+its procedural textures and the textured room through the deferred-texture
+megakernel with both splat kernels' plain versions, and runs the fused
+subpath builder)."""
 import ast
 import os
 import subprocess
@@ -71,6 +73,22 @@ room = Scene.from_built(pink_room(asset_dir=""), aspect=1.6).bake(device="cpu")
 out = Renderer(room, RenderConfig(width=16, height=10)).render_frame()
 assert tuple(out.shape) == (10, 16, 4) and bool(out.isfinite().all())
 print("pink_room", "ok")
+import torch
+from fyp_bidirectionalpathtracer_tpu_torch.accel.subpath import build_subpath
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import textured_room
+tex = Scene.from_built(textured_room(), aspect=1.0).bake(device="cpu")
+for mode in ("auto", "tiled"):
+    cfg = RenderConfig(width=16, height=16, bdpt=BDPTConfig(defer_textures=True, splat_mode=mode))
+    out = Renderer(tex, cfg).render_frame()
+    assert tuple(out.shape) == (16, 16, 4) and bool(out.isfinite().all()), mode
+print("textured", "ok")
+n = 64
+verts, final = build_subpath(baked.tri_pack, baked.n_tris, torch.full((n, 3), 0.5),
+                             torch.nn.functional.normalize(torch.randn(n, 3), dim=-1),
+                             torch.ones(n, 3), torch.arange(n), torch.zeros(n, dtype=torch.bool),
+                             1e-3, 2, 0, False)
+assert len(verts) == 2 and bool(verts[0]["hit"].any()) and final["seed"].shape == (n,)
+print("subpath", "ok")
 assert not [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
 """
 
@@ -81,4 +99,5 @@ def test_port_renders_with_jax_imports_refused():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["on", "ok", "off", "ok", "pink_room", "ok"], proc.stdout
+    assert proc.stdout.split() == ["on", "ok", "off", "ok", "pink_room", "ok", "textured", "ok",
+                                   "subpath", "ok"], proc.stdout

@@ -162,13 +162,16 @@ def _base_textured():
 
 
 @pytest.mark.parametrize("cfg,built", [
-    (RenderConfig(width=8, height=8, bdpt=BDPTConfig(defer_textures=True)), _base_textured),
+    (RenderConfig(width=8, height=8, bdpt=BDPTConfig(defer_textures=True,
+                                                     splat_mode="tiled_sortonly")),
+     _base_textured),
     (RenderConfig(width=8, height=8, bmfr=BMFRConfig(enabled=True)), cornell_box),
     (RenderConfig(width=8, height=8, tone_map_operator="aces"), cornell_box),
 ], ids=["defer-textures", "bmfr", "tonemap"])
 def test_pipeline_refuses_unported_options(cfg, built):
-    """defer-textures: a scene JAX sends to its deferred-texture megakernel
-    raises rather than quietly taking the wavefront (ROADMAP item 11)."""
+    """defer-textures: the deferred-texture megakernel runs, and its splat
+    in the timing-attribution mode `tiled_sortonly` raises and names the
+    ROADMAP's 'not ported' list rather than returning zeros."""
     r = Renderer(Scene.from_built(built(), aspect=1.0).bake(device="cpu"), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render_frame()
