@@ -4,7 +4,8 @@
 
 Builds every hand-written kernel from `fyp_bidirectionalpathtracer_tpu_
 torch/csrc/` (one nvcc process a source, in parallel): K1 (frame
-megakernel, and its textured variant `frame_textured`), K2 (splat
+megakernel, and its textured variant `frame_textured`, whose ray queries
+walk the BVH of `csrc/bvh.cuh`), K2 (splat
 compaction), K3 (splat tile reduction), K5 (`splat_rows`, the tiled splat
 reduction of unpacked rows), the dense K4 intersectors (closest, shaded,
 any-hit), the BVH kernels that replace the cluster and HBM tiers K4f-K4j
@@ -30,6 +31,15 @@ just after; two renders of one frame must be bit-identical, the wavefront
 frames must agree with their plain chains (Cornell also with the
 megakernel frame, the textured room with both of its megakernel frames),
 and small renders must match the checked-in goldens.
+
+K1's bound counts the ray queries of the rays its plain version traces as
+the kernel runs them: the textured variant's walk (node slab tests and
+pair tests by stage, from the BVH kernels' counting walk), the untextured
+dense loops' pair tests; the other count is printed beside it.  K3 and K5
+are printed beside `index_add_` of the same rows, each timed as eager
+calls (`ms`, `library_ms`, as every kernel is) and as CUDA-graph replays
+(`graph_ms`, `library_graph_ms`), which leave out the host's cost of each
+call.
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
@@ -87,6 +97,22 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters: int = 20) -> float:
+    """Mean ms per call on the device of `iters` calls captured in one CUDA
+    graph and replayed: for kernels of ~20 us, which eager calls leave
+    waiting on the host's cost of each call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, 5) / iters
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -277,17 +303,28 @@ def main() -> int:
         raise AssertionError("K3 counts differ from its plain version")
     torch.testing.assert_close(out_k[:, :3], out_p[:, :3], rtol=1e-5, atol=1e-6)
     k3_err = float((out_k - out_p).abs().max())
+    # K3, K5 and their index_add_ yardsticks: `ms` and `library_ms` of eager
+    # calls, as every kernel's; `graph_ms` and `library_graph_ms` of CUDA-graph
+    # replays of 20 calls, device time without the host's cost of each call
     k3_ms = time_ms(lambda: splat_tile.splat_reduce(ls, p8, n_pix), 20)
+    k3_graph = time_graph_ms(lambda: splat_tile.splat_reduce(ls, p8, n_pix))
     k3_plain = time_ms(lambda: splat_tile.reduce_sorted_plain(ls, p8, n_pix), 5)
     rows4 = torch.cat([torch.stack(splat_tile.unpack_rgb8e(p8), 1),
                        torch.ones((n_live, 1), device=dev)], 1)
     idx = ls.long()
-    k3_lib = time_ms(lambda: torch.zeros((n_pix, 4), device=dev).index_add_(0, idx, rows4), 20)
+
+    def k3_lib_call():
+        return torch.zeros((n_pix, 4), device=dev).index_add_(0, idx, rows4)
+
+    k3_lib, k3_lib_graph = time_ms(k3_lib_call, 20), time_graph_ms(k3_lib_call)
     log(f"K3 reduction M={n_live}: counts equal, rgb max |err| {k3_err:.3e} "
-        f"(rtol 1e-5, atol 1e-6); kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, "
-        f"index_add_ {k3_lib:.4f} ms")
-    kernels["splat_tile"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
-                                 library_ms=k3_lib,
+        f"(rtol 1e-5, atol 1e-6); kernel {k3_ms:.4f} ms (graph {k3_graph:.4f} ms), "
+        f"plain {k3_plain:.4f} ms; beside index_add_ of the same rows {k3_lib:.4f} ms "
+        f"(graph {k3_lib_graph:.4f} ms): K3 takes {k3_ms / k3_lib:.3f}x its time "
+        f"(graph {k3_graph / k3_lib_graph:.3f}x)")
+    kernels["splat_tile"] = dict(max_abs_err=k3_err, ms=k3_ms, graph_ms=k3_graph,
+                                 plain_ms=k3_plain, library_ms=k3_lib,
+                                 library_graph_ms=k3_lib_graph,
                                  **bound(8.0 * n_live + 16.0 * n_pix, 0.0))
 
     # ---- phase 3b: K5 on all U sorted updates (the 'tiled' modes) ---------
@@ -312,7 +349,10 @@ def main() -> int:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
         err = float((got - want).abs().max())
         bit_eq = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        if not bit_eq:
+            raise AssertionError(f"K5 ({label}) is not bit-equal to its plain version")
         ms = time_ms(lambda: splat_tile.splat_reduce_rows(ks5, vals, n_pix), 20)
+        graph_ms = time_graph_ms(lambda: splat_tile.splat_reduce_rows(ks5, vals, n_pix))
         plain_ms = time_ms(lambda: splat_tile.reduce_rows_plain(ks5, vals, n_pix), 3)
         # one PyTorch call for the same sums: index_add_ of the live rows
         # (the sorted prefix of n_live keys below n_pix) into the pixels
@@ -321,19 +361,24 @@ def main() -> int:
             src = torch.cat([src, torch.ones((n_live, 1), device=dev)], 1)
         src = src.contiguous()
         idx5 = ks5[:n_live].long()
-        lib_ms = time_ms(lambda: torch.zeros((n_pix, 4), device=dev).index_add_(
-            0, idx5, src), 20)
+
+        def lib_call():
+            return torch.zeros((n_pix, 4), device=dev).index_add_(0, idx5, src)
+
+        lib_ms, lib_graph_ms = time_ms(lib_call, 20), time_graph_ms(lib_call)
         # bytes: the live keys and value rows read once (the dropped updates
         # sort past the last run and are never read), [n_pix, 4] float32
         # written
         bd = bound((4.0 + vals.element_size() * vals.shape[0]) * n_live + 16.0 * n_pix, 0.0)
-        k5[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        k5[label] = dict(max_abs_err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_graph_ms=lib_graph_ms, **bd)
         log(f"K5 rows {label} U={u} ({n_live} live): counts exact, max |err| {err:.3e} "
-            f"(rtol 1e-6), bit-equal {bit_eq}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_add_ of the live rows {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']})")
+            f"(rtol 1e-6), bit-equal {bit_eq}; kernel {ms:.4f} ms (graph {graph_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, index_add_ of the live rows {lib_ms:.4f} ms (graph "
+            f"{lib_graph_ms:.4f} ms), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     kernels["splat_rows"] = dict(k5["f32 count"], variants={
-        k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        k: {f: v[f] for f in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+                              "bound_ms", "max_abs_err")}
         for k, v in k5.items()})
     # the whole splat of the estimator-2 updates (unpacked rows, count
     # alpha) by mode: exact float32 rows through sort + K5 against the rgb8e
@@ -381,7 +426,7 @@ def main() -> int:
         baked = scene(name, w, h)
         args = frame_mod.frame_args(baked, w, h, BDPT_FRAME_INIT, jitter, cfg_for(w, h),
                                     gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=True)
-        ko = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack)
+        ko = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes)
         po = frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
         torch.cuda.synchronize()
         d_gb = (ko.gbuf - po.gbuf).abs().max(0).values
@@ -404,28 +449,42 @@ def main() -> int:
             raise AssertionError(f"K1 differs from its plain version on {name} {w}x{h}")
     # `args` and `baked` are the 1280x720 Cornell frame's now
     cornell = baked
-    k1_ms = time_ms(lambda: frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack), 10)
+    k1_ms = time_ms(lambda: frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack,
+                                                   baked.bvh_nodes), 10)
     k1_plain = time_ms(lambda: frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack),
                        1, warmup=1)
     log(f"K1 alone at {WIDTH}x{HEIGHT} Cornell: kernel {k1_ms:.4f} ms, plain {k1_plain:.2f} ms")
     # bound: bytes: the four output rows plus 20 G-buffer rows (float32) and
-    # two int32 splat rows a depth; operations: the pair tests of the rays
-    # the plain frame traces (those the kernel traces), by the stage each
-    # pair reaches; the shading arithmetic is left out, so the bound is low
-    def frame_flops(fargs, bk) -> int:
-        """The pair-test operations of the rays frame_plain traces (those
-        the kernel traces), by the stage each pair reaches."""
-        total = 0
+    # two int32 splat rows a depth; operations: the ray queries of the rays
+    # the plain frame traces (those the kernel traces), as the kernel runs
+    # them: the untextured instantiations' dense loops by the stage each
+    # pair reaches, the textured ones' BVH walks as the BVH kernels' bound
+    # counts them (each node's slab test and each pair test by stage); the
+    # other count is printed beside it.  The shading arithmetic is left
+    # out, so the bound is low.
+    def frame_flops(fargs, bk):
+        """(dense pair-test operations, walk operations, walk counts [node
+        slab tests, pair tests by stage]) of the rays frame_plain traces."""
+        dense, walk = 0, [0, 0, 0, 0]
         closest_rows, any_hit_rows = frame_mod.closest_rows, frame_mod.any_hit_rows
 
+        def count_walk(o, d, tmin, tmax, mode):
+            c = cluster.bvh_walk_counts(bk.tri_pack, bk.n_tris, bk.bvh_nodes,
+                                        torch.stack(o, -1), torch.stack(d, -1), tmin, tmax,
+                                        mode)
+            for k, v in enumerate(c.to(torch.int64).sum(1).tolist()):
+                walk[k] += v
+
         def counted_closest(tris, n_tris, o, d, tmin, tmax, cull_backface):
-            nonlocal total
-            total += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, cull_backface, True)
+            nonlocal dense
+            dense += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, cull_backface, True)
+            count_walk(o, d, tmin, tmax, "closest_cull" if cull_backface else "closest")
             return closest_rows(tris, n_tris, o, d, tmin, tmax, cull_backface)
 
         def counted_any_hit(tris, n_tris, o, d, tmin, tmax):
-            nonlocal total
-            total += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, False, False)
+            nonlocal dense
+            dense += pair_flops(isect, tris[:n_tris], o, d, tmin, tmax, False, False)
+            count_walk(o, d, tmin, tmax, "any")
             return any_hit_rows(tris, n_tris, o, d, tmin, tmax)
 
         frame_mod.closest_rows, frame_mod.any_hit_rows = counted_closest, counted_any_hit
@@ -433,16 +492,26 @@ def main() -> int:
             frame_mod.frame_plain(fargs, bk.light_rows, bk.tri_pack)
         finally:
             frame_mod.closest_rows, frame_mod.any_hit_rows = closest_rows, any_hit_rows
-        return total
+        s1, s2, s3 = STAGE_FLOPS
+        return dense, SLAB_FLOPS * walk[0] + s1 * walk[1] + s2 * walk[2] + s3 * walk[3], walk
 
-    k1_flops = frame_flops(args, baked)
-    k1_bytes = n_pix * 4.0 * (4 + 20 + 2 * DEPTH)
-    log(f"K1 bound: {k1_bytes:.0f} bytes, {k1_flops} pair-test operations")
+    def frame_bound(n_bytes, fargs, bk, label):
+        dense, walk_ops, walk = frame_flops(fargs, bk)
+        dense_bd, walk_bd = bound(n_bytes, float(dense)), bound(n_bytes, float(walk_ops))
+        bd = walk_bd if fargs.textured else dense_bd
+        log(f"{label} bound: {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {n_bytes:.0f} bytes "
+            f"{bd['bytes_ms']:.4f} ms); the dense loops: {dense} pair-test operations, bound "
+            f"{dense_bd['bound_ms']:.4f} ms; the walk: {walk[0]} slab tests, pairs by stage "
+            f"{walk[1:]}, {walk_ops} operations, bound {walk_bd['bound_ms']:.4f} ms; the kernel "
+            f"runs the {'walk' if fargs.textured else 'dense loops'}")
+        return dict(bd, walk_counts=walk, walk_flops=walk_ops, dense_pair_flops=dense,
+                    walk_bound_ms=walk_bd["bound_ms"], dense_bound_ms=dense_bd["bound_ms"])
+
+    k1_bd = frame_bound(n_pix * 4.0 * (4 + 20 + 2 * DEPTH), args, baked, "K1")
     # max_abs_err includes the edge-tie pixels the statistical bounds admit;
     # max_frac_over_1e-3 is the worst share of pixels off by more than 1e-3
     kernels["frame"] = dict(max_abs_err=k1_err, max_frac_over_1e_3=k1_frac,
-                            ms=k1_ms, plain_ms=k1_plain, library_ms=None,
-                            **bound(k1_bytes, k1_flops))
+                            ms=k1_ms, plain_ms=k1_plain, library_ms=None, **k1_bd)
 
     # the whole frame after the splats: K1 + K2 + sort + K3 against the
     # plain chain, through `render_frame_megakernel`
@@ -471,7 +540,7 @@ def main() -> int:
         targs = frame_mod.frame_args(bk, w, h, BDPT_FRAME_INIT, jitter,
                                      cfg_for(w, h, defer_textures=True),
                                      gbuf_frame=GBUF_FRAME_INIT)
-        ko = frame_mod.frame_kernel(targs, bk.light_rows, bk.tri_pack)
+        ko = frame_mod.frame_kernel(targs, bk.light_rows, bk.tri_pack, bk.bvh_nodes)
         po = frame_mod.frame_plain(targs, bk.light_rows, bk.tri_pack)
         torch.cuda.synchronize()
         fr = {name: rows_off(getattr(ko, name), getattr(po, name))
@@ -501,17 +570,16 @@ def main() -> int:
             raise AssertionError(f"K1's textured variant differs from its plain version at "
                                  f"{w}x{h}")
     tex_main = bk
-    tk_ms = time_ms(lambda: frame_mod.frame_kernel(targs, bk.light_rows, bk.tri_pack), 10)
+    tk_ms = time_ms(lambda: frame_mod.frame_kernel(targs, bk.light_rows, bk.tri_pack,
+                                                   bk.bvh_nodes), 10)
     tk_plain = time_ms(lambda: frame_mod.frame_plain(targs, bk.light_rows, bk.tri_pack),
                        1, warmup=1)
-    tk_flops = frame_flops(targs, bk)
     # bytes: the G-buffer, record, estimator-part and splat rows written
     tk_rows = (frame_mod.N_GBUF_ROWS + 2 * frame_mod.N_REC_ROWS * DEPTH + 1 + 6 * targs.n_e1
                + 4 * targs.n_pairs + 5 * DEPTH)
-    tk_bd = bound(4.0 * tk_rows * n_pix, float(tk_flops))
-    log(f"K1 textured alone at {WIDTH}x{HEIGHT}: kernel {tk_ms:.4f} ms, plain {tk_plain:.2f} ms, "
-        f"bound {tk_bd['bound_ms']:.4f} ms ({tk_bd['bound_by']}; {tk_rows} rows written, "
-        f"{tk_flops} pair-test operations)")
+    log(f"K1 textured alone at {WIDTH}x{HEIGHT}: kernel {tk_ms:.4f} ms, plain {tk_plain:.2f} ms "
+        f"({tk_rows} rows written)")
+    tk_bd = frame_bound(4.0 * tk_rows * n_pix, targs, bk, "K1 textured")
     kernels["frame_textured"] = dict(max_abs_err=tex_err, max_frac_over_1e_3=tex_frac,
                                      ms=tk_ms, plain_ms=tk_plain, library_ms=None, **tk_bd)
     # the whole deferred-texture frame: K1 textured, the replay and the
@@ -1117,7 +1185,7 @@ def main() -> int:
         "bvh_shaded": ("bvh.cu", cl + ":799"),
         "bvh_closest": ("bvh.cu", cl + ":893"),
         "bvh_occluded": ("bvh.cu", cl + ":502"),
-        "frame_textured": ("frame.cu",
+        "frame_textured": ("frame_textured.cu",
                            "fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py:550"),
         "splat_rows": ("splat_rows.cu", "fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py:44"),
         "subpath": ("subpath.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_subpath.py:191"),

@@ -80,11 +80,16 @@ def pack_bvh_nodes(bvh) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(table, np.float32))
 
 
-def _check(tri_pack, n_tris, nodes, origin, direction):
-    check_rays(tri_pack, n_tris, origin, direction)
-    cuda.check_tensor("nodes", nodes, torch.float32, origin.device)
+def check_nodes(nodes, device) -> None:
+    """The node table of `pack_bvh_nodes`: float32 [N >= 1, NODE_COLS] on `device`."""
+    cuda.check_tensor("nodes", nodes, torch.float32, device)
     if nodes.dim() != 2 or nodes.shape[1] != NODE_COLS or nodes.shape[0] < 1:
         raise ValueError(f"nodes must be [N >= 1, {NODE_COLS}], got {tuple(nodes.shape)}")
+
+
+def _check(tri_pack, n_tris, nodes, origin, direction):
+    check_rays(tri_pack, n_tris, origin, direction)
+    check_nodes(nodes, origin.device)
 
 
 # ------------------------------------------------------------ closest hit

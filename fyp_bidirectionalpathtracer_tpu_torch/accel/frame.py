@@ -8,7 +8,10 @@ primary hit of lightProbeGBuffer.rt.hlsl) in one launch: primary ray and
 light-tracing splat rows, thin lens.
 
 K1 replaces the TPU kernel `accel/pallas_frame.py:frame_kernel`.  Its CUDA
-source is `csrc/frame.cu` (one thread per pixel; see the note there).
+sources are `csrc/frame.cu` (one thread per pixel; see the note there) and
+`csrc/frame_textured.cu`; the textured instantiations run every ray query
+through the BVH walk of `csrc/bvh.cuh`, the untextured ones the dense
+pair loop.
 `frame_plain` below is the same program vectorised over [N] pixel tensors,
 a literal translation of the JAX kernel; closest hit is the [N, T]
 Baldwin-Weber test of `accel/intersect.py`, where the lowest triangle index
@@ -59,11 +62,13 @@ from ..core.vecmath import (
 from ..ops.splat_tile import pack_rgb8e
 from ..ops.texture import sample_or_constant_fm
 from ..scene.types import LIGHT_DIRECTIONAL, SHADING_METAL_ROUGH
+from .cluster import check_nodes
 from .intersect import any_hit_rows, closest_rows, winner_uv
 
 _BIG = 1e30
 N_GBUF_ROWS = 20
 MAX_TRIS = 2048
+BW_COLS = 12              # csrc/intersect.cuh kBwCols: K1's shared triangle rows
 MAX_DEPTH = 8
 MAX_TEXTURED_DEPTH = 4   # the deferred row budget grows ~O(d^2) (JAX gate)
 N_REC_ROWS = 7           # a vertex record: u, v, base slot, is_spec, base rgb
@@ -934,10 +939,17 @@ def _check_args(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor):
                          f"weights and unpacked splat rows")
 
 
-def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> FrameOut:
+def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor,
+                 nodes: torch.Tensor) -> FrameOut:
     """K1 wrapper: frame_plain for CPU tensors, the CUDA kernel otherwise
-    (its textured variant for `args.textured`)."""
+    (its textured variant for `args.textured`).  `nodes` is the bake's BVH
+    node table (`BakedScene.bvh_nodes`), which every ray query of the
+    textured variant walks, checked and passed only there (the untextured
+    one loops over every triangle and does not read it); the plain version
+    tests every triangle and finds the same hits."""
     _check_args(args, lights, tris)
+    if args.textured:
+        check_nodes(nodes, lights.device)
     if tris.device.type == "cpu":
         return frame_plain(args, lights, tris)
     n, d2 = args.n_pix, args.n_splat_depths
@@ -956,15 +968,14 @@ def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> F
                         rows(4 * args.n_pairs))
         cuda.check_launch("frame_textured", lib.bdpt_frame_textured_launch(
             ctypes.byref(params), args.d_max, cuda.ptr(lights), cuda.ptr(tris),
-            cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(rgba), cuda.ptr(vrec), cuda.ptr(e1),
-            cuda.ptr(e3), cuda.stream(dev)))
+            cuda.ptr(nodes), nodes.shape[0], cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(rgba),
+            cuda.ptr(vrec), cuda.ptr(e1), cuda.ptr(e3), cuda.stream(dev)))
         return FrameOut(res=None, gbuf=gbuf, splat_pix=pix, splat_pay=None, splat_rgba=rgba,
                         vrec=vrec, e1_parts=e1, e3_parts=e3)
     res = rows(4)
     cuda.check_launch("frame", lib.bdpt_frame_launch(
-        ctypes.byref(params), args.d_max, cuda.ptr(lights), cuda.ptr(tris),
-        cuda.ptr(res), cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(pay),
-        cuda.ptr(rgba), cuda.stream(dev)))
+        ctypes.byref(params), args.d_max, cuda.ptr(lights), cuda.ptr(tris), cuda.ptr(res),
+        cuda.ptr(gbuf), cuda.ptr(pix), cuda.ptr(pay), cuda.ptr(rgba), cuda.stream(dev)))
     return FrameOut(res=res, gbuf=gbuf, splat_pix=pix, splat_pay=pay,
                     splat_rgba=rgba)
 
@@ -1112,7 +1123,8 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
         mode == "tiled_rgb8e" or (mode == "auto" and baked.device.type == "cuda"))
     args = frame_args(baked, width, height, bdpt_frame, pixel_jitter, cfg,
                       gbuf_frame=gbuf_frame, splat_rgb8e=packed)
-    out = (frame_plain if baked.plain else frame_kernel)(args, baked.light_rows, baked.tri_pack)
+    out = (frame_plain(args, baked.light_rows, baked.tri_pack) if baked.plain
+           else frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes))
     n_pix = args.n_pix
 
     def img(rows):

@@ -43,7 +43,8 @@ __global__ void __launch_bounds__(kBvhThreads)
   if (i >= n) return;
   const Ray r = load_ray(rows, (size_t)n, (size_t)i);
   float t;
-  const int id = bvh_closest_hit<false>(tris, nodes, r.o, r.d, r.tmin, r.tmax, kCull, t, nullptr);
+  const int id = bvh_closest_hit<false, kPackCols>(tris, nodes, r.o, r.d, r.tmin, r.tmax, kCull,
+                                                   t, nullptr);
   float u = 0.0f, v = 0.0f;
   if (id >= 0) hit_uv<true>(tris + (size_t)id * kPackCols, r.o, r.d, t, u, v);
   t_out[i] = t;
@@ -61,7 +62,8 @@ __global__ void __launch_bounds__(kBvhThreads)
   const size_t N = (size_t)n;
   const Ray r = load_ray(rows, N, (size_t)i);
   float t;
-  const int id = bvh_closest_hit<false>(tris, nodes, r.o, r.d, r.tmin, r.tmax, kCull, t, nullptr);
+  const int id = bvh_closest_hit<false, kPackCols>(tris, nodes, r.o, r.d, r.tmin, r.tmax, kCull,
+                                                   t, nullptr);
   float f[kOutW];
   hit_fields(tris, id, t, r.o, r.d, f);
 #pragma unroll
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(kBvhThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(rows, (size_t)n, (size_t)i);
-  out[i] = bvh_occluded<false>(tris, nodes, r.o, r.d, r.tmin, r.tmax, nullptr);
+  out[i] = bvh_occluded<false, kPackCols>(tris, nodes, r.o, r.d, r.tmin, r.tmax, nullptr);
 }
 
 // The counting instantiation: per ray, the WalkCounts of the closest walk
@@ -89,9 +91,10 @@ __global__ void __launch_bounds__(kBvhThreads)
   WalkCounts c = {0, 0, 0, 0};
   float t;
   if (mode == 2)
-    bvh_occluded<true>(tris, nodes, r.o, r.d, r.tmin, r.tmax, &c);
+    bvh_occluded<true, kPackCols>(tris, nodes, r.o, r.d, r.tmin, r.tmax, &c);
   else
-    bvh_closest_hit<true>(tris, nodes, r.o, r.d, r.tmin, r.tmax, mode == 1, t, &c);
+    bvh_closest_hit<true, kPackCols>(tris, nodes, r.o, r.d, r.tmin, r.tmax, mode == 1, t,
+                                     &c);
   out[i] = c.nodes;
   out[n + i] = c.s1;
   out[2 * n + i] = c.s2;

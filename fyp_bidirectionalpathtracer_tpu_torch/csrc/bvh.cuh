@@ -1,7 +1,12 @@
 // The per-ray walk of the bake's threaded BVH: the device code of the BVH
 // kernels (bvh.cu), which replace the TPU's cluster and HBM intersector
-// tiers K4f-K4j.  Plain C++ apart from BDPT_DEV and the rounding
+// tiers K4f-K4j, and of every ray query of the frame megakernel K1
+// (frame_program.cuh).  Plain C++ apart from BDPT_DEV and the rounding
 // intrinsics (common.cuh), so it also compiles for the CPU.
+//
+// The Baldwin-Weber row of triangle i is read at tris + i * kStride: the
+// BVH kernels pass the [T_pad, 48] pack (kStride = kPackCols) from global
+// memory, K1 its 12-float rows in shared memory (kStride = kBwCols).
 //
 // The walk is JAX `intersect_bvh` (accel/traverse.py:207-286) with one
 // thread a ray in place of the lockstep vector loop: a cursor steps through
@@ -69,10 +74,10 @@ BDPT_DEV bool ray_live(V3 o, V3 d, float tmin, float tmax) {
 
 BDPT_DEV V3 inverse(V3 d) { return mk3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z); }
 
-// Closest hit in (tmin, tmax) over the pack `tris` (kPackCols floats a
+// Closest hit in (tmin, tmax) over the rows `tris` (kStride floats a
 // triangle, the Baldwin-Weber row first): the lowest (t, id).  Returns the
 // id, or -1 with t_best = tmax.
-template <bool kCount>
+template <bool kCount, int kStride>
 BDPT_DEV int bvh_closest_hit(const float* __restrict__ tris, const float* __restrict__ nodes,
                              V3 o, V3 d, float tmin, float tmax, bool cull_backface,
                              float& t_best, WalkCounts* c) {
@@ -95,7 +100,7 @@ BDPT_DEV int bvh_closest_hit(const float* __restrict__ tris, const float* __rest
       continue;
     }
     for (int i = leaf >> 3, end = (leaf >> 3) + (leaf & 7); i < end; ++i) {
-      const float* r = tris + (size_t)i * kPackCols;
+      const float* r = tris + (size_t)i * kStride;
       if (kCount) c->s1++;
       const float ndir = dot3_<true>(r[0], r[1], r[2], d.x, d.y, d.z);
       const bool dir_ok = cull_backface ? (ndir < -1e-9f) : (fabsf(ndir) > 1e-9f);
@@ -117,7 +122,7 @@ BDPT_DEV int bvh_closest_hit(const float* __restrict__ tris, const float* __rest
 }
 
 // Any hit in (tmin, tmax), no culling; stops at the first valid pair.
-template <bool kCount>
+template <bool kCount, int kStride>
 BDPT_DEV bool bvh_occluded(const float* __restrict__ tris, const float* __restrict__ nodes,
                            V3 o, V3 d, float tmin, float tmax, WalkCounts* c) {
   if (!ray_live(o, d, tmin, tmax)) return false;
@@ -137,7 +142,7 @@ BDPT_DEV bool bvh_occluded(const float* __restrict__ tris, const float* __restri
       continue;
     }
     for (int i = leaf >> 3, end = (leaf >> 3) + (leaf & 7); i < end; ++i) {
-      const float* r = tris + (size_t)i * kPackCols;
+      const float* r = tris + (size_t)i * kStride;
       if (kCount) c->s1++;
       const float ndir = dot3_<true>(r[0], r[1], r[2], d.x, d.y, d.z);
       if (!(fabsf(ndir) > 1e-9f)) continue;

@@ -1,0 +1,50 @@
+// The launch of kernel K1 (frame.cu has the design): the kernel template,
+// which stages the triangle rows (and, for the walk, the node table) in
+// dynamic shared memory and runs frame_pixel, and its launch with the
+// shared-memory opt-in.  frame.cu instantiates the untextured program and
+// frame_textured.cu the textured one.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "frame_program.cuh"
+
+namespace bdpt {
+
+constexpr int kFrameThreads = 128;
+
+template <int D, bool Textured>
+__global__ void __launch_bounds__(kFrameThreads)
+    frame_kernel(FrameParams p, const float* __restrict__ lights,
+                 const float* __restrict__ tris, const float* __restrict__ nodes, int n_nodes,
+                 FrameOutPtrs out) {
+  extern __shared__ float smem[];  // the rows [n_tris, kBwCols], then the nodes
+  const int n_bw = p.n_tris * kBwCols;
+  float* nodes_smem = smem + n_bw;
+  for (int i = threadIdx.x; i < n_bw; i += blockDim.x)
+    smem[i] = tris[(i / kBwCols) * kPackCols + (i % kBwCols)];
+  if constexpr (Textured)  // the walk's node table
+    for (int i = threadIdx.x; i < n_nodes * kNodeCols; i += blockDim.x) nodes_smem[i] = nodes[i];
+  __syncthreads();
+  const int lin = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lin >= p.width * p.height) return;
+  frame_pixel<D, Textured>(p, lights, smem, nodes_smem, tris, lin, out);
+}
+
+// The untextured instantiations run no walk: they pass no nodes (n_nodes 0).
+template <int D, bool Textured = false>
+int launch_frame(const FrameParams& p, const float* lights, const float* tris,
+                 const float* nodes, int n_nodes, const FrameOutPtrs& out,
+                 cudaStream_t stream) {
+  const int n = p.width * p.height;
+  const size_t smem = ((size_t)p.n_tris * kBwCols + (size_t)n_nodes * kNodeCols) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      frame_kernel<D, Textured>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kFrameThreads - 1) / kFrameThreads);
+  frame_kernel<D, Textured><<<grid, kFrameThreads, smem, stream>>>(p, lights, tris, nodes,
+                                                                   n_nodes, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bdpt

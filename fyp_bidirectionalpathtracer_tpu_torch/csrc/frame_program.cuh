@@ -14,9 +14,23 @@
 // each vertex's texture record and each raw estimator part to its
 // field-major output row as soon as it exists, so no record stays in a
 // register; accel/frame.py:textured_replay applies the texel ratios.
+//
+// The ray queries (the primary hit, the subpath extensions, the NEE,
+// connection and light-to-camera shadow rays) go through closest() and
+// any_hit() below over the 12-float Baldwin-Weber rows `bw`, which the
+// kernel (frame_launch.cuh) stages in shared memory.  The textured
+// instantiations walk the bake's BVH (bvh.cuh) over the node table
+// `nodes`, staged beside the rows; the walk's pair test is exact (rounded
+// single operations), so for a given ray K1 finds the hit its plain
+// version finds, bit for bit, and frame_textured.cu builds them without
+// FMA contraction, so their rays are the plain version's too but for the
+// transcendentals.  The untextured instantiations (frame.cu) keep the
+// dense pair loop over every triangle, FMA-contracted like the rest of
+// their arithmetic: on Cornell's 34 triangles it measured faster than the
+// walk (PERF.md).
 #pragma once
 
-#include "intersect.cuh"
+#include "bvh.cuh"
 
 namespace bdpt {
 
@@ -40,6 +54,27 @@ struct FrameParams {  // mirrored by accel/frame.py:_FrameParams
   float min_t;
   float clamp_upper;
 };
+
+// Closest hit and any hit of a ray query: the BVH walk when kWalk (the
+// textured instantiations), else the dense loop over the p.n_tris rows.
+template <bool kWalk>
+BDPT_DEV int closest(const float* bw, const float* nodes, int n_tris, V3 o, V3 d, float tmin,
+                     float tmax, bool cull_backface, float& t) {
+  if constexpr (kWalk)
+    return bvh_closest_hit<false, kBwCols>(bw, nodes, o, d, tmin, tmax, cull_backface, t,
+                                           nullptr);
+  else
+    return closest_hit<false>(bw, n_tris, o, d, tmin, tmax, cull_backface, t);
+}
+
+template <bool kWalk>
+BDPT_DEV bool any_hit(const float* bw, const float* nodes, int n_tris, V3 o, V3 d, float tmin,
+                      float tmax) {
+  if constexpr (kWalk)
+    return bvh_occluded<false, kBwCols>(bw, nodes, o, d, tmin, tmax, nullptr);
+  else
+    return occluded<false>(bw, n_tris, o, d, tmin, tmax);
+}
 
 struct FrameOutPtrs {
   float* res;         // [4, N] (not textured)
@@ -387,11 +422,12 @@ struct PathState {
 // passes.bdpt.shoot_ray: extend one bounce; a miss zeroes the colour and
 // keeps the stale vertex; the seed advances only on a hit (and never
 // under faithful_rng)
-BDPT_DEV void shoot(PathState& s, const FrameParams& p, const float* bw,
+template <bool kWalk>
+BDPT_DEV void shoot(PathState& s, const FrameParams& p, const float* bw, const float* nodes,
                     const float* __restrict__ tris) {
   if (s.term) return;
   float t;
-  int id = closest_hit<false>(bw, p.n_tris, s.o, s.d, p.min_t, kBig, false, t);
+  int id = closest<kWalk>(bw, nodes, p.n_tris, s.o, s.d, p.min_t, kBig, false, t);
   if (id < 0) {
     s.vtx.color = mk3(0.0f, 0.0f, 0.0f);
     s.term = true;
@@ -426,8 +462,8 @@ BDPT_DEV int n_e3_pairs(bool enable_e3) {
 // ---------------------------------------------------------------- program
 template <int D, bool Textured>
 BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights,
-                          const float* bw, const float* __restrict__ tris, int lin,
-                          const FrameOutPtrs& out) {
+                          const float* bw, const float* nodes, const float* __restrict__ tris,
+                          int lin, const FrameOutPtrs& out) {
   const float* sc = p.scal;
   const int W = p.width, H = p.height;
   const size_t N = (size_t)W * (size_t)H;
@@ -468,7 +504,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     prim_dir = normed(d_raw);
   }
   float t0;
-  int id0 = closest_hit<false>(bw, p.n_tris, origin0, prim_dir, 0.0f, kBig, true, t0);
+  int id0 = closest<Textured>(bw, nodes, p.n_tris, origin0, prim_dir, 0.0f, kBig, true, t0);
   if (id0 < 0) {  // background: (env, 1), no splats
     const float bg[4] = {env.x, env.y, env.z, 1.0f};
     const float gb[20] = {0, 0, 0, 0, 0, 0, 0, 0, env.x, env.y, env.z, 1,
@@ -534,7 +570,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
 #pragma unroll
   for (int depth = 1; depth < D; ++depth) {
     bool was_active = !st.term;
-    shoot(st, p, bw, tris);
+    shoot<Textured>(st, p, bw, nodes, tris);
     cam[depth + 1] = was_active ? st.vtx : zero_vtx();
     if constexpr (Textured)
       store_rec(out.vrec, N, lin, depth, was_active ? st.rec : zero_rec(), cam[depth + 1].is_spec);
@@ -567,7 +603,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
 #pragma unroll
   for (int depth = 0; depth < D; ++depth) {
     bool was_active = !st.term;
-    shoot(st, p, bw, tris);
+    shoot<Textured>(st, p, bw, nodes, tris);
     lig[depth + 1] = was_active ? st.vtx : zero_vtx();
     take[depth + 1] = was_active ? !st.term : true;
     if constexpr (Textured)
@@ -597,7 +633,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
       }
       const Vtx& x = cam[i + 1];
       LightEval le = eval_light(lights + idx * kLightRow, x.pos);
-      bool occ = occluded<false>(bw, p.n_tris, x.pos, le.l, p.min_t, le.dist);
+      bool occ = any_hit<Textured>(bw, nodes, p.n_tris, x.pos, le.l, p.min_t, le.dist);
       if constexpr (Textured) {
         // raw parts x the camera throughput (pallas_frame.py:821-828)
         V3 difp, specp;
@@ -634,7 +670,8 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
         float length_ab = sqrtf(jmax(dot3(vec, vec), 1e-30f));
         V3 dir_ab = scale3(vec, 1.0f / length_ab);
         // interval shortened by min_t to exclude far-endpoint self-hits
-        bool occ = occluded<false>(bw, p.n_tris, cam[sx].pos, dir_ab, p.min_t, length_ab - p.min_t);
+        bool occ = any_hit<Textured>(bw, nodes, p.n_tris, cam[sx].pos, dir_ab, p.min_t,
+                                     length_ab - p.min_t);
         const int pi = pair++;
         if (occ) {
           if constexpr (Textured)
@@ -698,7 +735,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     float py = ((-d2 / d3) * 0.5f + 0.5f) * (float)H - jy;
     float rx = rintf(px), ry = rintf(py);  // half to even
     ok = ok && rx >= 0.0f && rx < (float)W && ry >= 0.0f && ry < (float)H;
-    ok = ok && !occluded<false>(bw, p.n_tris, last.pos, dir_to_cam, p.min_t, dis);
+    ok = ok && !any_hit<Textured>(bw, nodes, p.n_tris, last.pos, dir_to_cam, p.min_t, dis);
     V3 shade = zero;
     if (ok) {
       float theta1 = saturate(fabsf(dot3(dir_to_cam, cam_n)));

@@ -1,18 +1,18 @@
-// The port's one ray-triangle test and winner decode, shared by the frame
-// megakernel K1 (frame_program.cuh), the wavefront's dense intersectors K4
-// (intersect.cu) and its BVH traversal (bvh.cuh, bvh.cu).
+// The port's one ray-triangle test and winner decode, shared by the
+// wavefront's dense intersectors K4 (intersect.cu), the BVH walk (bvh.cuh)
+// of the BVH kernels (bvh.cu) and of the frame megakernel K1
+// (frame_program.cuh), and K1's hit decode.
 //
 // The test is the Baldwin-Weber form of the TPU lane kernels
 // (accel/pallas_lane.py:_pair_test): each triangle is 12 floats (n, n.v0,
 // r1, r1.v0, r2, r2.v0), the first 12 columns of the [T_pad, 48] pack
 // (accel/tri_pack.py).  Its products and sums follow the order of the plain
 // version's torch expression (accel/intersect.py:_pair_test).  With kExact
-// (the K4 kernels) each is a rounded single operation, so a kernel finds
-// the same t, u and v, bit for bit, as its plain version; K1 passes false
-// and lets the compiler contract them into FMAs, which keeps the frame
-// kernel's speed (rounding every operation made it ~10% slower) and
-// flips only edge ties, within its statistical bounds.  Each loop drops a
-// pair at its first failed test (`continue`).
+// (every pair test) each is a rounded single operation, so a kernel finds
+// the same t, u and v, bit for bit, as its plain version; K1's decode of
+// the winner's attributes passes false and lets the compiler contract
+// them into FMAs, as the rest of its shading arithmetic.  Each loop drops
+// a pair at its first failed test (`continue`).
 #pragma once
 
 #include "common.cuh"

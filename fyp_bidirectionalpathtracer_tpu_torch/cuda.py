@@ -6,8 +6,9 @@ source, all started together, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c
 
-(`subpath.cu` also with `-fmad=false`, so K6 repeats its plain version's
-float operations one for one) and linked (`nvcc -shared`) into one
+(`subpath.cu` and `frame_textured.cu` also with `-fmad=false`, so K6 and
+K1's textured instantiations repeat their plain versions' float
+operations one for one) and linked (`nvcc -shared`) into one
 library with a plain `extern "C"` interface, loaded with ctypes.  The
 library lands in `build/torch_kernels/<hash>/` at the root of the
 checkout, keyed by a hash of the sources, so a checkout builds its own
@@ -32,12 +33,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("frame.cu", "compact.cu", "splat_tile.cu", "intersect.cu", "bvh.cu",
-           "splat_rows.cu", "subpath.cu")
-HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "bvh.cuh", "subpath.cuh")
+SOURCES = ("frame.cu", "frame_textured.cu", "compact.cu", "splat_tile.cu", "intersect.cu",
+           "bvh.cu", "splat_rows.cu", "subpath.cu")
+HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "frame_launch.cuh", "bvh.cuh",
+           "subpath.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
-SOURCE_FLAGS = {"subpath.cu": ("-fmad=false",)}
+SOURCE_FLAGS = {"subpath.cu": ("-fmad=false",), "frame_textured.cu": ("-fmad=false",)}
 LIB_NAME = "libbdpt_kernels.so"
 
 LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
@@ -127,7 +129,7 @@ def build(verbose: bool = False) -> Path:
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bdpt_frame_launch.argtypes = [p, i, p, p, p, p, p, p, p, p]
-    lib.bdpt_frame_textured_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, p]
+    lib.bdpt_frame_textured_launch.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p, p]
     lib.bdpt_compact_count.argtypes = [p, i, i, p, p]
     lib.bdpt_compact_scatter.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.bdpt_splat_reduce.argtypes = [p, p, i, i, p, p]

@@ -102,7 +102,7 @@ def stage_times(renderer: Renderer) -> dict:
             scene, cfg.width, cfg.height, frame, jitter, cfg,
             gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=not textured))
         out["K1 frame_kernel" + (" (textured)" if textured else "")], fo = _timed(
-            lambda: frame_kernel(args, scene.light_rows, scene.tri_pack))
+            lambda: frame_kernel(args, scene.light_rows, scene.tri_pack, scene.bvh_nodes))
         if textured:
             out["textured_replay (taps, ratios, accumulation)"], rep = _timed(
                 lambda: textured_replay(fo, cfg.bdpt, scene.atlas))

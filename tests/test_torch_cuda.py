@@ -1,11 +1,13 @@
 """K1 (and its textured variant), K2, K3, K5, K6, the K4 intersectors and
 the BVH kernels against their plain versions on an H100, and the frames
 (Cornell, pink_room, the textured room's deferred-texture megakernel)
-against the plain chain.
+against the plain chain; K1 also at the gate's 2,048 triangles, K5 also on
+ragged inputs.
 
 Marked `cuda`: they need the card and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
+import dataclasses
 from dataclasses import replace
 
 import pytest
@@ -83,11 +85,22 @@ def test_splat_reduce_kernel(dev):
 def _baked(dev, scene, w, h):
     if scene == "pink_room":
         return Scene.from_built(pink_room(asset_dir=""), aspect=w / h).bake(device=dev)
-    if scene == "textured_room":
-        return Scene.from_built(textured_room(), aspect=w / h).bake(device=dev)
+    if scene in ("textured_room", "textured_gate_limit"):
+        built = textured_room()
+        if scene == "textured_gate_limit":  # 342 + 1280 + 320 + 106 = 2,048 triangles
+            built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
+            built.meshes.append(icosphere((0.25, 0.3, 0.3), 0.12, 0, subdivisions=2))
+            part = icosphere((0.75, 0.3, 0.7), 0.12, 0, subdivisions=2)
+            built.meshes.append(dataclasses.replace(part, indices=part.indices[:106]))
+        return Scene.from_built(built, aspect=w / h).bake(device=dev)
     built = cornell_box()
-    if scene == "cornell_icosphere":
+    if scene in ("cornell_icosphere", "gate_limit"):
         built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
+    if scene == "gate_limit":  # 34 + 1280 + 2 x 320 + 94 = 2,048 triangles
+        built.meshes.append(icosphere((0.25, 0.3, 0.3), 0.12, 0, subdivisions=2))
+        built.meshes.append(icosphere((0.75, 0.3, 0.7), 0.12, 0, subdivisions=2))
+        part = icosphere((0.3, 0.7, 0.6), 0.1, 0, subdivisions=2)
+        built.meshes.append(dataclasses.replace(part, indices=part.indices[:94]))
     return Scene.from_built(built, aspect=w / h).bake(device=dev)
 
 
@@ -99,7 +112,7 @@ def test_frame_kernel_matches_plain(dev, scene, w, h):
     cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig())
     args = frame_mod.frame_args(baked, w, h, 0x1337, pixel_jitter_for_frame(0x1337),
                                 cfg, splat_rgb8e=True)
-    k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack)
+    k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes)
     p = frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
     torch.cuda.synchronize()
     # the CPU parity bounds of test_torch_frame.py: edge ties flipped by FMA
@@ -110,6 +123,50 @@ def test_frame_kernel_matches_plain(dev, scene, w, h):
     either, both = live_k | live_p, live_k & live_p
     assert (k.splat_pix[either] == p.splat_pix[either]).float().mean() >= 0.98
     assert (k.splat_pay[both] == p.splat_pay[both]).float().mean() >= 0.98
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_frame_kernel_at_the_gate_limit(dev, textured):
+    """K1 at the gate's 2,048 triangles: the rows (and, for the textured
+    variant's walk, the node table) take more than 48 KB of shared memory
+    (the opt-in of frame.cu), and the kernel keeps K1's bounds against its
+    plain version."""
+    w, h = 64, 48
+    baked = _baked(dev, "textured_gate_limit" if textured else "gate_limit", w, h)
+    assert baked.n_tris == frame_mod.MAX_TRIS
+    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig(defer_textures=textured))
+    assert frame_mod.supports_megakernel(baked, cfg)
+    smem = 4 * (baked.n_tris * frame_mod.BW_COLS + textured * baked.bvh_nodes.numel())
+    assert 48 * 1024 < smem <= 232_448  # the H100's opt-in limit a block
+    args = frame_mod.frame_args(baked, w, h, 0x1337, pixel_jitter_for_frame(0x1337),
+                                cfg, splat_rgb8e=not textured)
+    assert args.textured == textured
+    cuda.reset_launch_counts()
+    k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes)
+    assert cuda.LAUNCHES["frame_textured" if textured else "frame"] == 1
+    p = frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
+    torch.cuda.synchronize()
+    assert _rows_off(k.gbuf, p.gbuf) <= 0.01
+    live_k, live_p = k.splat_pix < args.n_pix, p.splat_pix < args.n_pix
+    either = live_k | live_p
+    assert (k.splat_pix[either] == p.splat_pix[either]).float().mean() >= 0.98
+    if textured:  # the textured variant's bounds
+        assert _rows_off(k.vrec, p.vrec) <= 0.01
+        for name in ("e1_parts", "e3_parts"):
+            assert _rows_off(getattr(k, name), getattr(p, name)) <= 0.02, name
+    else:
+        assert _rows_off(k.res, p.res) <= 0.02
+        both = live_k & live_p
+        assert (k.splat_pay[both] == p.splat_pay[both]).float().mean() >= 0.98
+
+
+def _rows_off(a, b):
+    """Share of pixels with a row off by more than 1e-3 (NaN as 0); 0 for
+    outputs without rows (no est-3 pair at d = 1)."""
+    if a.shape[0] == 0:
+        return 0.0
+    a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+    return float(((a - b).abs().max(0).values > 1e-3).float().mean())
 
 
 @pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
@@ -297,6 +354,54 @@ def test_splat_rows_kernel_bit_equal(dev, dtype, rows):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _ragged_updates(case, g):
+    """(sorted int32 keys [M], n_targets) of one ragged K5 input; the
+    sentinel of a dropped update is n_targets rounded up to 1024."""
+    if case == "long_run":  # one pixel's run spans several staged chunks
+        n_t = 4000
+        keys = torch.cat([torch.randint(0, n_t, (3001,), generator=g),
+                          torch.full((5000,), 1234)])
+    elif case == "empty_tiles":  # whole 1024-pixel tiles without an update
+        n_t = 9 * 1024
+        keys = torch.cat([torch.randint(0, 1024, (2001,), generator=g),
+                          torch.randint(5 * 1024, 6 * 1024, (1503,), generator=g)])
+    elif case == "all_dead":
+        n_t = 3000
+        keys = torch.full((777,), 3072)
+    elif case == "empty":  # M = 0
+        n_t = 3000
+        keys = torch.zeros((0,), dtype=torch.int64)
+    elif case == "ragged_targets":  # n_targets no multiple of the tile
+        n_t = 5 * 1024 + 37
+        keys = torch.randint(0, n_t, (20_003,), generator=g)
+    else:  # the live prefix ends inside a tile, a dead tail behind it
+        n_t = 6000
+        keys = torch.cat([torch.randint(0, 2500, (9_999,), generator=g),
+                          torch.full((3_001,), 6144)])
+    return torch.sort(keys)[0].to(torch.int32), n_t
+
+
+@pytest.mark.parametrize("case", ["long_run", "empty_tiles", "all_dead", "empty",
+                                  "ragged_targets", "live_prefix_in_tile"])
+@pytest.mark.parametrize("dtype,rows", [(torch.float32, 4), (torch.float32, 3),
+                                        (torch.bfloat16, 4), (torch.bfloat16, 3)])
+def test_splat_rows_kernel_ragged(dev, dtype, rows, case):
+    """K5 bit-equal to its plain version on ragged inputs (M is odd or no
+    multiple of 8, so the rows' 16-byte loads meet unaligned heads and
+    tails), with one launch."""
+    g = torch.Generator().manual_seed(9)
+    keys, n_t = _ragged_updates(case, g)
+    m = keys.numel()
+    vals = (torch.rand(rows, m, generator=g) * 3.0).to(dtype)
+    cuda.reset_launch_counts()
+    got = splat_reduce_rows(keys.to(dev), vals.to(dev), n_t).cpu()
+    assert cuda.LAUNCHES["splat_rows"] == 1
+    want = reduce_rows_plain(keys, vals, n_t)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case in ("all_dead", "empty"):
+        assert not got.any()
+
+
 @pytest.mark.parametrize("pack,count", [("f32", True), ("f32", False), ("bf16", False),
                                         ("rgb8e", True)])
 def test_tiled_splat_matches_plain(dev, pack, count):
@@ -352,7 +457,7 @@ def test_subpath_kernel_matches_plain(dev, mat_model, faithful):
 
 
 @pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
-@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
 def test_textured_frame_kernel_matches_plain(dev, w, h, d):
     """K1's textured variant against its plain version with K1's bounds:
     G-buffer and records <= 1% of pixels off by more than 1e-3, estimator
@@ -362,15 +467,12 @@ def test_textured_frame_kernel_matches_plain(dev, w, h, d):
     args = frame_mod.frame_args(baked, w, h, 0x1337, pixel_jitter_for_frame(0x1337), cfg)
     assert args.textured
     cuda.reset_launch_counts()
-    k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack)
+    k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes)
     assert cuda.LAUNCHES["frame_textured"] == 1 and cuda.LAUNCHES["frame"] == 0
     p = frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack)
     torch.cuda.synchronize()
 
-    def frac(a, b):
-        a, b = torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
-        return float(((a - b).abs().max(0).values > 1e-3).float().mean())
-
+    frac = _rows_off
     assert frac(k.gbuf, p.gbuf) <= 0.01 and frac(k.vrec, p.vrec) <= 0.01
     for name in ("e1_parts", "e3_parts"):
         assert frac(getattr(k, name), getattr(p, name)) <= 0.02, name
