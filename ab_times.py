@@ -1,23 +1,33 @@
 """Kernel and frame times of one checkout of the port, for parent/change pairs.
 
     python3 ab_times.py --root DIR [--label NAME] [--out PATH.json]
+                        [--parts splat,any_hit,k1,frames]
 
 Imports `fyp_bidirectionalpathtracer_tpu_torch` from the checkout at `--root`
 (this file's own checkout by default), builds that checkout's kernels into
 its own `build/torch_kernels/`, and times on the CUDA device at 1280x720,
-depth 3, with `chip_smoke.py`'s timers (this file's checkout's):
+depth 3, with `chip_smoke.py`'s timers (this file's checkout's), the parts
+`--parts` names (all by default):
 
-- K5 (`splat_reduce_rows`) on U = 2,764,800 sorted updates, 15% live, as
+- splat: K5 (`splat_reduce_rows`) on U = 2,764,800 sorted updates, 15% live, as
   `chip_smoke.py` phase 3b makes them (float32 rgb + count, float32 4 rows,
   bfloat16 4 rows), beside `index_add_` of the live rows and the bytes
   bound; K3 (`splat_reduce`) on the live prefix beside its `index_add_`.
   As in `chip_smoke.py`'s kernels line, `ms` and `library_ms` are eager
   calls, `graph_ms` and `library_graph_ms` 20 calls replayed from one CUDA
   graph, which leaves out the host's cost of each call;
-- K1 on the Cornell box and K1's textured variant on the textured room
+  K3 also with the host's cost of a call (`host_us`);
+- k1: K1 on the Cornell box and K1's textured variant on the textured room
   (`defer_textures`), as `chip_smoke.py` phases 4 and 4f call them;
-- frames through `Renderer`: the Cornell megakernel path and the deferred
-  textured room with splat mode "auto" and "tiled": device ms/frame (CUDA
+- any_hit: the BVH any-hit kernel on pink_room's est-3-shaped shadow
+  batch ([4, 720, 1280], 30% of the lanes empty, as `chip_smoke.k4_rays`
+  makes it) at subdivisions 3 and 5 (10,546 and 164,146 triangles), over
+  the tables the checkout's kernel takes: its launch on the packed rays
+  (`ms`, as `chip_smoke.py` times it) and the wrapper's whole call
+  (`accel/cluster.bvh_occluded`, `wrapper_ms`);
+- frames: frames through `Renderer`: the Cornell megakernel path, the deferred
+  textured room with splat mode "auto" and "tiled", and pink_room (default
+  config, the wavefront with the BVH kernels): device ms/frame (CUDA
   events around 10 frames after 3 warm-up frames), host ms/frame, and the
   device busy time a frame (the union of the kernels' intervals in a
   `torch.profiler` trace of 5 frames, by the checkout's `frame_profile`)
@@ -38,12 +48,14 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
-from chip_smoke import bound, time_graph_ms, time_ms
+from chip_smoke import bound, host_us, k4_rays, time_graph_ms, time_ms
 
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
 LIVE_FRAC = 0.15
+MIN_T = 1e-3
 
 
 def _times(fn, lib_fn) -> dict:
@@ -94,7 +106,72 @@ def splat_times(torch, pkg, dev) -> dict:
     out["K3"] = {
         **_times(lambda: splat_tile.splat_reduce(ls, p8, n_pix),
                  lambda: torch.zeros((n_pix, 4), device=dev).index_add_(0, idx, rows4)),
+        "host_us": host_us(lambda: splat_tile.splat_reduce(ls, p8, n_pix)),
         "bound_ms": bound(8.0 * n_live + 16.0 * n_pix, 0.0)["bound_ms"]}
+    return out
+
+
+def any_hit_times(torch, pkg, dev) -> dict:
+    """The BVH any-hit kernel on pink_room's shadow batch: `ms` its launch
+    on the packed rays (as `chip_smoke.py` times it), `wrapper_ms` the
+    wrapper's whole call.  The checkout's kernel takes the Baldwin-Weber
+    rows and two-box table and a counter where its bake has the two-box
+    table, else the pack and the threaded node table."""
+    cluster, isect, Scene, pink_room = (pkg["cluster"], pkg["intersect"], pkg["Scene"],
+                                        pkg["pink_room"])
+    cuda = pkg["cuda"]
+    lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
+    out = {}
+    for sub in (3, 5):
+        built = pink_room(asset_dir="", subdivisions=sub)
+        bk = Scene.from_built(built, aspect=WIDTH / HEIGHT).bake(device=dev)
+        shaded = partial(cluster.bvh_shaded_fm, nodes=bk.bvh_nodes)
+        _, _, (o, d, tmax) = k4_rays(bk, WIDTH, HEIGHT, dev, shaded)
+        rows, _ = isect.rays(o, d, MIN_T, tmax)
+        n = rows.shape[1]
+        occ = torch.empty(n, dtype=torch.bool, device=dev)
+        if getattr(bk, "bvh_pairs", None) is not None:
+            tables = (bk.bw_rows, bk.n_tris, bk.bvh_pairs)
+            counter = torch.empty(1, dtype=torch.int32, device=dev)
+            args = (p(rows), n, p(bk.bw_rows), p(bk.bvh_pairs), p(occ), p(counter), stream)
+        else:
+            tables = (bk.tri_pack, bk.n_tris, bk.bvh_nodes)
+            args = (p(rows), n, p(bk.tri_pack), p(bk.bvh_nodes), p(occ), stream)
+        got = cluster.bvh_occluded(*tables, o, d, MIN_T, tmax)
+        out[f"bvh_occluded pink_room subdivisions={sub}"] = {
+            "tris": bk.n_tris, "rays": n, "live": int((tmax > 0).sum()),
+            "occluded": int(got.sum()),
+            "ms": time_ms(lambda: cuda.check_error("bvh_occluded",
+                                                   lib.bdpt_bvh_occluded(*args)), 10),
+            "wrapper_ms": time_ms(lambda: cluster.bvh_occluded(*tables, o, d, MIN_T, tmax), 10)}
+        del bk, o, d, tmax, rows
+    return out
+
+
+def _cfg(pkg, **kw):
+    return pkg["RenderConfig"](width=WIDTH, height=HEIGHT,
+                               bdpt=pkg["BDPTConfig"](max_depth=DEPTH, **kw))
+
+
+def _bake(pkg, dev, built):
+    return pkg["Scene"].from_built(built, aspect=WIDTH / HEIGHT).bake(device=dev)
+
+
+def k1_times(torch, pkg, dev) -> dict:
+    """K1 on the Cornell box and K1's textured variant on the textured room."""
+    frame_mod, procedural = pkg["frame"], pkg["procedural"]
+    jitter = pkg["pixel_jitter_for_frame"](pkg["BDPT_FRAME_INIT"])
+    takes_nodes = "nodes" in inspect.signature(frame_mod.frame_kernel).parameters
+    out = {}
+    for label, built, c, packed in (
+            ("K1 Cornell", procedural.cornell_box(), _cfg(pkg), True),
+            ("K1 textured", procedural.textured_room(), _cfg(pkg, defer_textures=True), False)):
+        bk = _bake(pkg, dev, built)
+        args = frame_mod.frame_args(bk, WIDTH, HEIGHT, pkg["BDPT_FRAME_INIT"], jitter, c,
+                                    gbuf_frame=pkg["GBUF_FRAME_INIT"], splat_rgb8e=packed)
+        extra = (bk.bvh_nodes,) if takes_nodes else ()
+        out[label] = {"ms": time_ms(lambda: frame_mod.frame_kernel(
+            args, bk.light_rows, bk.tri_pack, *extra), 10)}
     return out
 
 
@@ -102,32 +179,17 @@ def frame_times(torch, pkg, dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    frame_mod, procedural = pkg["frame"], pkg["procedural"]
-    Scene, Renderer = pkg["Scene"], pkg["Renderer"]
-    BDPTConfig, RenderConfig = pkg["BDPTConfig"], pkg["RenderConfig"]
-    jitter = pkg["pixel_jitter_for_frame"](pkg["BDPT_FRAME_INIT"])
-    takes_nodes = "nodes" in inspect.signature(frame_mod.frame_kernel).parameters
-
-    def cfg(**kw):
-        return RenderConfig(width=WIDTH, height=HEIGHT, bdpt=BDPTConfig(max_depth=DEPTH, **kw))
-
-    def bake(built):
-        return Scene.from_built(built, aspect=WIDTH / HEIGHT).bake(device=dev)
-
-    cornell, room = bake(procedural.cornell_box()), bake(procedural.textured_room())
+    procedural, Renderer = pkg["procedural"], pkg["Renderer"]
+    cornell = _bake(pkg, dev, procedural.cornell_box())
+    room = _bake(pkg, dev, procedural.textured_room())
+    pink = _bake(pkg, dev, pkg["pink_room"](asset_dir=""))
     out = {}
-    for label, bk, c, packed in (("K1 Cornell", cornell, cfg(), True),
-                                 ("K1 textured", room, cfg(defer_textures=True), False)):
-        args = frame_mod.frame_args(bk, WIDTH, HEIGHT, pkg["BDPT_FRAME_INIT"], jitter, c,
-                                    gbuf_frame=pkg["GBUF_FRAME_INIT"], splat_rgb8e=packed)
-        extra = (bk.bvh_nodes,) if takes_nodes else ()
-        out[label] = {"ms": time_ms(lambda: frame_mod.frame_kernel(
-            args, bk.light_rows, bk.tri_pack, *extra), 10)}
-    for label, bk, c in (("Cornell megakernel", cornell, cfg()),
+    for label, bk, c in (("Cornell megakernel", cornell, _cfg(pkg)),
                          ("textured room deferred (auto)", room,
-                          cfg(defer_textures=True, splat_mode="auto")),
+                          _cfg(pkg, defer_textures=True, splat_mode="auto")),
                          ("textured room deferred (tiled)", room,
-                          cfg(defer_textures=True, splat_mode="tiled"))):
+                          _cfg(pkg, defer_textures=True, splat_mode="tiled")),
+                         ("pink_room", pink, _cfg(pkg))):
         r = Renderer(bk, c)
         r.render(3)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -150,12 +212,18 @@ def frame_times(torch, pkg, dev) -> dict:
     return out
 
 
+PARTS = {"splat": splat_times, "any_hit": any_hit_times, "k1": k1_times,
+         "frames": frame_times}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent),
                     help="the checkout whose package is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--out")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="which of " + ", ".join(PARTS) + " to time (comma-separated)")
     a = ap.parse_args()
     root = Path(a.root).resolve()
     sys.path[0] = str(root)  # in place of this file's directory
@@ -169,8 +237,10 @@ def main() -> int:
     if Path(port.__file__).resolve().parents[1] != root:
         raise RuntimeError(f"imported the port from {port.__file__}, not from {root}")
     from fyp_bidirectionalpathtracer_tpu_torch import cuda
-    from fyp_bidirectionalpathtracer_tpu_torch.accel import frame
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import cluster, frame
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect
     from fyp_bidirectionalpathtracer_tpu_torch.models import procedural
+    from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
     from fyp_bidirectionalpathtracer_tpu_torch.ops import splat_tile
     from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
     from fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile import _busy_us
@@ -182,7 +252,9 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
     from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 
-    pkg = dict(frame=frame, procedural=procedural, splat_tile=splat_tile, Scene=Scene,
+    pkg = dict(frame=frame, cluster=cluster, intersect=intersect, cuda=cuda,
+               procedural=procedural, pink_room=pink_room,
+               splat_tile=splat_tile, Scene=Scene,
                Renderer=Renderer, BDPTConfig=BDPTConfig, RenderConfig=RenderConfig,
                pixel_jitter_for_frame=pixel_jitter_for_frame, BDPT_FRAME_INIT=BDPT_FRAME_INIT,
                GBUF_FRAME_INIT=GBUF_FRAME_INIT, busy_us=_busy_us)
@@ -194,8 +266,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    result = {"label": a.label, "root": str(root), "device": smi, "build_s": build_s,
-              **splat_times(torch, pkg, dev), **frame_times(torch, pkg, dev)}
+    result = {"label": a.label, "root": str(root), "device": smi, "build_s": build_s}
+    for part in a.parts.split(","):
+        result.update(PARTS[part](torch, pkg, dev))
     text = json.dumps(result)
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)

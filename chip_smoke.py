@@ -5,14 +5,17 @@
 Builds every hand-written kernel from `fyp_bidirectionalpathtracer_tpu_
 torch/csrc/` (one nvcc process a source, in parallel): K1 (frame
 megakernel, and its textured variant `frame_textured`, whose ray queries
-walk the BVH of `csrc/bvh.cuh`), K2 (splat
-compaction), K3 (splat tile reduction), K5 (`splat_rows`, the tiled splat
-reduction of unpacked rows), the dense K4 intersectors (closest, shaded,
-any-hit), the BVH kernels that replace the cluster and HBM tiers K4f-K4j
-(bvh_closest, bvh_shaded, bvh_occluded) and K6 (`subpath`, the fused
-subpath builder).  Holds each against its plain PyTorch version at the
-shapes its path gives it (the BVH kernels bit for bit, on pink_room at
-10,546, 41,266 and 164,146 triangles), then drives the paths through their
+walk the BVH of `csrc/bvh.cuh`), K2 (splat compaction), K3 (splat tile
+reduction of rgb8e updates) and K5 (`splat_rows`, the tiled splat
+reduction of unpacked rows), one kernel template in `csrc/splat_rows.cu`,
+the dense K4 intersectors (closest, shaded, any-hit), the BVH kernels that
+replace the cluster and HBM tiers K4f-K4j (bvh_closest, bvh_shaded, and
+bvh_occluded, which walks the two-box BVH of `csrc/bvh_anyhit.cuh`) and K6
+(`subpath`, the fused subpath builder).  Holds each against its plain
+PyTorch version at the shapes its path gives it (K1 also at every depth the
+gate admits; K3 bit for bit against a sequential sum; the BVH kernels bit
+for bit, on pink_room at 10,546, 41,266 and 164,146 triangles), then
+drives the paths through their
 entry points at 1280x720, depth 3, BMFR off: on the Cornell box the
 megakernel main path (K1 -> K2 -> sort -> K3) and the per-bounce wavefront
 (`megakernel="off"`: G-buffer and subpath extensions through the shaded
@@ -35,11 +38,13 @@ and small renders must match the checked-in goldens.
 K1's bound counts the ray queries of the rays its plain version traces as
 the kernel runs them: the textured variant's walk (node slab tests and
 pair tests by stage, from the BVH kernels' counting walk), the untextured
-dense loops' pair tests; the other count is printed beside it.  K3 and K5
-are printed beside `index_add_` of the same rows, each timed as eager
-calls (`ms`, `library_ms`, as every kernel is) and as CUDA-graph replays
-(`graph_ms`, `library_graph_ms`), which leave out the host's cost of each
-call.
+dense loops' pair tests; the other count is printed beside it.  The
+any-hit kernel's bound counts its two-box walk, with the threaded walk's
+count beside it.  K3 and K5 are printed beside `index_add_` of the same
+rows, each timed as eager calls (`ms`, `library_ms`, as every kernel is)
+and as CUDA-graph replays (`graph_ms`, `library_graph_ms`), which leave out
+the host's cost of each call; K3 also with that host cost (`host_us`,
+`library_host_us`).
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
@@ -215,6 +220,64 @@ def image_stats(a, b, frac_max=0.02, mad_max=5e-3, dmean_max=2e-3):
     return frac, mad, dmean, frac <= frac_max and mad < mad_max and dmean < dmean_max
 
 
+def gbuffer_rays(bk, w, h, dev):
+    """The camera's jittered rays [h, w] of the main path's first frame."""
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import BDPT_FRAME_INIT
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
+
+    d = camera_ray_dirs(bk.data.camera, w, h, pixel_jitter_for_frame(BDPT_FRAME_INIT),
+                        device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return bk.data.camera.pos_w.to(dev).expand(d.shape).contiguous(), d.contiguous()
+
+
+def k4_rays(bk, w, h, dev, shaded=None):
+    """The shapes the wavefront gives the intersectors: G-buffer rays
+    [H, W] (cull on); one extension batch [H, W] (cull off): BRDF samples
+    from the G-buffer hits; an est-3-shaped shadow batch [4, H, W] from the
+    hits toward random points of the scene's box, 30% of the lanes empty
+    (t_max = 0), as the pre-masking leaves them.  `shaded` traces the
+    G-buffer (the dense kernel by default, or the BVH one)."""
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
+    from fyp_bidirectionalpathtracer_tpu_torch.core import rng
+    from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import BDPT_FRAME_INIT
+
+    o_g, d_g = gbuffer_rays(bk, w, h, dev)
+    hit, fields = (shaded or isect.intersect_shaded_fm)(
+        bk.tri_pack, bk.n_tris, origin=o_g, direction=d_g, t_min=0.0, cull_backface=True)
+    pos = o_g + hit.t[..., None] * d_g
+    nrm = torch.movedim(fields[4:7], 0, -1)
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp(min=1e-20)
+    seed = rng.pixel_seeds(w, h, BDPT_FRAME_INIT, device=dev)
+    _, l_dir = cos_hemisphere_sample(seed, nrm)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lo = bk.data.bvh.node_min[0].to(dev)
+    hi = bk.data.bvh.node_max[0].to(dev)
+    target = lo + (hi - lo) * torch.rand((4, h, w, 3), generator=gen, device=dev)
+    vec = target - pos
+    length = vec.norm(dim=-1)
+    empty = torch.rand((4, h, w), generator=gen, device=dev) < 0.3
+    tmax = torch.where(empty | ~hit.hit, 0.0, length - MIN_T)
+    o_s = pos.expand(4, h, w, 3).contiguous()
+    return ((o_g, d_g), (pos.contiguous(), l_dir.contiguous()),
+            (o_s, (vec / length[..., None]).contiguous(), tmax))
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of `fn` takes, by the CPU clock over `calls`
+    calls without a sync (the launches queue on the device meanwhile)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -225,7 +288,6 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
     from fyp_bidirectionalpathtracer_tpu_torch.accel import subpath
     from fyp_bidirectionalpathtracer_tpu_torch.core import rng
-    from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
     from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
     from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
         cornell_box,
@@ -298,16 +360,23 @@ def main() -> int:
     p8 = kp[:n_live][order].contiguous()
     out_k = splat_tile.splat_reduce(ls, p8, n_pix)
     out_p = splat_tile.reduce_sorted_plain(ls, p8, n_pix)
+    # a sequential sum in sorted order: K5's plain version of the unpacked
+    # rows with a count alpha, which K3 must equal bit for bit
+    out_seq = splat_tile.reduce_rows_plain(ls, torch.stack(splat_tile.unpack_rgb8e(p8)), n_pix)
     torch.cuda.synchronize()
     if not torch.equal(out_k[:, 3], out_p[:, 3]):
         raise AssertionError("K3 counts differ from its plain version")
     torch.testing.assert_close(out_k[:, :3], out_p[:, :3], rtol=1e-5, atol=1e-6)
+    if not torch.equal(out_k.view(torch.int32), out_seq.view(torch.int32)):
+        raise AssertionError("K3 is not bit-equal to the sequential sum in sorted order")
     k3_err = float((out_k - out_p).abs().max())
     # K3, K5 and their index_add_ yardsticks: `ms` and `library_ms` of eager
     # calls, as every kernel's; `graph_ms` and `library_graph_ms` of CUDA-graph
-    # replays of 20 calls, device time without the host's cost of each call
+    # replays of 20 calls, device time without the host's cost of each call;
+    # `host_us` and `library_host_us` the host's cost of one call
     k3_ms = time_ms(lambda: splat_tile.splat_reduce(ls, p8, n_pix), 20)
     k3_graph = time_graph_ms(lambda: splat_tile.splat_reduce(ls, p8, n_pix))
+    k3_host = host_us(lambda: splat_tile.splat_reduce(ls, p8, n_pix))
     k3_plain = time_ms(lambda: splat_tile.reduce_sorted_plain(ls, p8, n_pix), 5)
     rows4 = torch.cat([torch.stack(splat_tile.unpack_rgb8e(p8), 1),
                        torch.ones((n_live, 1), device=dev)], 1)
@@ -317,14 +386,17 @@ def main() -> int:
         return torch.zeros((n_pix, 4), device=dev).index_add_(0, idx, rows4)
 
     k3_lib, k3_lib_graph = time_ms(k3_lib_call, 20), time_graph_ms(k3_lib_call)
-    log(f"K3 reduction M={n_live}: counts equal, rgb max |err| {k3_err:.3e} "
-        f"(rtol 1e-5, atol 1e-6); kernel {k3_ms:.4f} ms (graph {k3_graph:.4f} ms), "
-        f"plain {k3_plain:.4f} ms; beside index_add_ of the same rows {k3_lib:.4f} ms "
-        f"(graph {k3_lib_graph:.4f} ms): K3 takes {k3_ms / k3_lib:.3f}x its time "
-        f"(graph {k3_graph / k3_lib_graph:.3f}x)")
-    kernels["splat_tile"] = dict(max_abs_err=k3_err, ms=k3_ms, graph_ms=k3_graph,
-                                 plain_ms=k3_plain, library_ms=k3_lib,
-                                 library_graph_ms=k3_lib_graph,
+    k3_lib_host = host_us(k3_lib_call)
+    log(f"K3 reduction M={n_live}: counts equal, bit-equal to the sequential sum, rgb max "
+        f"|err| {k3_err:.3e} against the segment sum (rtol 1e-5, atol 1e-6); kernel "
+        f"{k3_ms:.4f} ms (graph {k3_graph:.4f} ms, host {k3_host:.2f} us a call), plain "
+        f"{k3_plain:.4f} ms; beside index_add_ of the same rows {k3_lib:.4f} ms (graph "
+        f"{k3_lib_graph:.4f} ms, host {k3_lib_host:.2f} us): K3 takes {k3_ms / k3_lib:.3f}x "
+        f"its time (graph {k3_graph / k3_lib_graph:.3f}x)")
+    kernels["splat_tile"] = dict(max_abs_err=k3_err, bit_equal_sequential=True, ms=k3_ms,
+                                 graph_ms=k3_graph, host_us=k3_host, plain_ms=k3_plain,
+                                 library_ms=k3_lib, library_graph_ms=k3_lib_graph,
+                                 library_host_us=k3_lib_host,
                                  **bound(8.0 * n_live + 16.0 * n_pix, 0.0))
 
     # ---- phase 3b: K5 on all U sorted updates (the 'tiled' modes) ---------
@@ -449,6 +521,29 @@ def main() -> int:
             raise AssertionError(f"K1 differs from its plain version on {name} {w}x{h}")
     # `args` and `baked` are the 1280x720 Cornell frame's now
     cornell = baked
+    # every depth the gate admits (accel/frame.supports_megakernel), on
+    # Cornell at 64x48, with the same bounds
+    small = scene("cornell", 64, 48)
+    for d in range(1, 9):
+        dargs = frame_mod.frame_args(small, 64, 48, BDPT_FRAME_INIT, jitter,
+                                     RenderConfig(width=64, height=48,
+                                                  bdpt=BDPTConfig(max_depth=d)),
+                                     gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=True)
+        ko = frame_mod.frame_kernel(dargs, small.light_rows, small.tri_pack, small.bvh_nodes)
+        po = frame_mod.frame_plain(dargs, small.light_rows, small.tri_pack)
+        torch.cuda.synchronize()
+        frac_gb = float(((ko.gbuf - po.gbuf).abs().max(0).values > 1e-3).float().mean())
+        frac_img, mad, dmean, img_ok = image_stats(ko.res.T, po.res.T)
+        live_k, live_p = ko.splat_pix < dargs.n_pix, po.splat_pix < dargs.n_pix
+        either, both = live_k | live_p, live_k & live_p
+        pix_eq = float((ko.splat_pix[either] == po.splat_pix[either]).float().mean())
+        pay_eq = float((ko.splat_pay[both] == po.splat_pay[both]).float().mean())
+        log(f"K1 Cornell 64x48 d={d}: G-buffer frac>1e-3 {frac_gb:.4f} (<= 0.01), image "
+            f"frac>1e-3 {frac_img:.4f} (<= 0.02), mean|d| {mad:.2e}, mean radiance d "
+            f"{dmean:.2e}, splat pixel ids equal {pix_eq:.4f}, payload equal {pay_eq:.4f} "
+            f"(>= 0.98)")
+        if not (frac_gb <= 0.01 and img_ok and pix_eq >= 0.98 and pay_eq >= 0.98):
+            raise AssertionError(f"K1 differs from its plain version at d={d}")
     k1_ms = time_ms(lambda: frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack,
                                                    baked.bvh_nodes), 10)
     k1_plain = time_ms(lambda: frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack),
@@ -662,38 +757,6 @@ def main() -> int:
                               plain_ms=k6_plain, library_ms=None, **k6_bd)
 
     # ---- phase 4b: the K4 intersectors against their plain versions ------
-    def gbuffer_rays(bk, w, h):
-        d = camera_ray_dirs(bk.data.camera, w, h, jitter, device=dev)
-        d = d / d.norm(dim=-1, keepdim=True)
-        return bk.data.camera.pos_w.to(dev).expand(d.shape).contiguous(), d.contiguous()
-
-    def k4_rays(bk, w, h, shaded=isect.intersect_shaded_fm):
-        """The shapes the wavefront gives the intersectors: G-buffer rays
-        [H, W] (cull on); one extension batch [H, W] (cull off): BRDF
-        samples from the G-buffer hits; an est-3-shaped shadow batch
-        [4, H, W] from the hits toward random points of the scene's box, 30%
-        of the lanes empty (t_max = 0), as the pre-masking leaves them.
-        `shaded` traces the G-buffer (the dense kernel, or the BVH one)."""
-        o_g, d_g = gbuffer_rays(bk, w, h)
-        hit, fields = shaded(bk.tri_pack, bk.n_tris, origin=o_g, direction=d_g, t_min=0.0,
-                             cull_backface=True)
-        pos = o_g + hit.t[..., None] * d_g
-        nrm = torch.movedim(fields[4:7], 0, -1)
-        nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp(min=1e-20)
-        seed = rng.pixel_seeds(w, h, BDPT_FRAME_INIT, device=dev)
-        _, l_dir = cos_hemisphere_sample(seed, nrm)
-        gen = torch.Generator(device=dev).manual_seed(3)
-        lo = bk.data.bvh.node_min[0].to(dev)
-        hi = bk.data.bvh.node_max[0].to(dev)
-        target = lo + (hi - lo) * torch.rand((4, h, w, 3), generator=gen, device=dev)
-        vec = target - pos
-        length = vec.norm(dim=-1)
-        empty = torch.rand((4, h, w), generator=gen, device=dev) < 0.3
-        tmax = torch.where(empty | ~hit.hit, 0.0, length - MIN_T)
-        o_s = pos.expand(4, h, w, 3).contiguous()
-        return ((o_g, d_g), (pos.contiguous(), l_dir.contiguous()),
-                (o_s, (vec / length[..., None]).contiguous(), tmax))
-
     def hits_within_bounds(k, p, kf=None, pf=None):
         """The K4 bounds (tests/test_torch_intersect.py): ids equal but on
         ties (both hit, t within rtol 1e-5), t within rtol 1e-5, fields
@@ -711,7 +774,7 @@ def main() -> int:
         return t_ok and ties_ok and fields_ok, err, same_bits
 
     def check_k4(bk, w, h, record: bool):
-        (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(bk, w, h)
+        (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(bk, w, h, dev)
         args = (bk.tri_pack, bk.n_tris)
         n = w * h
         results = {}
@@ -855,7 +918,7 @@ def main() -> int:
         counted by its counting instantiation) and the plain version's time
         on the checked rays."""
         (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(
-            bk, WIDTH, HEIGHT, partial(cluster.bvh_shaded_fm, nodes=bk.bvh_nodes))
+            bk, WIDTH, HEIGHT, dev, partial(cluster.bvh_shaded_fm, nodes=bk.bvh_nodes))
         tn_g, tn_e, tn_s = 0.0, MIN_T, MIN_T
         args = (bk.tri_pack, bk.n_tris)
         nodes = bk.bvh_nodes
@@ -877,7 +940,7 @@ def main() -> int:
                 raise AssertionError(f"a BVH kernel differs from its plain version ({label}, "
                                      f"{name} rays)")
         os_, ds_, ts_ = pick(o_s, step), pick(d_s, step), pick(tm_s, step, 1)
-        ko = cluster.bvh_occluded(*args, nodes, os_, ds_, tn_s, ts_)
+        ko = cluster.bvh_occluded(bk.bw_rows, bk.n_tris, bk.bvh_pairs, os_, ds_, tn_s, ts_)
         po = isect.occluded_plain(*args, os_, ds_, tn_s, ts_)
         torch.cuda.synchronize()
         eq = bool(torch.equal(ko, po))
@@ -889,13 +952,11 @@ def main() -> int:
         lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
         rows_g, _ = isect.rays(o_g, d_g, tn_g, None)
         rows_e, _ = isect.rays(o_e, d_e, tn_e, None)
-        rows_s, _ = isect.rays(o_s, d_s, tn_s, tm_s)
-        n, ns = rows_g.shape[1], rows_s.shape[1]
+        n, ns = rows_g.shape[1], tm_s.numel()
         fields = torch.empty((isect.OUT_W, n), device=dev)
         t_ = torch.empty(n, device=dev)
         id_ = torch.empty(n, dtype=torch.int32, device=dev)
         u_, v_ = torch.empty_like(t_), torch.empty_like(t_)
-        occ = torch.empty(ns, dtype=torch.bool, device=dev)
         runs = {
             "bvh_shaded": lambda rows, cull: lib.bdpt_bvh_shaded(
                 p(rows), n, p(bk.tri_pack), p(nodes), cull, p(fields), stream),
@@ -921,17 +982,40 @@ def main() -> int:
                 f"{o_c.shape[0]} rays, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; bytes "
                 f"{bd['bytes_ms']:.4f} ms, walk {c[0]} slab tests, pairs by stage {c[1:]}, "
                 f"{flops} operations {bd['operations_ms']:.4f} ms)")
+        # the any-hit kernel: `ms` is its launch (the counter's memset and
+        # the kernel) on the packed rays, as for the rows above, and
+        # `wrapper_ms` the wrapper's whole call (packing the rays
+        # included); its bound counts the two-box walk (a row read is two
+        # slab tests) over the Baldwin-Weber rows and the two-box table; the
+        # threaded walk's count, which the kernel ran before, beside it
+        rows_s, _ = isect.rays(o_s, d_s, tn_s, tm_s)
+        occ = torch.empty(ns, dtype=torch.bool, device=dev)
+        counter = torch.empty(1, dtype=torch.int32, device=dev)
         ms = time_ms(lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(
-            p(rows_s), ns, p(bk.tri_pack), p(nodes), p(occ), stream)), 10)
-        flops, c = walk_flops(bk, o_s, d_s, tn_s, tm_s, "any")
-        bd = bound(ns * 33.0 + pack_bytes, float(flops))
-        out["bvh_occluded"] = dict(ms=ms, plain_ms=time_ms(plains["bvh_occluded"], 1),
-                                   plain_rays=os_.shape[0], **bd)
+            p(rows_s), ns, p(bk.bw_rows), p(bk.bvh_pairs), p(occ), p(counter), stream)), 10)
+        wrapper_ms = time_ms(lambda: cluster.bvh_occluded(
+            bk.bw_rows, bk.n_tris, bk.bvh_pairs, o_s, d_s, tn_s, tm_s), 10)
+        c = cluster.bvh_any_hit_counts(bk.bw_rows, bk.n_tris, bk.bvh_pairs, o_s, d_s, tn_s,
+                                       tm_s).to(torch.int64).sum(1).tolist()
+        s1, s2, s3 = STAGE_FLOPS
+        flops = 2 * SLAB_FLOPS * c[0] + s1 * c[1] + s2 * c[2] + s3 * c[3]
+        any_bytes = 4.0 * (bk.bw_rows.numel() + bk.bvh_pairs.numel())
+        bd = bound(ns * 33.0 + any_bytes, float(flops))
+        old_flops, old_c = walk_flops(bk, o_s, d_s, tn_s, tm_s, "any")
+        old_bd = bound(ns * 33.0 + pack_bytes, float(old_flops))
+        out["bvh_occluded"] = dict(ms=ms, wrapper_ms=wrapper_ms,
+                                   plain_ms=time_ms(plains["bvh_occluded"], 1),
+                                   plain_rays=os_.shape[0], walk_counts=c, walk_flops=flops,
+                                   threaded_walk_counts=old_c, threaded_walk_flops=old_flops,
+                                   threaded_bound_ms=old_bd["bound_ms"], **bd)
         log(f"BVH bvh_occluded {label} {bk.n_tris} tris, [4, {HEIGHT}, {WIDTH}] shadow batch: "
-            f"kernel {ms:.4f} ms, plain {out['bvh_occluded']['plain_ms']:.2f} ms on "
-            f"{os_.shape[0]} rays, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; bytes "
-            f"{bd['bytes_ms']:.4f} ms, walk {c[0]} slab tests, pairs by stage {c[1:]}, "
-            f"{flops} operations {bd['operations_ms']:.4f} ms)")
+            f"kernel {ms:.4f} ms (the wrapper's call {wrapper_ms:.4f} ms), plain "
+            f"{out['bvh_occluded']['plain_ms']:.2f} ms on {os_.shape[0]} rays, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; bytes "
+            f"{bd['bytes_ms']:.4f} ms, two-box walk {c[0]} rows ({2 * c[0]} slab tests), pairs "
+            f"by stage {c[1:]}, {flops} operations {bd['operations_ms']:.4f} ms); the threaded "
+            f"walk: {old_c[0]} slab tests, pairs by stage {old_c[1:]}, {old_flops} operations, "
+            f"bound {old_bd['bound_ms']:.4f} ms")
         bvh_stats[label] = out
 
     pink_main = pink(3, WIDTH, HEIGHT)
@@ -943,7 +1027,7 @@ def main() -> int:
     # Cornell + icosphere (1314 triangles): the BVH kernels against the dense
     # K4 kernels, bit for bit, as well as against the plain versions
     ci = scene("cornell_icosphere", 256, 144)
-    (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(ci, 256, 144)
+    (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(ci, 256, 144, dev)
     same = []
     for o, d, tmin, cull in ((o_g, d_g, 0.0, True), (o_e, d_e, MIN_T, False)):
         bh, bf = cluster.bvh_shaded_fm(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o, d, tmin, None,
@@ -954,7 +1038,8 @@ def main() -> int:
         dc = isect.intersect_closest(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
         same += [torch.equal(bits(bf), bits(df)), torch.equal(bits(bf), bits(pf)),
                  torch.equal(bits(bc.t), bits(dc.t)), torch.equal(bc.tri, dc.tri)]
-    bo = cluster.bvh_occluded(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o_s, d_s, MIN_T, tm_s)
+    ci_rows, ci_pairs = cluster.any_hit_tables(ci.data.bvh, ci.tri_pack)  # none at 1314 tris
+    bo = cluster.bvh_occluded(ci_rows, ci.n_tris, ci_pairs, o_s, d_s, MIN_T, tm_s)
     same.append(torch.equal(bo, isect.occluded(ci.tri_pack, ci.n_tris, o_s, d_s, MIN_T, tm_s)))
     torch.cuda.synchronize()
     log(f"BVH on Cornell + icosphere ({ci.n_tris} tris) 256x144: equal to the dense K4 kernels "
@@ -1178,7 +1263,7 @@ def main() -> int:
     meta = {
         "frame": ("frame.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_frame.py:550"),
         "compact": ("compact.cu", "fyp_bidirectionalpathtracer_tpu/ops/compact.py:100"),
-        "splat_tile": ("splat_tile.cu", "fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py:119"),
+        "splat_tile": ("splat_rows.cu", "fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py:119"),
         "closest": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_intersect.py:109"),
         "shaded": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_lane.py:259"),
         "occluded": ("intersect.cu", "fyp_bidirectionalpathtracer_tpu/accel/pallas_lane.py:205"),

@@ -4,9 +4,11 @@ versions.
 The port's counterpart of `fyp_bidirectionalpathtracer_tpu/accel/
 pallas_cluster.py`.  Five TPU kernels there compute two functions and
 differ only in how they fit VMEM, SMEM and HBM (clusters of ck triangles,
-per-cell shortlists, DMA paging).  One per-ray walk of the bake's threaded
-BVH (`csrc/bvh.cuh`) carries that contract in three CUDA kernels
-(`csrc/bvh.cu`):
+per-cell shortlists, DMA paging).  Per-ray walks of the bake's BVH carry
+that contract in three CUDA kernels (`csrc/bvh.cu`): the closest-hit ones
+walk the threaded node table (`csrc/bvh.cuh`), the any-hit one its
+two-box form with a short stack over the live rays only
+(`csrc/bvh_anyhit.cuh`):
 
 - `bvh_closest` -> HitRecord: closest hit (K4h `_cluster_closest_kernel`,
   K4j `_cluster_closest_hbm_kernel`), with or without backface culling;
@@ -17,9 +19,10 @@ BVH (`csrc/bvh.cuh`) carries that contract in three CUDA kernels
 
 The adapters `occluded_clusters(_hbm)`, `intersect_closest_clusters(_hbm)`
 and `intersect_shaded_clusters(_fm)` keep the JAX names and output layouts;
-they take the port's tables (the bake's [T_pad, 48] pack and node table)
-in place of the TPU layout arguments (`aabbs`, `ck`, `interpret`,
-`directional`, `proxy_pack`).
+they take the port's tables (the bake's [T_pad, 48] pack and node table;
+for any hit its [T_pad, 12] Baldwin-Weber rows and two-box table) in place
+of the TPU layout arguments (`aabbs`, `ck`, `interpret`, `directional`,
+`proxy_pack`).
 
 The plain versions are the dense chunked programs of `accel/intersect.py`
 (`closest_plain`, `occluded_plain`, `shaded_plain`).  The walk resolves ties
@@ -46,11 +49,15 @@ from .intersect import (
 )
 
 NODE_COLS = 8  # csrc/bvh.cuh kNodeCols
+PAIR_COLS = 16  # csrc/bvh_anyhit.cuh kPairCols
+BW_COLS = 12  # csrc/intersect.cuh kBwCols
+STACK_SIZE = 32  # csrc/bvh_anyhit.cuh kStackSize: the deepest tree the any-hit walk takes
 # node boxes grow by this share of the scene's size (largest coordinate
 # magnitude plus the diagonal): more than the rounding of a Baldwin-Weber
 # hit point, so no box excludes a pair the dense test accepts
 PAD_REL = 1e-4
 COUNT_MODES = {"closest": 0, "closest_cull": 1, "any": 2}
+ANY_HIT_COUNT_MODE = 3  # csrc/bvh.cu bvh_count_kernel: the two-box walk
 
 
 def pack_bvh_nodes(bvh) -> torch.Tensor:
@@ -80,6 +87,54 @@ def pack_bvh_nodes(bvh) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(table, np.float32))
 
 
+def pack_bvh_pairs(bvh) -> torch.Tensor:
+    """The any-hit kernel's two-box table [N_inner, 16] float32 from the
+    bake's BVHArrays (`csrc/bvh_anyhit.cuh` has the layout): a row for each
+    inner node in pre-order, root first, with both children's boxes as
+    `pack_bvh_nodes` pads them and their links (an inner child's row, or
+    ~((first << 3) | count) for a leaf).  In the pre-order threading the
+    children of inner node i are i + 1 and miss[i + 1].  A tree that is a
+    single leaf gets one row: the leaf beside an empty leaf.  Raises on a
+    tree deeper than the walk's stack (STACK_SIZE inner nodes on a path)."""
+    table = pack_bvh_nodes(bvh).numpy()
+    ints = table[:, 6:].view(np.int32)
+    miss, code = ints[:, 0].astype(np.int64), ints[:, 1].astype(np.int64)
+    inner = np.nonzero(code < 0)[0]
+    if len(inner) == 0:
+        links = np.asarray([~code[0], ~(code[0] & ~7)], np.int32)
+        row = np.concatenate([table[0, :6], table[0, :6], links.view(np.float32),
+                              np.zeros(2, np.float32)])
+        return torch.from_numpy(row[None].astype(np.float32))
+    c0, c1 = inner + 1, miss[inner + 1]
+    if not ((c1 > c0) & (c1 < len(table))).all():
+        raise ValueError("an inner node of the BVH lacks its second child")
+    rank = np.full(len(table), -1, np.int64)
+    rank[inner] = np.arange(len(inner))
+    depth = np.zeros(len(table), np.int64)
+    depth[0] = 1
+    for i, a, b in zip(inner.tolist(), c0.tolist(), c1.tolist()):  # parents come first
+        depth[a] = depth[b] = depth[i] + 1
+    levels = int(depth[inner].max())
+    if levels > STACK_SIZE:
+        raise ValueError(f"the BVH has {levels} inner levels; the any-hit walk's stack "
+                         f"holds {STACK_SIZE}")
+
+    def link(c):
+        return np.where(code[c] < 0, rank[c], ~code[c]).astype(np.int32)
+
+    links = np.stack([link(c0), link(c1), np.zeros_like(c0, np.int32),
+                      np.zeros_like(c0, np.int32)], 1)
+    rows = np.concatenate([table[c0, :6], table[c1, :6], links.view(np.float32)], 1)
+    return torch.from_numpy(np.ascontiguousarray(rows, np.float32))
+
+
+def any_hit_tables(bvh, tri_pack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The any-hit kernel's tables of a bake, on the pack's device: the
+    [T_pad, 12] Baldwin-Weber rows (the pack's first columns, contiguous,
+    in its leaf order) and the two-box table (`pack_bvh_pairs`)."""
+    return tri_pack[:, :BW_COLS].contiguous(), pack_bvh_pairs(bvh).to(tri_pack.device)
+
+
 def check_nodes(nodes, device) -> None:
     """The node table of `pack_bvh_nodes`: float32 [N >= 1, NODE_COLS] on `device`."""
     cuda.check_tensor("nodes", nodes, torch.float32, device)
@@ -87,9 +142,21 @@ def check_nodes(nodes, device) -> None:
         raise ValueError(f"nodes must be [N >= 1, {NODE_COLS}], got {tuple(nodes.shape)}")
 
 
+def check_pairs(pairs, device) -> None:
+    """The two-box table of `pack_bvh_pairs`: float32 [N >= 1, PAIR_COLS] on `device`."""
+    cuda.check_tensor("pairs", pairs, torch.float32, device)
+    if pairs.dim() != 2 or pairs.shape[1] != PAIR_COLS or pairs.shape[0] < 1:
+        raise ValueError(f"pairs must be [N >= 1, {PAIR_COLS}], got {tuple(pairs.shape)}")
+
+
 def _check(tri_pack, n_tris, nodes, origin, direction):
     check_rays(tri_pack, n_tris, origin, direction)
     check_nodes(nodes, origin.device)
+
+
+def _check_any(rows, n_tris, pairs, origin, direction):
+    check_rays(rows, n_tris, origin, direction, cols=BW_COLS)
+    check_pairs(pairs, origin.device)
 
 
 # ------------------------------------------------------------ closest hit
@@ -128,41 +195,60 @@ def bvh_shaded_fm(tri_pack, n_tris, nodes, origin, direction, t_min, t_max=None,
 
 
 # ---------------------------------------------------------------- any hit
-def bvh_occluded(tri_pack, n_tris, nodes, origin, direction, t_min, t_max=None) -> torch.Tensor:
-    """Any hit of rays [..., 3] in (t_min, t_max), no culling -> bool [...]."""
-    _check(tri_pack, n_tris, nodes, origin, direction)
+def bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max=None) -> torch.Tensor:
+    """Any hit of rays [..., 3] in (t_min, t_max), no culling -> bool [...],
+    over the bake's [T_pad, 12] Baldwin-Weber rows (`BakedScene.bw_rows`)
+    and two-box table (`BakedScene.bvh_pairs`)."""
+    _check_any(rows, n_tris, pairs, origin, direction)
     if origin.device.type == "cpu":
-        return occluded_plain(tri_pack, n_tris, origin, direction, t_min, t_max)
-    rows, shape = rays(origin, direction, t_min, t_max)
-    n, dev = rows.shape[1], rows.device
+        return occluded_plain(rows, n_tris, origin, direction, t_min, t_max)
+    ray_rows, shape = rays(origin, direction, t_min, t_max)
+    n, dev = ray_rows.shape[1], ray_rows.device
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launch
     cuda.check_launch("bvh_occluded", cuda.library().bdpt_bvh_occluded(
-        cuda.ptr(rows), n, cuda.ptr(tri_pack), cuda.ptr(nodes), cuda.ptr(occ),
-        cuda.stream(dev)))
+        cuda.ptr(ray_rows), n, cuda.ptr(rows), cuda.ptr(pairs), cuda.ptr(occ),
+        cuda.ptr(counter), cuda.stream(dev)))
     return occ.reshape(shape)
+
+
+def _counts(tris, nodes, origin, direction, t_min, t_max, mode: int) -> torch.Tensor:
+    ray_rows, _ = rays(origin, direction, t_min, t_max)
+    n, dev = ray_rows.shape[1], ray_rows.device
+    out = torch.empty((4, n), dtype=torch.int32, device=dev)
+    cuda.check_error("bvh_count", cuda.library().bdpt_bvh_count(
+        cuda.ptr(ray_rows), n, cuda.ptr(tris), cuda.ptr(nodes), mode, cuda.ptr(out),
+        cuda.stream(dev)))
+    return out
 
 
 def bvh_walk_counts(tri_pack, n_tris, nodes, origin, direction, t_min, t_max=None,
                     mode: str = "closest") -> torch.Tensor:
-    """What the kernels' walk does on these rays, from its counting
-    instantiation (CUDA only, not counted as a launch): int32 [4, N] a ray
-    of node rows read (one slab test each) and pair tests by the stage they
-    reach (n.d; t; u and v).  `mode`: closest, closest_cull or any."""
+    """What the threaded walk (`csrc/bvh.cuh`) does on these rays, from its
+    counting instantiation (CUDA only, not counted as a launch): int32
+    [4, N] a ray of node rows read (one slab test each) and pair tests by
+    the stage they reach (n.d; t; u and v).  `mode`: closest, closest_cull
+    or any."""
     _check(tri_pack, n_tris, nodes, origin, direction)
-    rows, _ = rays(origin, direction, t_min, t_max)
-    n, dev = rows.shape[1], rows.device
-    out = torch.empty((4, n), dtype=torch.int32, device=dev)
-    cuda.check_error("bvh_count", cuda.library().bdpt_bvh_count(
-        cuda.ptr(rows), n, cuda.ptr(tri_pack), cuda.ptr(nodes), COUNT_MODES[mode],
-        cuda.ptr(out), cuda.stream(dev)))
-    return out
+    return _counts(tri_pack, nodes, origin, direction, t_min, t_max, COUNT_MODES[mode])
+
+
+def bvh_any_hit_counts(rows, n_tris, pairs, origin, direction, t_min,
+                       t_max=None) -> torch.Tensor:
+    """What the any-hit kernel's two-box walk (`csrc/bvh_anyhit.cuh`) does
+    on these rays, as `bvh_walk_counts` counts it, over the Baldwin-Weber
+    rows and the two-box table: the first count is of two-box rows read,
+    two slab tests each."""
+    _check_any(rows, n_tris, pairs, origin, direction)
+    return _counts(rows, pairs, origin, direction, t_min, t_max, ANY_HIT_COUNT_MODE)
 
 
 # ------------------------------------------ adapters with the JAX names
-def occluded_clusters(tri_pack, n_tris, nodes, origin, direction, t_min,
+def occluded_clusters(rows, n_tris, pairs, origin, direction, t_min,
                       t_max=None) -> torch.Tensor:
-    """K4f's entry point (`pallas_cluster.py:1319`)."""
-    return bvh_occluded(tri_pack, n_tris, nodes, origin, direction, t_min, t_max)
+    """K4f's entry point (`pallas_cluster.py:1319`), over the bake's
+    Baldwin-Weber rows and two-box table."""
+    return bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max)
 
 
 def intersect_closest_clusters(tri_pack, n_tris, nodes, origin, direction, t_min,

@@ -166,8 +166,9 @@ def hit_record(t, tri, u, v, shape) -> HitRecord:
                      bary_v=v.reshape(shape))
 
 
-def check_rays(tri_pack, n_tris, origin, direction):
-    """The checks of every intersector wrapper on its pack and rays."""
+def check_rays(tri_pack, n_tris, origin, direction, cols=PACK_COLS):
+    """The checks of every intersector wrapper on its triangle rows (the
+    [T_pad, 48] pack, or `cols` columns) and rays."""
     dev = origin.device
     cuda.check_tensor("tri_pack", tri_pack, torch.float32, dev)
     for name, x in (("origin", origin), ("direction", direction)):
@@ -177,9 +178,9 @@ def check_rays(tri_pack, n_tris, origin, direction):
     if direction.shape != origin.shape:
         raise ValueError(f"origin {tuple(origin.shape)} and direction "
                          f"{tuple(direction.shape)} differ")
-    if n_tris < 1 or tri_pack.dim() != 2 or tri_pack.shape[1] != PACK_COLS \
+    if n_tris < 1 or tri_pack.dim() != 2 or tri_pack.shape[1] != cols \
             or tri_pack.shape[0] < n_tris:
-        raise ValueError(f"tri_pack must be [T_pad >= {n_tris} >= 1, {PACK_COLS}], "
+        raise ValueError(f"tri_pack must be [T_pad >= {n_tris} >= 1, {cols}], "
                          f"got {tuple(tri_pack.shape)}")
 
 

@@ -34,11 +34,13 @@ CLUSTER_THRESHOLD = 32768  # above it JAX's shaded tracer gathers its attributes
 
 
 def make_intersector(tri_pack: torch.Tensor, n_tris: int, nodes: torch.Tensor | None = None,
+                     pairs: torch.Tensor | None = None, bw_rows: torch.Tensor | None = None,
                      *, plain: bool = False):
     """Build the `intersect(origin, direction, t_min, t_max=None,
     closest=True, cull_backface=False, coherent=True, const_origin=False)
     -> HitRecord` closure over the bake's [T_pad, 48] pack (and, above 2048
-    triangles, its BVH node table `nodes`).
+    triangles, its BVH node table `nodes`, two-box table `pairs` and
+    Baldwin-Weber rows `bw_rows`).
 
     `coherent` and `const_origin` are accepted and ignored: on the JAX
     cluster tiers they only choose a direction sort that gives the same
@@ -49,10 +51,11 @@ def make_intersector(tri_pack: torch.Tensor, n_tris: int, nodes: torch.Tensor | 
         occluded = partial(isect.occluded_plain if plain else isect.occluded, tri_pack, n_tris)
         closest_hit = partial(isect.closest_plain if plain else isect.intersect_closest,
                               tri_pack, n_tris)
-    elif nodes is None:
-        raise ValueError(f"{n_tris} triangles need the bake's BVH node table")
+    elif nodes is None or pairs is None or bw_rows is None:
+        raise ValueError(f"{n_tris} triangles need the bake's BVH node table, two-box "
+                         f"table and Baldwin-Weber rows")
     else:
-        occluded = partial(cluster.bvh_occluded, tri_pack, n_tris, nodes)
+        occluded = partial(cluster.bvh_occluded, bw_rows, n_tris, pairs)
         closest_hit = partial(cluster.bvh_closest, tri_pack, n_tris, nodes)
 
     def intersect(origin, direction, t_min, t_max=None, closest=True,

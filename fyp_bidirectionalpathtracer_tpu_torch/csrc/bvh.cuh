@@ -1,8 +1,10 @@
 // The per-ray walk of the bake's threaded BVH: the device code of the BVH
-// kernels (bvh.cu), which replace the TPU's cluster and HBM intersector
-// tiers K4f-K4j, and of every ray query of the frame megakernel K1
-// (frame_program.cuh).  Plain C++ apart from BDPT_DEV and the rounding
-// intrinsics (common.cuh), so it also compiles for the CPU.
+// closest-hit kernels (bvh.cu), which replace the TPU's cluster and HBM
+// intersector tiers K4g, K4h and K4j, and of every ray query of the frame
+// megakernel K1 (frame_program.cuh); its slab test serves the any-hit
+// kernel's two-box walk too (bvh_anyhit.cuh).  Plain C++ apart from
+// BDPT_DEV and the rounding intrinsics (common.cuh), so it also compiles
+// for the CPU.
 //
 // The Baldwin-Weber row of triangle i is read at tris + i * kStride: the
 // BVH kernels pass the [T_pad, 48] pack (kStride = kPackCols) from global
@@ -48,23 +50,41 @@ struct WalkCounts {
 
 BDPT_DEV float nan_to(float x, float fallback) { return x == x ? x : fallback; }
 
-// May the box of node row `nd` hold a pair the walk still wants, one with
-// t in [tmin, tlim]?  `inv` is 1 / d, component by component.
-BDPT_DEV bool slab_visit(const float* __restrict__ nd, V3 o, V3 inv, float tmin,
-                         float tlim) {
+// May the box [lo, hi] hold a pair the walk still wants, one with t in
+// [tmin, tlim]?  `inv` is 1 / d, component by component.  `te` is the
+// widened slab entry, the nearer-first key of the any-hit walk
+// (bvh_anyhit.cuh).  kFinite: the caller knows that o and inv are finite
+// and inv has no zero (ray_finite), so no endpoint is NaN and the NaN rules
+// are no-ops, left out; that takes a sixth off the any-hit kernel's time
+// on pink_room's shadow rays (PERF.md section 6).
+template <bool kFinite = false>
+BDPT_DEV bool slab_box(const float lo[3], const float hi[3], V3 o, V3 inv, float tmin,
+                       float tlim, float& te) {
   const float ov[3] = {o.x, o.y, o.z};
   const float iv[3] = {inv.x, inv.y, inv.z};
-  float te = -INFINITY, tx = INFINITY;
+  te = -INFINITY;
+  float tx = INFINITY;
   for (int k = 0; k < 3; ++k) {
-    const float a = mul_<true>(sub_<true>(nd[k], ov[k]), iv[k]);
-    const float b = mul_<true>(sub_<true>(nd[3 + k], ov[k]), iv[k]);
-    te = fmaxf(te, fminf(nan_to(a, -INFINITY), nan_to(b, -INFINITY)));
-    tx = fminf(tx, fmaxf(nan_to(a, INFINITY), nan_to(b, INFINITY)));
+    const float a = mul_<true>(sub_<true>(lo[k], ov[k]), iv[k]);
+    const float b = mul_<true>(sub_<true>(hi[k], ov[k]), iv[k]);
+    if (kFinite) {
+      te = fmaxf(te, fminf(a, b));
+      tx = fminf(tx, fmaxf(a, b));
+    } else {
+      te = fmaxf(te, fminf(nan_to(a, -INFINITY), nan_to(b, -INFINITY)));
+      tx = fminf(tx, fmaxf(nan_to(a, INFINITY), nan_to(b, INFINITY)));
+    }
   }
   // te = +inf or tx = -inf (the ray never enters) give NaN here: culled
   te = sub_<true>(te, mul_<true>(kSlabEps, fabsf(te)));
   tx = add_<true>(tx, mul_<true>(kSlabEps, fabsf(tx)));
   return te <= tx && tx >= tmin && te <= tlim;
+}
+
+// slab_box on the box of node row `nd`
+BDPT_DEV bool slab_visit(const float* __restrict__ nd, V3 o, V3 inv, float tmin, float tlim) {
+  float te;
+  return slab_box(nd, nd + 3, o, inv, tmin, tlim, te);
 }
 
 BDPT_DEV bool ray_live(V3 o, V3 d, float tmin, float tmax) {
@@ -73,6 +93,13 @@ BDPT_DEV bool ray_live(V3 o, V3 d, float tmin, float tmax) {
 }
 
 BDPT_DEV V3 inverse(V3 d) { return mk3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z); }
+
+// (box - o) * inv is never NaN for a finite box: no 0 * inf, no inf - inf
+BDPT_DEV bool ray_finite(V3 o, V3 inv) {
+  return isfinite(o.x) && isfinite(o.y) && isfinite(o.z) && isfinite(inv.x) &&
+         isfinite(inv.y) && isfinite(inv.z) && inv.x != 0.0f && inv.y != 0.0f &&
+         inv.z != 0.0f;
+}
 
 // Closest hit in (tmin, tmax) over the rows `tris` (kStride floats a
 // triangle, the Baldwin-Weber row first): the lowest (t, id).  Returns the

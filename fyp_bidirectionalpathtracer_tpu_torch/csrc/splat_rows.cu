@@ -1,20 +1,28 @@
-// Kernel K5: per-pixel sums of pixel-sorted splat value rows (sm_90a).
+// Kernels K5 and K3: per-pixel sums of pixel-sorted splat updates (sm_90a).
 //
-// Replaces the TPU kernel fyp_bidirectionalpathtracer_tpu/ops/
+// K5 replaces the TPU kernel fyp_bidirectionalpathtracer_tpu/ops/
 // splat_tile.py:_kernel (launched by _tile_call); the plain PyTorch
-// version is ops/splat_tile.py:reduce_rows_plain.
+// version is ops/splat_tile.py:reduce_rows_plain.  K3 replaces the TPU
+// kernel ops/splat_tile.py:_kernel_packed; its plain version is
+// ops/splat_tile.py:reduce_sorted_plain.  One kernel template carries
+// both: K3 is its third payload.
 //
 // Input: M keys sorted ascending (a key >= n_targets is a dropped update,
-// and dropped updates sort to the end) and value rows [R, M] (R = 4: r, g,
-// b, alpha; R = 3: r, g, b, alpha the update count), in float32 or
-// bfloat16 (the template parameter; bf16 widens exactly by a shift).  Each
-// pixel's run is added to four float32 sums one update at a time, in
-// sorted (= source) order.  A stable sort of the depth-concatenated
-// updates gives each pixel the order of the TPU kernel's per-segment
-// accumulation, with no atomics, so the sums are deterministic and
-// bit-equal to the plain version's.  The TPU kernel's one-hot MXU matmul
-// over 1024-pixel tiles, its K=2048 DMA blocks and its double buffer are
-// TPU devices and do not carry over.
+// and dropped updates sort to the end) and, for K5, value rows [R, M] (R =
+// 4: r, g, b, alpha; R = 3: r, g, b, alpha the update count), in float32 or
+// bfloat16 (the template parameter; bf16 widens exactly by a shift); for
+// K3 one row [M] of int32 rgb8e words, each decoded to (r, g, b) by
+// common.cuh unpack_rgb8e, with alpha the update count.  Each pixel's run
+// is added to four float32 sums one update at a time, in sorted (= source)
+// order.  A stable sort of the depth-concatenated updates gives each
+// pixel the order of the TPU kernel's per-segment accumulation, with no
+// atomics, so the sums are deterministic and bit-equal to a sequential
+// sum in sorted order (K5's plain version; K3's sums a run with a segment
+// sum, within rounding of it).  An rgb8e channel is an 8-bit integer times
+// a power of two, so its decode is exact and an FMA of decode and add
+// rounds as the two operations do.  The TPU kernels' one-hot MXU matmul
+// over 1024-pixel tiles, their K=2048 DMA blocks and their double buffer
+// are TPU devices and do not carry over.
 //
 // Design: a block owns a tile of kTile consecutive pixels.  The keys are
 // sorted, so the tile's updates are one contiguous segment; the block
@@ -23,20 +31,20 @@
 // holds the bound: three dependent rounds at M = 2,764,800; 4 or 8 probes
 // a thread, for fewer rounds, measured slower).  The dropped updates lie
 // past the last tile's segment and no block reads them.  The block then
-// stages its segment in chunks of kChunk updates into shared
-// memory, keys and value rows, each thread loading its part of every row
-// before it stores any, so one round trip fetches the chunk: 16-byte loads
-// where the rows are aligned, a scalar head and tail.  It marks where each
-// pixel's run begins and ends in the chunk, and each thread adds the runs
-// of its four pixels in order from shared memory, carrying the sums across
-// chunks in registers, so the order, and the bits, hold whatever the run
-// lengths.  A pixel with no update writes zeros; a tile with none writes
-// zeros and reads nothing beyond its searches.  One launch, no host sync,
-// no scratch beyond the output.
+// stages its segment in chunks of kChunk updates into shared memory, keys
+// and value rows (K3: its one row of words), each thread loading its part
+// of every row before it stores any, so one round trip fetches the chunk:
+// 16-byte loads where the rows are aligned, a scalar head and tail.  It
+// marks where each pixel's run begins and ends in the chunk, and each
+// thread adds the runs of its four pixels in order from shared memory,
+// carrying the sums across chunks in registers, so the order, and the
+// bits, hold whatever the run lengths.  A pixel with no update writes
+// zeros; a tile with none writes zeros and reads nothing beyond its
+// searches.  One launch, no host sync, no scratch beyond the output.
 //
 // What bounds it on the H100: bytes, the live keys and value rows read once
-// and 16 B written per pixel (chip_smoke.py phase 3b counts them so); for
-// the estimator-2 splat at 1280x720 the 14.7 MB of output dominate.  The
+// and 16 B written per pixel (chip_smoke.py phases 3 and 3b count them so);
+// for the estimator-2 splat at 1280x720 the 14.7 MB of output dominate.  The
 // design reads each live update once, coalesced, and writes each pixel once
 // with one 16-byte store (neighbouring threads on neighbouring pixels).
 // What is left above the bound is latency: a block's chain of dependent
@@ -44,6 +52,10 @@
 // other resident blocks hide.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -152,12 +164,14 @@ struct RowStage {
   }
 };
 
-// R value rows of type T; R = 3 counts the updates in alpha
-template <typename T, int R>
+// R value rows of type T; R = 3 counts the updates in alpha.  kPacked (K3):
+// one row of int32 rgb8e words (T = int, R = 1), alpha the count.
+template <typename T, int R, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 4)
     splat_rows_kernel(const int* __restrict__ keys, const T* __restrict__ vals, int m,
                       int n_targets, float4* __restrict__ out) {
-  __shared__ __align__(16) float vals_s[R][kChunk + kPad];
+  using S = std::conditional_t<kPacked, int, float>;  // a staged value
+  __shared__ __align__(16) S vals_s[R][kChunk + kPad];
   __shared__ __align__(16) int keys_s[kChunk + kPad];
   __shared__ uint16_t beg_s[kTile], end_s[kTile];  // a pixel's run in the chunk
   __shared__ int red_s[2 * kWarps];
@@ -198,10 +212,19 @@ __global__ void __launch_bounds__(kThreads, 4)
       const int px = threadIdx.x + q * kThreads;
       const int e = end_s[px];
       for (int j = beg_s[px]; j < e; ++j) {
-        sum[q][0] += vals_s[0][vs[0].off + j];
-        sum[q][1] += vals_s[1][vs[1].off + j];
-        sum[q][2] += vals_s[2][vs[2].off + j];
-        sum[q][3] += R == 4 ? vals_s[R - 1][vs[R - 1].off + j] : 1.0f;
+        if constexpr (kPacked) {
+          float cr, cg, cb;
+          bdpt::unpack_rgb8e(vals_s[0][vs[0].off + j], cr, cg, cb);
+          sum[q][0] += cr;
+          sum[q][1] += cg;
+          sum[q][2] += cb;
+          sum[q][3] += 1.0f;
+        } else {
+          sum[q][0] += vals_s[0][vs[0].off + j];
+          sum[q][1] += vals_s[1][vs[1].off + j];
+          sum[q][2] += vals_s[2][vs[2].off + j];
+          sum[q][3] += R == 4 ? vals_s[R - 1][vs[R - 1].off + j] : 1.0f;
+        }
       }
       beg_s[px] = 0;
       end_s[px] = 0;
@@ -215,18 +238,22 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+template <typename T, int R, bool kPacked = false>
+int launch(const int* keys, const void* vals, int m, int n_targets, float4* out,
+           cudaStream_t s) {
+  const int grid = (n_targets + kTile - 1) / kTile;
+  if (grid == 0) return 0;
+  splat_rows_kernel<T, R, kPacked><<<grid, kThreads, 0, s>>>(keys, (const T*)vals, m,
+                                                             n_targets, out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_rows(const int* keys, const void* vals, int n_rows, int m, int n_targets,
                 float4* out, cudaStream_t s) {
-  const int grid = (n_targets + kTile - 1) / kTile;
-  if (grid == 0) return 0;
-  if (n_rows == 4)
-    splat_rows_kernel<T, 4><<<grid, kThreads, 0, s>>>(keys, (const T*)vals, m, n_targets, out);
-  else if (n_rows == 3)
-    splat_rows_kernel<T, 3><<<grid, kThreads, 0, s>>>(keys, (const T*)vals, m, n_targets, out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (n_rows == 4) return launch<T, 4>(keys, vals, m, n_targets, out, s);
+  if (n_rows == 3) return launch<T, 3>(keys, vals, m, n_targets, out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -237,4 +264,11 @@ extern "C" int bdpt_splat_rows(const int* keys, const void* vals, int bf16, int 
   cudaStream_t s = (cudaStream_t)stream;
   return bf16 ? launch_rows<uint16_t>(keys, vals, n_rows, m, n_targets, o, s)
               : launch_rows<float>(keys, vals, n_rows, m, n_targets, o, s);
+}
+
+// K3: keys [m] and their rgb8e words [m] -> out [n_targets, 4]
+extern "C" int bdpt_splat_reduce(const int* keys, const int* pay, int m, int n_targets,
+                                 float* out, void* stream) {
+  return launch<int, 1, true>(keys, pay, m, n_targets, reinterpret_cast<float4*>(out),
+                              (cudaStream_t)stream);
 }

@@ -33,10 +33,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("frame.cu", "frame_textured.cu", "compact.cu", "splat_tile.cu", "intersect.cu",
-           "bvh.cu", "splat_rows.cu", "subpath.cu")
+SOURCES = ("frame.cu", "frame_textured.cu", "compact.cu", "intersect.cu", "bvh.cu",
+           "splat_rows.cu", "subpath.cu")
 HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "frame_launch.cuh", "bvh.cuh",
-           "subpath.cuh")
+           "bvh_anyhit.cuh", "subpath.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {"subpath.cu": ("-fmad=false",), "frame_textured.cu": ("-fmad=false",)}
@@ -138,7 +138,7 @@ def _declare(lib) -> None:
     lib.bdpt_occluded.argtypes = [p, i, p, i, p, p]
     lib.bdpt_bvh_closest.argtypes = [p, i, p, p, i, p, p, p, p, p]
     lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, i, p, p]
-    lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p]
+    lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p, p]
     lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
     lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, p, p]
     lib.bdpt_subpath.argtypes = [p, i, p, i, i, i, i, p, p, p]
@@ -154,6 +154,8 @@ def _declare(lib) -> None:
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -162,12 +164,17 @@ def library():
     return _lib
 
 
+# A launch's host cost is some microseconds, which short kernels (K3, K5:
+# ~10-15 us on the device) feel: pointers and the stream go to ctypes as
+# plain ints (their argtypes are c_void_p), and the raw stream handle comes
+# without building a torch Stream object.
 def ptr(t: torch.Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    return None if t is None else t.data_ptr()
 
 
-def stream(device: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, device) -> None:
@@ -175,7 +182,7 @@ def check_tensor(name: str, t: torch.Tensor, dtype, device) -> None:
         raise TypeError(f"{name} must be a tensor")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device != torch.device(device):
+    if t.device != (device if isinstance(device, torch.device) else torch.device(device)):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

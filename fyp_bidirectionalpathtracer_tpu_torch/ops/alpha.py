@@ -2,7 +2,7 @@
 
 Port of `has_alpha_materials` (`fyp_bidirectionalpathtracer_tpu/ops/
 alpha.py:23-39`).  The masked restart loops that trace past failed alpha
-tests (the rest of that module) are ROADMAP Queue 1 item 10; the bake
+tests (the rest of that module) are ROADMAP Queue 1 item 10b; the bake
 raises on a scene for which this check is true.
 """
 from __future__ import annotations

@@ -3,13 +3,13 @@
 Port of `fyp_bidirectionalpathtracer_tpu/ops/envmap.py` for the constant
 (1x1) probe the slice supports: nearest (the reference's miss shader,
 lightProbeGBuffer.rt.hlsl:64-74) and bilinear both return the one texel.
-A larger map raises: lat-long maps come with ROADMAP Queue 1 item 10.
+A larger map raises: lat-long maps come with ROADMAP Queue 1 item 10b.
 """
 from __future__ import annotations
 
 import torch
 
-_ENV_ITEM = "ROADMAP Queue 1 item 10 (env maps)"
+_ENV_ITEM = "ROADMAP Queue 1 item 10b (lat-long and light-probe env maps)"
 
 
 def _constant(env_map: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,9 @@ Port of `fyp_bidirectionalpathtracer_tpu/ops/splat_tile.py`:
 `scatter_add_rgba_tiled_prepacked` (`:319`) and the two tile kernels.
 
 K3 replaces the TPU kernel `ops/splat_tile.py:_kernel_packed` (`:119`); its
-CUDA source is `csrc/splat_tile.cu`.  Given the stable-sorted live rgb8e
-updates (every key < n_targets) it writes [n_targets, 4] rgba, alpha = the
-number of updates of the pixel.
+CUDA source is `csrc/splat_rows.cu`, where it is K5's kernel with an rgb8e
+payload.  Given the stable-sorted live rgb8e updates it writes
+[n_targets, 4] rgba, alpha = the number of updates of the pixel.
 
 K5 replaces the TPU kernel `ops/splat_tile.py:_kernel` (`:44`, launched by
 `_tile_call` `:268`); its CUDA source is `csrc/splat_rows.cu`.  It sums
@@ -95,8 +95,9 @@ def reduce_sorted_plain(keys: torch.Tensor, pay: torch.Tensor,
 
 
 def splat_reduce(keys: torch.Tensor, pay: torch.Tensor, n_targets: int) -> torch.Tensor:
-    """K3 wrapper.  keys: int32 [M] sorted ascending, all in [0, n_targets);
-    pay: int32 [M] rgb8e.  Returns float32 [n_targets, 4]."""
+    """K3 wrapper.  keys: int32 [M] sorted ascending, all in [0, n_targets)
+    (the kernel also drops keys >= n_targets at the end, as K5 does); pay:
+    int32 [M] rgb8e.  Returns float32 [n_targets, 4]."""
     cuda.check_tensor("keys", keys, torch.int32, keys.device)
     cuda.check_tensor("pay", pay, torch.int32, keys.device)
     if keys.dim() != 1 or pay.shape != keys.shape:

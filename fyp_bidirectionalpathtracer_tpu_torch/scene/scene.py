@@ -24,7 +24,8 @@ import torch
 
 from .. import cuda
 from ..accel import bvh as bvh_mod
-from ..accel.cluster import pack_bvh_nodes
+from ..accel.cluster import any_hit_tables, pack_bvh_nodes
+from ..accel.intersect import MAX_DENSE_TRIS
 from ..accel.traverse import make_intersector
 from ..accel.tri_pack import TriSoA, bake_triangles, pack_shaded_tris_lane
 from ..models.procedural import BuiltScene, MaterialDesc
@@ -265,6 +266,13 @@ class BakedScene:
     tri_pack: torch.Tensor     # [T_pad, 48] float32 on device
     light_rows: torch.Tensor   # [L, 13] float32 on device
     bvh_nodes: torch.Tensor    # [N, 8] float32 on device (accel/cluster.pack_bvh_nodes)
+    # the BVH any-hit kernel's tables, above MAX_DENSE_TRIS triangles only
+    # (the tier that runs it; None below): the two-box BVH [N_inner, 16]
+    # (accel/cluster.pack_bvh_pairs, which raises on a tree deeper than
+    # the kernel's stack) and the pack's Baldwin-Weber rows [T_pad, 12]
+    # (accel/cluster.any_hit_tables)
+    bvh_pairs: torch.Tensor | None
+    bw_rows: torch.Tensor | None
     atlas: TextureAtlas        # data.textures on device
     # base-colour-only texturing: JAX's deferred-texture megakernel takes
     # such a scene (`_tex_defer_ok`)
@@ -277,14 +285,18 @@ class BakedScene:
     @classmethod
     def build(cls, data: SceneData, tris: TriSoA, device) -> "BakedScene":
         """The device tables of a bake; raises on alpha-tested materials
-        (their restart loops are not ported)."""
+        (their restart loops are not ported) and, above MAX_DENSE_TRIS
+        triangles, on a BVH deeper than the any-hit kernel's stack."""
         if has_alpha_materials(data.materials, data.textures):
             raise NotImplementedError(f"alpha-tested materials; see {_ALPHA_ITEM}")
+        tri_pack = pack_shaded_tris_lane(tris, data.materials).to(device)
+        rows, pairs = (any_hit_tables(data.bvh, tri_pack)
+                       if int(tris.v0.shape[0]) > MAX_DENSE_TRIS else (None, None))
         return cls(
-            data=data, tris=tris,
-            tri_pack=pack_shaded_tris_lane(tris, data.materials).to(device),
+            data=data, tris=tris, tri_pack=tri_pack,
             light_rows=light_rows(data.lights).to(device),
             bvh_nodes=pack_bvh_nodes(data.bvh).to(device),
+            bvh_pairs=pairs, bw_rows=rows,
             atlas=on_device(data.textures, device),
             tex_defer_ok=_tex_defer_ok(data.materials),
         )
@@ -303,7 +315,8 @@ class BakedScene:
     def intersector(self):
         """The wavefront's `intersect` closure (accel/traverse.py) over this
         bake's pack and BVH."""
-        return make_intersector(self.tri_pack, self.n_tris, self.bvh_nodes, plain=self.plain)
+        return make_intersector(self.tri_pack, self.n_tris, self.bvh_nodes, self.bvh_pairs,
+                                self.bw_rows, plain=self.plain)
 
 
 # --------------------------------------------------- parameters carried across

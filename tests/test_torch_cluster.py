@@ -124,7 +124,7 @@ def test_any_hit_entry_matches_jax(bakes, entry):
     o, d, tm = _rays(jb)
     want = np.asarray(getattr(jpc, entry)(jb.tris, jnp.asarray(o), jnp.asarray(d), T_MIN,
                                           jnp.asarray(tm)))
-    got = getattr(cluster, entry)(pb.tri_pack, pb.n_tris, pb.bvh_nodes, torch.from_numpy(o),
+    got = getattr(cluster, entry)(pb.bw_rows, pb.n_tris, pb.bvh_pairs, torch.from_numpy(o),
                                   torch.from_numpy(d), T_MIN, torch.from_numpy(tm))
     assert got.dtype == torch.bool and got.shape == (len(o),)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -173,7 +173,8 @@ def test_wrappers_take_the_plain_versions_on_the_cpu(bakes):
     got_hit, got_f = cluster.bvh_shaded_fm(pb.tri_pack, pb.n_tris, pb.bvh_nodes, *args[2:])
     want_hit, want_f = isect.shaded_plain(*args)
     assert torch.equal(got_f, want_f) and torch.equal(got_hit.tri, want_hit.tri)
-    intersect = make_intersector(pb.tri_pack, pb.n_tris, pb.bvh_nodes)
+    intersect = make_intersector(pb.tri_pack, pb.n_tris, pb.bvh_nodes, pb.bvh_pairs,
+                                 pb.bw_rows)
     assert torch.equal(intersect(o, d, T_MIN, tm, closest=False).hit, isect.occluded_plain(*args))
     culled = intersect(o, d, T_MIN, tm, closest=False, cull_backface=True)
     assert torch.equal(culled.tri, isect.closest_plain(*args, cull_backface=True).tri)

@@ -1,8 +1,8 @@
 """K1 (and its textured variant), K2, K3, K5, K6, the K4 intersectors and
 the BVH kernels against their plain versions on an H100, and the frames
 (Cornell, pink_room, the textured room's deferred-texture megakernel)
-against the plain chain; K1 also at the gate's 2,048 triangles, K5 also on
-ragged inputs.
+against the plain chain; K1 at every depth the gate admits and at its
+2,048 triangles, K3 and K5 also on ragged inputs.
 
 Marked `cuda`: they need the card and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
@@ -27,6 +27,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     scatter_add_rgba_tiled,
     splat_reduce,
     splat_reduce_rows,
+    unpack_rgb8e,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
@@ -104,12 +105,14 @@ def _baked(dev, scene, w, h):
     return Scene.from_built(built, aspect=w / h).bake(device=dev)
 
 
-# 50x37 is no multiple of the kernel's 128-thread block, so its tail runs
+# 50x37 is no multiple of the kernel's 128-thread block, so its tail runs;
+# every depth the gate admits (accel/frame.supports_megakernel: 1..8)
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
 @pytest.mark.parametrize("scene", ["cornell", "cornell_icosphere"])
-def test_frame_kernel_matches_plain(dev, scene, w, h):
+def test_frame_kernel_matches_plain(dev, scene, w, h, d):
     baked = _baked(dev, scene, w, h)
-    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig())
+    cfg = RenderConfig(width=w, height=h, bdpt=BDPTConfig(max_depth=d))
     args = frame_mod.frame_args(baked, w, h, 0x1337, pixel_jitter_for_frame(0x1337),
                                 cfg, splat_rgb8e=True)
     k = frame_mod.frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes)
@@ -253,10 +256,10 @@ def test_wavefront_frame_matches_plain_chain(dev, w, h):
     assert abs(imgs[0][..., :3].mean() - imgs[1][..., :3].mean()) < 2e-3
 
 
-def _scene_rays(baked, w, h, kind, dev):
+def _scene_rays(baked, w, h, kind, dev, dead=0.3):
     """[h, w] rays of one kind inside the scene's bounds: 'gbuffer' (camera
     rays), 'bounce' (random origins and directions) or 'shadow' (finite
-    t_max, 30% of the lanes empty)."""
+    t_max, a share `dead` of the lanes empty)."""
     if kind == "gbuffer":
         return _k4_rays(baked, w, h, kind, dev)
     g = torch.Generator().manual_seed(11)
@@ -266,7 +269,7 @@ def _scene_rays(baked, w, h, kind, dev):
     d = d / d.norm(dim=-1, keepdim=True)
     tmax = None
     if kind == "shadow":
-        tmax = torch.where(torch.rand((h, w), generator=g) < 0.3, 0.0,
+        tmax = torch.where(torch.rand((h, w), generator=g) < dead, 0.0,
                            torch.rand((h, w), generator=g) * float((hi - lo).norm())).to(dev)
     return o.contiguous().to(dev), d.contiguous().to(dev), tmax
 
@@ -275,19 +278,25 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-# 50x37 is no multiple of the BVH kernels' 128-thread block
+# 50x37 is no multiple of the BVH kernels' 128-thread block; the shadow
+# rays with no empty lane, and with 30% of them empty (t_max = 0), which the
+# any-hit kernel keeps out of its warps
+@pytest.mark.parametrize("dead", [0.0, 0.3])
 @pytest.mark.parametrize("w,h", [(64, 36), (50, 37)])
 @pytest.mark.parametrize("scene", ["pink_room", "cornell_icosphere"])
-def test_bvh_kernels_match_plain(dev, scene, w, h):
+def test_bvh_kernels_match_plain(dev, scene, w, h, dead):
     """t, ids, u, v, the 32 fields and the occlusion bits equal their plain
     versions (the dense programs) bit for bit; on Cornell + icosphere they
-    also equal the dense K4 kernels."""
+    also equal the dense K4 kernels.  The any-hit kernel also on lanes with
+    a NaN origin or direction."""
     baked = _baked(dev, scene, w, h)
     args = (baked.tri_pack, baked.n_tris)
+    rows, pairs = cluster.any_hit_tables(baked.data.bvh, baked.tri_pack)
+    any_args = (rows, baked.n_tris, pairs)
     nodes = baked.bvh_nodes
     cuda.reset_launch_counts()
     for kind, cull in (("gbuffer", True), ("bounce", False), ("shadow", False)):
-        o, d, tmax = _scene_rays(baked, w, h, kind, dev)
+        o, d, tmax = _scene_rays(baked, w, h, kind, dev, dead)
         kh, kf = cluster.bvh_shaded_fm(*args, nodes, o, d, 1e-3, tmax, cull)
         ph, pf = isect.shaded_plain(*args, o, d, 1e-3, tmax, cull)
         kc = cluster.bvh_closest(*args, nodes, o, d, 1e-3, tmax, cull)
@@ -312,14 +321,20 @@ def test_bvh_kernels_match_plain(dev, scene, w, h):
         kc = cluster.bvh_closest(*args, nodes, oz, dz, 1e-3, None, cull)
         pc = isect.closest_plain(*args, oz, dz, 1e-3, None, cull)
         assert torch.equal(_bits(kc.t), _bits(pc.t)) and torch.equal(kc.tri, pc.tri)
-    o, d, tmax = _scene_rays(baked, w, h, "shadow", dev)
-    got = cluster.bvh_occluded(*args, nodes, o, d, 1e-3, tmax)
+    o, d, tmax = _scene_rays(baked, w, h, "shadow", dev, dead)
+    got = cluster.bvh_occluded(*any_args, o, d, 1e-3, tmax)
     assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax))
     assert 0 < int(got.sum()) < int((tmax > 0).sum())
     if scene == "cornell_icosphere":
         assert torch.equal(got, isect.occluded(*args, o, d, 1e-3, tmax))
+    o, d = o.reshape(-1, 3).clone(), d.reshape(-1, 3).clone()
+    o[::7, 1] = float("nan")
+    d[3::11, 2] = float("nan")
+    got = cluster.bvh_occluded(*any_args, o, d, 1e-3, tmax.reshape(-1))
+    assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax.reshape(-1)))
+    assert not got[::7].any() and not got[3::11].any() and got.any()
     assert cuda.LAUNCHES["bvh_shaded"] == 3 and cuda.LAUNCHES["bvh_closest"] == 5
-    assert cuda.LAUNCHES["bvh_occluded"] == 1
+    assert cuda.LAUNCHES["bvh_occluded"] == 2
 
 
 @pytest.mark.parametrize("w,h", [(64, 36), (50, 37)])
@@ -398,6 +413,29 @@ def test_splat_rows_kernel_ragged(dev, dtype, rows, case):
     assert cuda.LAUNCHES["splat_rows"] == 1
     want = reduce_rows_plain(keys, vals, n_t)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case in ("all_dead", "empty"):
+        assert not got.any()
+
+
+@pytest.mark.parametrize("case", ["long_run", "empty_tiles", "all_dead", "empty",
+                                  "ragged_targets", "live_prefix_in_tile"])
+def test_splat_reduce_kernel_ragged(dev, case):
+    """K3 on K5's ragged inputs with rgb8e payloads: one launch; the counts
+    equal its plain version's, rgb is bit-equal to a sequential sum in
+    sorted order (K5's plain version of the unpacked rows with a count
+    alpha) and within K3's bound of the plain version's segment sum."""
+    g = torch.Generator().manual_seed(9)
+    keys, n_t = _ragged_updates(case, g)
+    rgb = torch.rand(keys.numel(), 3, generator=g) * 3.0
+    pay = pack_rgb8e(rgb[:, 0], rgb[:, 1], rgb[:, 2])
+    cuda.reset_launch_counts()
+    got = splat_reduce(keys.to(dev), pay.to(dev), n_t).cpu()
+    assert cuda.LAUNCHES["splat_tile"] == 1
+    seq = reduce_rows_plain(keys, torch.stack(unpack_rgb8e(pay)), n_t)
+    assert torch.equal(got.view(torch.int32), seq.view(torch.int32))
+    want = reduce_sorted_plain(keys, pay, n_t)
+    assert torch.equal(got[:, 3], want[:, 3])
+    torch.testing.assert_close(got[:, :3], want[:, :3], rtol=1e-5, atol=1e-6)
     if case in ("all_dead", "empty"):
         assert not got.any()
 
