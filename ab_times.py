@@ -1,7 +1,7 @@
 """Kernel and frame times of one checkout of the port, for parent/change pairs.
 
     python3 ab_times.py --root DIR [--label NAME] [--out PATH.json]
-                        [--parts splat,any_hit,k1,frames]
+                        [--parts splat,closest,any_hit,k1,frames]
 
 Imports `fyp_bidirectionalpathtracer_tpu_torch` from the checkout at `--root`
 (this file's own checkout by default), builds that checkout's kernels into
@@ -19,6 +19,12 @@ depth 3, with `chip_smoke.py`'s timers (this file's checkout's), the parts
   K3 also with the host's cost of a call (`host_us`);
 - k1: K1 on the Cornell box and K1's textured variant on the textured room
   (`defer_textures`), as `chip_smoke.py` phases 4 and 4f call them;
+- closest: the BVH closest and shaded kernels (K4h/K4j, K4g) on pink_room's
+  G-buffer rays (back-face culling on) and one extension batch (off), as
+  `chip_smoke.k4_rays` makes them, at subdivisions 3 and 5 (10,546 and
+  164,146 triangles), over the tables the checkout's kernels take: their
+  launches on the packed rays (`ms`, `extension_ms`, as `chip_smoke.py`
+  phase 4d times them), and the hits they found;
 - any_hit: the BVH any-hit kernel on pink_room's est-3-shaped shadow
   batch ([4, 720, 1280], 30% of the lanes empty, as `chip_smoke.k4_rays`
   makes it) at subdivisions 3 and 5 (10,546 and 164,146 triangles), over
@@ -38,7 +44,7 @@ change in turns in one call (parent, change, change, parent), each checkout
 unpacked from `git archive` into a directory that `.gitignore` lists, so the
 two are compared on one card.  The frame entry point it calls is the
 checkout's own: `frame_kernel` takes the BVH node table where its signature
-asks for it.
+asks for it, and the BVH kernels the tables theirs ask for.
 """
 from __future__ import annotations
 
@@ -111,21 +117,74 @@ def splat_times(torch, pkg, dev) -> dict:
     return out
 
 
+def _two_box(cluster) -> bool:
+    """Do the checkout's BVH closest kernels walk the two-box table (else
+    the pack and the threaded node table)?"""
+    return "pairs" in inspect.signature(cluster.bvh_closest).parameters
+
+
+def _pink(pkg, dev, sub):
+    """pink_room at `subdivisions` and the checkout's BVH shaded wrapper
+    over its tables, for `chip_smoke.k4_rays`."""
+    cluster = pkg["cluster"]
+    bk = _bake(pkg, dev, pkg["pink_room"](asset_dir="", subdivisions=sub))
+    tables = (dict(rows=bk.bw_rows, pairs=bk.bvh_pairs) if _two_box(cluster)
+              else dict(nodes=bk.bvh_nodes))
+    return bk, partial(cluster.bvh_shaded_fm, **tables)
+
+
+def closest_times(torch, pkg, dev) -> dict:
+    """The BVH shaded and closest kernels' launches on packed rays: `ms` on
+    pink_room's G-buffer rays (culling on), `extension_ms` on an extension
+    batch (off), as `chip_smoke.py` phase 4d times them (the launch with a
+    preallocated ray counter where the checkout's kernels take one)."""
+    cluster, isect, cuda = pkg["cluster"], pkg["intersect"], pkg["cuda"]
+    lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
+    out = {}
+    for sub in (3, 5):
+        bk, shaded = _pink(pkg, dev, sub)
+        (o_g, d_g), (o_e, d_e), _ = k4_rays(bk, WIDTH, HEIGHT, dev, shaded)
+        rows_g, _ = isect.rays(o_g, d_g, 0.0, None)
+        rows_e, _ = isect.rays(o_e, d_e, MIN_T, None)
+        n = rows_g.shape[1]
+        fields = torch.empty((isect.OUT_W, n), device=dev)
+        t = torch.empty(n, device=dev)
+        ids = torch.empty(n, dtype=torch.int32, device=dev)
+        u, v = torch.empty_like(t), torch.empty_like(t)
+        if _two_box(cluster):
+            counter = torch.empty(1, dtype=torch.int32, device=dev)
+            closest_tables = (p(bk.bw_rows), p(bk.bvh_pairs))
+            shaded_tables = (p(bk.tri_pack),) + closest_tables
+            tail = (p(counter), stream)
+        else:
+            closest_tables = shaded_tables = (p(bk.tri_pack), p(bk.bvh_nodes))
+            tail = (stream,)
+        runs = {"bvh_shaded": lambda rows, cull: lib.bdpt_bvh_shaded(
+                    p(rows), n, *shaded_tables, cull, p(fields), *tail),
+                "bvh_closest": lambda rows, cull: lib.bdpt_bvh_closest(
+                    p(rows), n, *closest_tables, cull, p(t), p(ids), p(u), p(v), *tail)}
+        for name, run in runs.items():
+            cuda.check_error(name, run(rows_g, 1))
+            hits = int((fields[1] >= 0).sum() if name == "bvh_shaded" else (ids >= 0).sum())
+            out[f"{name} pink_room subdivisions={sub}"] = {
+                "tris": bk.n_tris, "rays": n, "gbuffer_hits": hits,
+                "ms": time_ms(lambda: cuda.check_error(name, run(rows_g, 1)), 10),
+                "extension_ms": time_ms(lambda: cuda.check_error(name, run(rows_e, 0)), 10)}
+        del bk, o_g, d_g, o_e, d_e, rows_g, rows_e
+    return out
+
+
 def any_hit_times(torch, pkg, dev) -> dict:
     """The BVH any-hit kernel on pink_room's shadow batch: `ms` its launch
     on the packed rays (as `chip_smoke.py` times it), `wrapper_ms` the
     wrapper's whole call.  The checkout's kernel takes the Baldwin-Weber
     rows and two-box table and a counter where its bake has the two-box
     table, else the pack and the threaded node table."""
-    cluster, isect, Scene, pink_room = (pkg["cluster"], pkg["intersect"], pkg["Scene"],
-                                        pkg["pink_room"])
-    cuda = pkg["cuda"]
+    cluster, isect, cuda = pkg["cluster"], pkg["intersect"], pkg["cuda"]
     lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
     out = {}
     for sub in (3, 5):
-        built = pink_room(asset_dir="", subdivisions=sub)
-        bk = Scene.from_built(built, aspect=WIDTH / HEIGHT).bake(device=dev)
-        shaded = partial(cluster.bvh_shaded_fm, nodes=bk.bvh_nodes)
+        bk, shaded = _pink(pkg, dev, sub)
         _, _, (o, d, tmax) = k4_rays(bk, WIDTH, HEIGHT, dev, shaded)
         rows, _ = isect.rays(o, d, MIN_T, tmax)
         n = rows.shape[1]
@@ -212,8 +271,8 @@ def frame_times(torch, pkg, dev) -> dict:
     return out
 
 
-PARTS = {"splat": splat_times, "any_hit": any_hit_times, "k1": k1_times,
-         "frames": frame_times}
+PARTS = {"splat": splat_times, "closest": closest_times, "any_hit": any_hit_times,
+         "k1": k1_times, "frames": frame_times}
 
 
 def main() -> int:

@@ -9,8 +9,8 @@ walk the BVH of `csrc/bvh.cuh`), K2 (splat compaction), K3 (splat tile
 reduction of rgb8e updates) and K5 (`splat_rows`, the tiled splat
 reduction of unpacked rows), one kernel template in `csrc/splat_rows.cu`,
 the dense K4 intersectors (closest, shaded, any-hit), the BVH kernels that
-replace the cluster and HBM tiers K4f-K4j (bvh_closest, bvh_shaded, and
-bvh_occluded, which walks the two-box BVH of `csrc/bvh_anyhit.cuh`) and K6
+replace the cluster and HBM tiers K4f-K4j (bvh_closest, bvh_shaded and
+bvh_occluded, which walk the two-box BVH of `csrc/bvh_pairs.cuh`) and K6
 (`subpath`, the fused subpath builder).  Holds each against its plain
 PyTorch version at the shapes its path gives it (K1 also at every depth the
 gate admits; K3 bit for bit against a sequential sum; the BVH kernels bit
@@ -38,13 +38,14 @@ and small renders must match the checked-in goldens.
 K1's bound counts the ray queries of the rays its plain version traces as
 the kernel runs them: the textured variant's walk (node slab tests and
 pair tests by stage, from the BVH kernels' counting walk), the untextured
-dense loops' pair tests; the other count is printed beside it.  The
-any-hit kernel's bound counts its two-box walk, with the threaded walk's
-count beside it.  K3 and K5 are printed beside `index_add_` of the same
-rows, each timed as eager calls (`ms`, `library_ms`, as every kernel is)
-and as CUDA-graph replays (`graph_ms`, `library_graph_ms`), which leave out
-the host's cost of each call; K3 also with that host cost (`host_us`,
-`library_host_us`).
+dense loops' pair tests; the other count is printed beside it.  The BVH
+kernels' bounds count their two-box walks (the closest kernels' on the
+G-buffer rays and, as `extension_bound_ms`, on an extension batch), with
+the threaded walk's count beside them.  K3 and K5 are printed beside
+`index_add_` of the same rows, each timed as eager calls (`ms`,
+`library_ms`, as every kernel is) and as CUDA-graph replays (`graph_ms`,
+`library_graph_ms`), which leave out the host's cost of each call; K3 also
+with that host cost (`host_us`, `library_host_us`).
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
@@ -904,10 +905,18 @@ def main() -> int:
         return x.reshape(-1, width)[::step].squeeze(-1).contiguous()
 
     def walk_flops(bk, o, d, tmin, tmax, mode):
+        """Operations of the threaded walk (a node row is one slab test)."""
         c = cluster.bvh_walk_counts(bk.tri_pack, bk.n_tris, bk.bvh_nodes, o, d, tmin, tmax,
                                     mode).to(torch.int64).sum(1).tolist()
         s1, s2, s3 = STAGE_FLOPS
         return SLAB_FLOPS * c[0] + s1 * c[1] + s2 * c[2] + s3 * c[3], c
+
+    def pair_walk_flops(bk, o, d, tmin, tmax, mode):
+        """Operations of a two-box walk (a row is two slab tests)."""
+        c = cluster.bvh_pair_walk_counts(bk.bw_rows, bk.n_tris, bk.bvh_pairs, o, d, tmin,
+                                         tmax, mode).to(torch.int64).sum(1).tolist()
+        s1, s2, s3 = STAGE_FLOPS
+        return 2 * SLAB_FLOPS * c[0] + s1 * c[1] + s2 * c[2] + s3 * c[3], c
 
     bvh_stats = {}
 
@@ -917,17 +926,17 @@ def main() -> int:
         on the whole batch, its bound (bytes, and the walk's operations
         counted by its counting instantiation) and the plain version's time
         on the checked rays."""
+        walk = (bk.bw_rows, bk.n_tris, bk.bvh_pairs)
         (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(
-            bk, WIDTH, HEIGHT, dev, partial(cluster.bvh_shaded_fm, nodes=bk.bvh_nodes))
+            bk, WIDTH, HEIGHT, dev, partial(cluster.bvh_shaded_fm, rows=walk[0], pairs=walk[2]))
         tn_g, tn_e, tn_s = 0.0, MIN_T, MIN_T
         args = (bk.tri_pack, bk.n_tris)
-        nodes = bk.bvh_nodes
         for name, o, d, tmin, cull in (("G-buffer", o_g, d_g, tn_g, True),
                                        ("extension", o_e, d_e, tn_e, False)):
             o, d = pick(o, step), pick(d, step)
-            kh, kf = cluster.bvh_shaded_fm(*args, nodes, o, d, tmin, None, cull)
+            kh, kf = cluster.bvh_shaded_fm(*args, walk[0], walk[2], o, d, tmin, None, cull)
             ph, pf = isect.shaded_plain(*args, o, d, tmin, None, cull)
-            kc = cluster.bvh_closest(*args, nodes, o, d, tmin, None, cull)
+            kc = cluster.bvh_closest(*walk, o, d, tmin, None, cull)
             pc = isect.closest_plain(*args, o, d, tmin, None, cull)
             torch.cuda.synchronize()
             equal = all(torch.equal(bits(a), bits(b)) for a, b in (
@@ -940,7 +949,7 @@ def main() -> int:
                 raise AssertionError(f"a BVH kernel differs from its plain version ({label}, "
                                      f"{name} rays)")
         os_, ds_, ts_ = pick(o_s, step), pick(d_s, step), pick(tm_s, step, 1)
-        ko = cluster.bvh_occluded(bk.bw_rows, bk.n_tris, bk.bvh_pairs, os_, ds_, tn_s, ts_)
+        ko = cluster.bvh_occluded(*walk, os_, ds_, tn_s, ts_)
         po = isect.occluded_plain(*args, os_, ds_, tn_s, ts_)
         torch.cuda.synchronize()
         eq = bool(torch.equal(ko, po))
@@ -949,6 +958,13 @@ def main() -> int:
         if not eq:
             raise AssertionError(f"the BVH any-hit kernel differs from its plain version "
                                  f"({label})")
+        # each kernel's `ms` is its launch on the packed rays (the ray
+        # counter's memset and the kernel; the shaded kernel's two passes),
+        # with a preallocated counter, as `wrapper_ms` of the any-hit row is
+        # the wrapper's whole call (packing the rays included).  Bounds from
+        # the two-box walk's counts over the Baldwin-Weber rows and the
+        # two-box table (the shaded kernel also reads the pack); the
+        # threaded walk's count, which the kernels ran before, beside them
         lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
         rows_g, _ = isect.rays(o_g, d_g, tn_g, None)
         rows_e, _ = isect.rays(o_e, d_e, tn_e, None)
@@ -957,50 +973,61 @@ def main() -> int:
         t_ = torch.empty(n, device=dev)
         id_ = torch.empty(n, dtype=torch.int32, device=dev)
         u_, v_ = torch.empty_like(t_), torch.empty_like(t_)
+        counter = torch.empty(1, dtype=torch.int32, device=dev)
+        bw, pairs = p(bk.bw_rows), p(bk.bvh_pairs)
         runs = {
             "bvh_shaded": lambda rows, cull: lib.bdpt_bvh_shaded(
-                p(rows), n, p(bk.tri_pack), p(nodes), cull, p(fields), stream),
+                p(rows), n, p(bk.tri_pack), bw, pairs, cull, p(fields), p(counter), stream),
             "bvh_closest": lambda rows, cull: lib.bdpt_bvh_closest(
-                p(rows), n, p(bk.tri_pack), p(nodes), cull, p(t_), p(id_), p(u_), p(v_), stream),
+                p(rows), n, bw, pairs, cull, p(t_), p(id_), p(u_), p(v_), p(counter), stream),
         }
         out = {}
-        pack_bytes = 4.0 * (bk.tri_pack.numel() + nodes.numel())
+        walk_bytes = 4.0 * (bk.bw_rows.numel() + bk.bvh_pairs.numel())
+        table_bytes = {"bvh_shaded": walk_bytes + 4.0 * bk.tri_pack.numel(),
+                       "bvh_closest": walk_bytes}
+        pack_bytes = 4.0 * (bk.tri_pack.numel() + bk.bvh_nodes.numel())
         out_bytes = {"bvh_shaded": 4.0 * isect.OUT_W, "bvh_closest": 16.0}
         o_c, d_c = pick(o_g, step), pick(d_g, step)
         plains = {"bvh_shaded": lambda: isect.shaded_plain(*args, o_c, d_c, 0.0, None, True),
                   "bvh_closest": lambda: isect.closest_plain(*args, o_c, d_c, 0.0, None, True),
                   "bvh_occluded": lambda: isect.occluded_plain(*args, os_, ds_, tn_s, ts_)}
+        flops, c = pair_walk_flops(bk, o_g, d_g, tn_g, None, "closest_cull")
+        flops_e, c_e = pair_walk_flops(bk, o_e, d_e, tn_e, None, "closest")
+        old_flops, old_c = walk_flops(bk, o_g, d_g, tn_g, None, "closest_cull")
+        old_flops_e, old_c_e = walk_flops(bk, o_e, d_e, tn_e, None, "closest")
         for name in ("bvh_shaded", "bvh_closest"):
             ms = time_ms(lambda: cuda.check_error(name, runs[name](rows_g, 1)), 10)
             ms_e = time_ms(lambda: cuda.check_error(name, runs[name](rows_e, 0)), 10)
-            flops, c = walk_flops(bk, o_g, d_g, 0.0, None, "closest_cull")
-            bd = bound(n * (32.0 + out_bytes[name]) + pack_bytes, float(flops))
+            ray_bytes = n * (32.0 + out_bytes[name])
+            bd = bound(ray_bytes + table_bytes[name], float(flops))
+            bd_e = bound(ray_bytes + table_bytes[name], float(flops_e))
+            old_bd = bound(ray_bytes + pack_bytes, float(old_flops))
+            old_bd_e = bound(ray_bytes + pack_bytes, float(old_flops_e))
             out[name] = dict(ms=ms, extension_ms=ms_e, plain_ms=time_ms(plains[name], 1),
-                             plain_rays=o_c.shape[0], **bd)
+                             plain_rays=o_c.shape[0], walk_counts=c, walk_flops=flops,
+                             threaded_walk_counts=old_c, threaded_walk_flops=old_flops,
+                             threaded_bound_ms=old_bd["bound_ms"],
+                             extension_bound_ms=bd_e["bound_ms"],
+                             extension_bound_by=bd_e["bound_by"],
+                             extension_walk_counts=c_e,
+                             extension_threaded_walk_counts=old_c_e,
+                             extension_threaded_bound_ms=old_bd_e["bound_ms"], **bd)
             log(f"BVH {name} {label} {bk.n_tris} tris, {n} G-buffer rays: kernel {ms:.4f} ms "
                 f"(extension rays {ms_e:.4f} ms), plain {out[name]['plain_ms']:.2f} ms on "
                 f"{o_c.shape[0]} rays, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; bytes "
-                f"{bd['bytes_ms']:.4f} ms, walk {c[0]} slab tests, pairs by stage {c[1:]}, "
-                f"{flops} operations {bd['operations_ms']:.4f} ms)")
-        # the any-hit kernel: `ms` is its launch (the counter's memset and
-        # the kernel) on the packed rays, as for the rows above, and
-        # `wrapper_ms` the wrapper's whole call (packing the rays
-        # included); its bound counts the two-box walk (a row read is two
-        # slab tests) over the Baldwin-Weber rows and the two-box table; the
-        # threaded walk's count, which the kernel ran before, beside it
+                f"{bd['bytes_ms']:.4f} ms, two-box walk {c[0]} rows ({2 * c[0]} slab tests), "
+                f"pairs by stage {c[1:]}, {flops} operations {bd['operations_ms']:.4f} ms), "
+                f"extension bound {bd_e['bound_ms']:.4f} ms ({c_e[0]} rows, pairs {c_e[1:]}); "
+                f"the threaded walk: {old_c[0]} slab tests, pairs {old_c[1:]}, bound "
+                f"{old_bd['bound_ms']:.4f} ms; extension {old_c_e[0]} slab tests, pairs "
+                f"{old_c_e[1:]}, bound {old_bd_e['bound_ms']:.4f} ms")
         rows_s, _ = isect.rays(o_s, d_s, tn_s, tm_s)
         occ = torch.empty(ns, dtype=torch.bool, device=dev)
-        counter = torch.empty(1, dtype=torch.int32, device=dev)
         ms = time_ms(lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(
-            p(rows_s), ns, p(bk.bw_rows), p(bk.bvh_pairs), p(occ), p(counter), stream)), 10)
-        wrapper_ms = time_ms(lambda: cluster.bvh_occluded(
-            bk.bw_rows, bk.n_tris, bk.bvh_pairs, o_s, d_s, tn_s, tm_s), 10)
-        c = cluster.bvh_any_hit_counts(bk.bw_rows, bk.n_tris, bk.bvh_pairs, o_s, d_s, tn_s,
-                                       tm_s).to(torch.int64).sum(1).tolist()
-        s1, s2, s3 = STAGE_FLOPS
-        flops = 2 * SLAB_FLOPS * c[0] + s1 * c[1] + s2 * c[2] + s3 * c[3]
-        any_bytes = 4.0 * (bk.bw_rows.numel() + bk.bvh_pairs.numel())
-        bd = bound(ns * 33.0 + any_bytes, float(flops))
+            p(rows_s), ns, bw, pairs, p(occ), p(counter), stream)), 10)
+        wrapper_ms = time_ms(lambda: cluster.bvh_occluded(*walk, o_s, d_s, tn_s, tm_s), 10)
+        flops, c = pair_walk_flops(bk, o_s, d_s, tn_s, tm_s, "any")
+        bd = bound(ns * 33.0 + walk_bytes, float(flops))
         old_flops, old_c = walk_flops(bk, o_s, d_s, tn_s, tm_s, "any")
         old_bd = bound(ns * 33.0 + pack_bytes, float(old_flops))
         out["bvh_occluded"] = dict(ms=ms, wrapper_ms=wrapper_ms,
@@ -1028,17 +1055,17 @@ def main() -> int:
     # K4 kernels, bit for bit, as well as against the plain versions
     ci = scene("cornell_icosphere", 256, 144)
     (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(ci, 256, 144, dev)
+    ci_rows, ci_pairs = cluster.pair_tables(ci.data.bvh, ci.tri_pack)  # none at 1314 tris
     same = []
     for o, d, tmin, cull in ((o_g, d_g, 0.0, True), (o_e, d_e, MIN_T, False)):
-        bh, bf = cluster.bvh_shaded_fm(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o, d, tmin, None,
-                                       cull)
+        bh, bf = cluster.bvh_shaded_fm(ci.tri_pack, ci.n_tris, ci_rows, ci_pairs, o, d, tmin,
+                                       None, cull)
         dh, df = isect.intersect_shaded_fm(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
         _, pf = isect.shaded_plain(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
-        bc = cluster.bvh_closest(ci.tri_pack, ci.n_tris, ci.bvh_nodes, o, d, tmin, None, cull)
+        bc = cluster.bvh_closest(ci_rows, ci.n_tris, ci_pairs, o, d, tmin, None, cull)
         dc = isect.intersect_closest(ci.tri_pack, ci.n_tris, o, d, tmin, None, cull)
         same += [torch.equal(bits(bf), bits(df)), torch.equal(bits(bf), bits(pf)),
                  torch.equal(bits(bc.t), bits(dc.t)), torch.equal(bc.tri, dc.tri)]
-    ci_rows, ci_pairs = cluster.any_hit_tables(ci.data.bvh, ci.tri_pack)  # none at 1314 tris
     bo = cluster.bvh_occluded(ci_rows, ci.n_tris, ci_pairs, o_s, d_s, MIN_T, tm_s)
     same.append(torch.equal(bo, isect.occluded(ci.tri_pack, ci.n_tris, o_s, d_s, MIN_T, tm_s)))
     torch.cuda.synchronize()

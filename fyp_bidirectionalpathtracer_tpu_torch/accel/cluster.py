@@ -4,31 +4,33 @@ versions.
 The port's counterpart of `fyp_bidirectionalpathtracer_tpu/accel/
 pallas_cluster.py`.  Five TPU kernels there compute two functions and
 differ only in how they fit VMEM, SMEM and HBM (clusters of ck triangles,
-per-cell shortlists, DMA paging).  Per-ray walks of the bake's BVH carry
-that contract in three CUDA kernels (`csrc/bvh.cu`): the closest-hit ones
-walk the threaded node table (`csrc/bvh.cuh`), the any-hit one its
-two-box form with a short stack over the live rays only
-(`csrc/bvh_anyhit.cuh`):
+per-cell shortlists, DMA paging).  Per-ray walks of the two-box form of the
+bake's BVH (`pack_bvh_pairs`) with a short stack, nearer child first, over
+the Baldwin-Weber rows, carry that contract in three persistent CUDA
+kernels that take only the rays that need a walk (`csrc/bvh.cu`,
+`csrc/bvh_pairs.cuh`):
 
 - `bvh_closest` -> HitRecord: closest hit (K4h `_cluster_closest_kernel`,
   K4j `_cluster_closest_hbm_kernel`), with or without backface culling;
 - `bvh_shaded_fm` -> (HitRecord, fields [32, ...]): closest hit plus the
-  winner's attributes, field-major (K4g `_cluster_shaded_kernel`);
+  winner's attributes from its pack row, field-major (K4g
+  `_cluster_shaded_kernel`);
 - `bvh_occluded` -> bool: any hit in (t_min, t_max), no culling (K4f
   `_cluster_occlusion_kernel`, K4i `_cluster_occlusion_hbm_kernel`).
 
 The adapters `occluded_clusters(_hbm)`, `intersect_closest_clusters(_hbm)`
 and `intersect_shaded_clusters(_fm)` keep the JAX names and output layouts;
-they take the port's tables (the bake's [T_pad, 48] pack and node table;
-for any hit its [T_pad, 12] Baldwin-Weber rows and two-box table) in place
-of the TPU layout arguments (`aabbs`, `ck`, `interpret`, `directional`,
-`proxy_pack`).
+they take the port's tables (the bake's [T_pad, 12] Baldwin-Weber rows and
+two-box table, `pair_tables`; the shaded ones also its [T_pad, 48] pack)
+in place of the TPU layout arguments (`aabbs`, `ck`, `interpret`,
+`directional`, `proxy_pack`).  The threaded node table (`pack_bvh_nodes`)
+serves K1's textured walk (`csrc/bvh.cuh`) and the counting walks.
 
 The plain versions are the dense chunked programs of `accel/intersect.py`
-(`closest_plain`, `occluded_plain`, `shaded_plain`).  The walk resolves ties
-by (t, id) and culls conservatively, so a kernel equals its plain version
-bit for bit.  A wrapper runs the plain version for CPU tensors and launches
-its kernel for CUDA tensors.
+(`closest_plain`, `occluded_plain`, `shaded_plain`).  The walks resolve
+ties by (t, id) and cull conservatively, so a kernel equals its plain
+version bit for bit.  A wrapper runs the plain version for CPU tensors and
+launches its kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -49,15 +51,16 @@ from .intersect import (
 )
 
 NODE_COLS = 8  # csrc/bvh.cuh kNodeCols
-PAIR_COLS = 16  # csrc/bvh_anyhit.cuh kPairCols
+PAIR_COLS = 16  # csrc/bvh_pairs.cuh kPairCols
 BW_COLS = 12  # csrc/intersect.cuh kBwCols
-STACK_SIZE = 32  # csrc/bvh_anyhit.cuh kStackSize: the deepest tree the any-hit walk takes
+STACK_SIZE = 32  # csrc/bvh_pairs.cuh kStackSize: the deepest tree the two-box walks take
 # node boxes grow by this share of the scene's size (largest coordinate
 # magnitude plus the diagonal): more than the rounding of a Baldwin-Weber
 # hit point, so no box excludes a pair the dense test accepts
 PAD_REL = 1e-4
+# csrc/bvh.cu bvh_count_kernel: the threaded walks, and the two-box walks
 COUNT_MODES = {"closest": 0, "closest_cull": 1, "any": 2}
-ANY_HIT_COUNT_MODE = 3  # csrc/bvh.cu bvh_count_kernel: the two-box walk
+PAIR_COUNT_MODES = {"any": 3, "closest": 4, "closest_cull": 5}
 
 
 def pack_bvh_nodes(bvh) -> torch.Tensor:
@@ -88,14 +91,14 @@ def pack_bvh_nodes(bvh) -> torch.Tensor:
 
 
 def pack_bvh_pairs(bvh) -> torch.Tensor:
-    """The any-hit kernel's two-box table [N_inner, 16] float32 from the
-    bake's BVHArrays (`csrc/bvh_anyhit.cuh` has the layout): a row for each
+    """The BVH kernels' two-box table [N_inner, 16] float32 from the bake's
+    BVHArrays (`csrc/bvh_pairs.cuh` has the layout): a row for each
     inner node in pre-order, root first, with both children's boxes as
     `pack_bvh_nodes` pads them and their links (an inner child's row, or
     ~((first << 3) | count) for a leaf).  In the pre-order threading the
     children of inner node i are i + 1 and miss[i + 1].  A tree that is a
     single leaf gets one row: the leaf beside an empty leaf.  Raises on a
-    tree deeper than the walk's stack (STACK_SIZE inner nodes on a path)."""
+    tree deeper than the walks' stack (STACK_SIZE inner nodes on a path)."""
     table = pack_bvh_nodes(bvh).numpy()
     ints = table[:, 6:].view(np.int32)
     miss, code = ints[:, 0].astype(np.int64), ints[:, 1].astype(np.int64)
@@ -116,7 +119,7 @@ def pack_bvh_pairs(bvh) -> torch.Tensor:
         depth[a] = depth[b] = depth[i] + 1
     levels = int(depth[inner].max())
     if levels > STACK_SIZE:
-        raise ValueError(f"the BVH has {levels} inner levels; the any-hit walk's stack "
+        raise ValueError(f"the BVH has {levels} inner levels; the two-box walks' stack "
                          f"holds {STACK_SIZE}")
 
     def link(c):
@@ -128,8 +131,8 @@ def pack_bvh_pairs(bvh) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rows, np.float32))
 
 
-def any_hit_tables(bvh, tri_pack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The any-hit kernel's tables of a bake, on the pack's device: the
+def pair_tables(bvh, tri_pack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The BVH kernels' tables of a bake, on the pack's device: the
     [T_pad, 12] Baldwin-Weber rows (the pack's first columns, contiguous,
     in its leaf order) and the two-box table (`pack_bvh_pairs`)."""
     return tri_pack[:, :BW_COLS].contiguous(), pack_bvh_pairs(bvh).to(tri_pack.device)
@@ -149,66 +152,70 @@ def check_pairs(pairs, device) -> None:
         raise ValueError(f"pairs must be [N >= 1, {PAIR_COLS}], got {tuple(pairs.shape)}")
 
 
-def _check(tri_pack, n_tris, nodes, origin, direction):
-    check_rays(tri_pack, n_tris, origin, direction)
-    check_nodes(nodes, origin.device)
-
-
-def _check_any(rows, n_tris, pairs, origin, direction):
+def _check(rows, n_tris, pairs, origin, direction):
     check_rays(rows, n_tris, origin, direction, cols=BW_COLS)
     check_pairs(pairs, origin.device)
 
 
+def _counter(dev) -> torch.Tensor:
+    """A persistent kernel's ray counter: one int32, zeroed by the launch."""
+    return torch.empty((1,), dtype=torch.int32, device=dev)
+
+
 # ------------------------------------------------------------ closest hit
-def bvh_closest(tri_pack, n_tris, nodes, origin, direction, t_min, t_max=None,
+def bvh_closest(rows, n_tris, pairs, origin, direction, t_min, t_max=None,
                 cull_backface=False) -> HitRecord:
-    """Closest hit of rays [..., 3] in (t_min, t_max) (t_max None: 1e30)."""
-    _check(tri_pack, n_tris, nodes, origin, direction)
+    """Closest hit of rays [..., 3] in (t_min, t_max) (t_max None: 1e30),
+    over the bake's [T_pad, 12] Baldwin-Weber rows (`BakedScene.bw_rows`)
+    and two-box table (`BakedScene.bvh_pairs`)."""
+    _check(rows, n_tris, pairs, origin, direction)
     if origin.device.type == "cpu":
-        return closest_plain(tri_pack, n_tris, origin, direction, t_min, t_max, cull_backface)
-    rows, shape = rays(origin, direction, t_min, t_max)
-    n, dev = rows.shape[1], rows.device
+        return closest_plain(rows, n_tris, origin, direction, t_min, t_max, cull_backface)
+    ray_rows, shape = rays(origin, direction, t_min, t_max)
+    n, dev = ray_rows.shape[1], ray_rows.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
     cuda.check_launch("bvh_closest", cuda.library().bdpt_bvh_closest(
-        cuda.ptr(rows), n, cuda.ptr(tri_pack), cuda.ptr(nodes), int(bool(cull_backface)),
-        cuda.ptr(t), cuda.ptr(tri), cuda.ptr(u), cuda.ptr(v), cuda.stream(dev)))
+        cuda.ptr(ray_rows), n, cuda.ptr(rows), cuda.ptr(pairs), int(bool(cull_backface)),
+        cuda.ptr(t), cuda.ptr(tri), cuda.ptr(u), cuda.ptr(v), cuda.ptr(_counter(dev)),
+        cuda.stream(dev)))
     return hit_record(t, tri, u, v, shape)
 
 
 # ------------------------------------------------- closest hit + attributes
-def bvh_shaded_fm(tri_pack, n_tris, nodes, origin, direction, t_min, t_max=None,
+def bvh_shaded_fm(tri_pack, n_tris, rows, pairs, origin, direction, t_min, t_max=None,
                   cull_backface=False):
     """Closest hit plus the winner's attributes: (HitRecord, fields_fm
-    [32, ...]), the table of `accel/intersect.py`."""
-    _check(tri_pack, n_tris, nodes, origin, direction)
+    [32, ...]), the table of `accel/intersect.py`; the walk as
+    `bvh_closest`'s, the fields from the winner's row of the [T_pad, 48]
+    pack `tri_pack`."""
+    _check(rows, n_tris, pairs, origin, direction)
+    check_rays(tri_pack, n_tris, origin, direction)
     if origin.device.type == "cpu":
         return shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max, cull_backface)
-    rows, shape = rays(origin, direction, t_min, t_max)
-    n, dev = rows.shape[1], rows.device
+    ray_rows, shape = rays(origin, direction, t_min, t_max)
+    n, dev = ray_rows.shape[1], ray_rows.device
     fields = torch.empty((OUT_W, n), dtype=torch.float32, device=dev)
     cuda.check_launch("bvh_shaded", cuda.library().bdpt_bvh_shaded(
-        cuda.ptr(rows), n, cuda.ptr(tri_pack), cuda.ptr(nodes), int(bool(cull_backface)),
-        cuda.ptr(fields), cuda.stream(dev)))
+        cuda.ptr(ray_rows), n, cuda.ptr(tri_pack), cuda.ptr(rows), cuda.ptr(pairs),
+        int(bool(cull_backface)), cuda.ptr(fields), cuda.ptr(_counter(dev)), cuda.stream(dev)))
     return shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
 
 
 # ---------------------------------------------------------------- any hit
 def bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max=None) -> torch.Tensor:
     """Any hit of rays [..., 3] in (t_min, t_max), no culling -> bool [...],
-    over the bake's [T_pad, 12] Baldwin-Weber rows (`BakedScene.bw_rows`)
-    and two-box table (`BakedScene.bvh_pairs`)."""
-    _check_any(rows, n_tris, pairs, origin, direction)
+    over the Baldwin-Weber rows and the two-box table."""
+    _check(rows, n_tris, pairs, origin, direction)
     if origin.device.type == "cpu":
         return occluded_plain(rows, n_tris, origin, direction, t_min, t_max)
     ray_rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = ray_rows.shape[1], ray_rows.device
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    counter = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launch
     cuda.check_launch("bvh_occluded", cuda.library().bdpt_bvh_occluded(
         cuda.ptr(ray_rows), n, cuda.ptr(rows), cuda.ptr(pairs), cuda.ptr(occ),
-        cuda.ptr(counter), cuda.stream(dev)))
+        cuda.ptr(_counter(dev)), cuda.stream(dev)))
     return occ.reshape(shape)
 
 
@@ -224,23 +231,25 @@ def _counts(tris, nodes, origin, direction, t_min, t_max, mode: int) -> torch.Te
 
 def bvh_walk_counts(tri_pack, n_tris, nodes, origin, direction, t_min, t_max=None,
                     mode: str = "closest") -> torch.Tensor:
-    """What the threaded walk (`csrc/bvh.cuh`) does on these rays, from its
+    """What the threaded walk (`csrc/bvh.cuh`, K1's textured walk, which the
+    BVH kernels ran before their two-box walks) does on these rays, from its
     counting instantiation (CUDA only, not counted as a launch): int32
     [4, N] a ray of node rows read (one slab test each) and pair tests by
     the stage they reach (n.d; t; u and v).  `mode`: closest, closest_cull
     or any."""
-    _check(tri_pack, n_tris, nodes, origin, direction)
+    check_rays(tri_pack, n_tris, origin, direction)
+    check_nodes(nodes, origin.device)
     return _counts(tri_pack, nodes, origin, direction, t_min, t_max, COUNT_MODES[mode])
 
 
-def bvh_any_hit_counts(rows, n_tris, pairs, origin, direction, t_min,
-                       t_max=None) -> torch.Tensor:
-    """What the any-hit kernel's two-box walk (`csrc/bvh_anyhit.cuh`) does
-    on these rays, as `bvh_walk_counts` counts it, over the Baldwin-Weber
-    rows and the two-box table: the first count is of two-box rows read,
-    two slab tests each."""
-    _check_any(rows, n_tris, pairs, origin, direction)
-    return _counts(rows, pairs, origin, direction, t_min, t_max, ANY_HIT_COUNT_MODE)
+def bvh_pair_walk_counts(rows, n_tris, pairs, origin, direction, t_min, t_max=None,
+                         mode: str = "any") -> torch.Tensor:
+    """What the BVH kernels' two-box walks (`csrc/bvh_pairs.cuh`) do on
+    these rays, as `bvh_walk_counts` counts it, over the Baldwin-Weber rows
+    and the two-box table: the first count is of two-box rows read, two
+    slab tests each.  `mode`: any, closest or closest_cull."""
+    _check(rows, n_tris, pairs, origin, direction)
+    return _counts(rows, pairs, origin, direction, t_min, t_max, PAIR_COUNT_MODES[mode])
 
 
 # ------------------------------------------ adapters with the JAX names
@@ -251,18 +260,19 @@ def occluded_clusters(rows, n_tris, pairs, origin, direction, t_min,
     return bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max)
 
 
-def intersect_closest_clusters(tri_pack, n_tris, nodes, origin, direction, t_min,
+def intersect_closest_clusters(rows, n_tris, pairs, origin, direction, t_min,
                                t_max=None, cull_backface=False) -> HitRecord:
-    """K4h's entry point (`pallas_cluster.py:1122`)."""
-    return bvh_closest(tri_pack, n_tris, nodes, origin, direction, t_min, t_max,
-                       cull_backface)
+    """K4h's entry point (`pallas_cluster.py:1122`), over the bake's
+    Baldwin-Weber rows and two-box table."""
+    return bvh_closest(rows, n_tris, pairs, origin, direction, t_min, t_max, cull_backface)
 
 
-def intersect_shaded_clusters(tri_pack, n_tris, nodes, origin, direction, t_min,
+def intersect_shaded_clusters(tri_pack, n_tris, rows, pairs, origin, direction, t_min,
                               t_max=None, cull_backface=False):
     """K4g's row-major entry point (`pallas_cluster.py:1340`): (HitRecord,
-    fields [..., 32])."""
-    hit, fields_fm = bvh_shaded_fm(tri_pack, n_tris, nodes, origin, direction, t_min,
+    fields [..., 32]), over the bake's pack, Baldwin-Weber rows and two-box
+    table."""
+    hit, fields_fm = bvh_shaded_fm(tri_pack, n_tris, rows, pairs, origin, direction, t_min,
                                    t_max, cull_backface)
     return hit, fields_fm.movedim(0, -1)
 

@@ -10,7 +10,8 @@ and the `_BIG = 1e30` miss convention (defined beside the kernels, in
   and culled any-hit to the closest-hit kernel;
 - above that, at every size, the BVH kernels of `accel/cluster.py`, which
   replace the cluster and HBM tiers (K4f-K4j) and JAX's jnp `intersect_bvh`
-  above 1M triangles, with the same routing.
+  above 1M triangles, with the same routing: two walks (any hit, closest
+  hit) of the bake's two-box BVH table over its Baldwin-Weber rows.
 
 Barycentrics follow DXR: P = (1-u-v) v0 + u v1 + v v2.
 
@@ -33,14 +34,13 @@ from .tri_pack import TriSoA  # noqa: F401  (the JAX module's TriSoA)
 CLUSTER_THRESHOLD = 32768  # above it JAX's shaded tracer gathers its attributes
 
 
-def make_intersector(tri_pack: torch.Tensor, n_tris: int, nodes: torch.Tensor | None = None,
-                     pairs: torch.Tensor | None = None, bw_rows: torch.Tensor | None = None,
-                     *, plain: bool = False):
+def make_intersector(tri_pack: torch.Tensor, n_tris: int, pairs: torch.Tensor | None = None,
+                     bw_rows: torch.Tensor | None = None, *, plain: bool = False):
     """Build the `intersect(origin, direction, t_min, t_max=None,
     closest=True, cull_backface=False, coherent=True, const_origin=False)
     -> HitRecord` closure over the bake's [T_pad, 48] pack (and, above 2048
-    triangles, its BVH node table `nodes`, two-box table `pairs` and
-    Baldwin-Weber rows `bw_rows`).
+    triangles, its two-box BVH table `pairs` and Baldwin-Weber rows
+    `bw_rows`, which the BVH kernels walk).
 
     `coherent` and `const_origin` are accepted and ignored: on the JAX
     cluster tiers they only choose a direction sort that gives the same
@@ -51,12 +51,12 @@ def make_intersector(tri_pack: torch.Tensor, n_tris: int, nodes: torch.Tensor | 
         occluded = partial(isect.occluded_plain if plain else isect.occluded, tri_pack, n_tris)
         closest_hit = partial(isect.closest_plain if plain else isect.intersect_closest,
                               tri_pack, n_tris)
-    elif nodes is None or pairs is None or bw_rows is None:
-        raise ValueError(f"{n_tris} triangles need the bake's BVH node table, two-box "
-                         f"table and Baldwin-Weber rows")
+    elif pairs is None or bw_rows is None:
+        raise ValueError(f"{n_tris} triangles need the bake's two-box BVH table and "
+                         f"Baldwin-Weber rows")
     else:
         occluded = partial(cluster.bvh_occluded, bw_rows, n_tris, pairs)
-        closest_hit = partial(cluster.bvh_closest, tri_pack, n_tris, nodes)
+        closest_hit = partial(cluster.bvh_closest, bw_rows, n_tris, pairs)
 
     def intersect(origin, direction, t_min, t_max=None, closest=True,
                   cull_backface=False, coherent=True, const_origin=False):

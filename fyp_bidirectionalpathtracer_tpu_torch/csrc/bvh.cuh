@@ -1,14 +1,14 @@
-// The per-ray walk of the bake's threaded BVH: the device code of the BVH
-// closest-hit kernels (bvh.cu), which replace the TPU's cluster and HBM
-// intersector tiers K4g, K4h and K4j, and of every ray query of the frame
-// megakernel K1 (frame_program.cuh); its slab test serves the any-hit
-// kernel's two-box walk too (bvh_anyhit.cuh).  Plain C++ apart from
-// BDPT_DEV and the rounding intrinsics (common.cuh), so it also compiles
-// for the CPU.
+// The per-ray walk of the bake's threaded BVH: the device code of every ray
+// query of the frame megakernel's textured variant K1 (frame_program.cuh),
+// and of the counting walks of bvh.cu (the closest-hit kernels ran it
+// before their two-box walk); its slab test serves the BVH kernels'
+// two-box walks (bvh_pairs.cuh).  Plain C++ apart from BDPT_DEV and the
+// rounding intrinsics (common.cuh), so it also compiles for the CPU.
 //
 // The Baldwin-Weber row of triangle i is read at tris + i * kStride: the
-// BVH kernels pass the [T_pad, 48] pack (kStride = kPackCols) from global
-// memory, K1 its 12-float rows in shared memory (kStride = kBwCols).
+// counting walks pass the [T_pad, 48] pack (kStride = kPackCols) from
+// global memory, K1 its 12-float rows in shared memory (kStride =
+// kBwCols).
 //
 // The walk is JAX `intersect_bvh` (accel/traverse.py:207-286) with one
 // thread a ray in place of the lockstep vector loop: a cursor steps through
@@ -52,8 +52,8 @@ BDPT_DEV float nan_to(float x, float fallback) { return x == x ? x : fallback; }
 
 // May the box [lo, hi] hold a pair the walk still wants, one with t in
 // [tmin, tlim]?  `inv` is 1 / d, component by component.  `te` is the
-// widened slab entry, the nearer-first key of the any-hit walk
-// (bvh_anyhit.cuh).  kFinite: the caller knows that o and inv are finite
+// widened slab entry, the nearer-first key of the two-box walks
+// (bvh_pairs.cuh).  kFinite: the caller knows that o and inv are finite
 // and inv has no zero (ray_finite), so no endpoint is NaN and the NaN rules
 // are no-ops, left out; that takes a sixth off the any-hit kernel's time
 // on pink_room's shadow rays (PERF.md section 6).

@@ -13,10 +13,10 @@
 // and light vertex arrays unroll; at large d they spill to local memory.
 //
 // Ray queries (frame_program.cuh closest / any_hit): the textured
-// instantiations walk the bake's threaded BVH (bvh.cuh, the walk of the BVH
-// kernels, with the row stride kBwCols): about 16 rays a pixel at d=3 visit
-// the nodes their slabs enter and test only the triangles of the leaves they
-// reach (<= 7 a leaf), in place of every triangle.  The untextured
+// instantiations walk the bake's threaded BVH (bvh.cuh, with the row stride
+// kBwCols; the BVH kernels walk its two-box form): about 16 rays a pixel at
+// d=3 visit the nodes their slabs enter and test only the triangles of the
+// leaves they reach (<= 7 a leaf), in place of every triangle.  The untextured
 // instantiations keep the dense pair loop over every triangle: on Cornell's
 // 34 triangles at 1280x720 the walk took 1.86 ms against the loop's 0.71 on
 // an H100 at 700 W (PERF.md), because the loop's lanes read the same row at

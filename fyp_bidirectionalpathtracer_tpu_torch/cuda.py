@@ -36,7 +36,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("frame.cu", "frame_textured.cu", "compact.cu", "intersect.cu", "bvh.cu",
            "splat_rows.cu", "subpath.cu")
 HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "frame_launch.cuh", "bvh.cuh",
-           "bvh_anyhit.cuh", "subpath.cuh")
+           "bvh_pairs.cuh", "subpath.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {"subpath.cu": ("-fmad=false",), "frame_textured.cu": ("-fmad=false",)}
@@ -136,8 +136,8 @@ def _declare(lib) -> None:
     lib.bdpt_intersect_closest.argtypes = [p, i, p, i, i, p, p, p, p, p]
     lib.bdpt_intersect_shaded.argtypes = [p, i, p, i, i, p, p]
     lib.bdpt_occluded.argtypes = [p, i, p, i, p, p]
-    lib.bdpt_bvh_closest.argtypes = [p, i, p, p, i, p, p, p, p, p]
-    lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, i, p, p]
+    lib.bdpt_bvh_closest.argtypes = [p, i, p, p, i, p, p, p, p, p, p]
+    lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, p, i, p, p, p]
     lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p, p]
     lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
     lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, p, p]

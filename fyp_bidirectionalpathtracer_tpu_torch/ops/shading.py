@@ -212,7 +212,7 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
         elif dense:
             shaded = isect.intersect_shaded_fm
         else:
-            shaded = partial(cluster.bvh_shaded_fm, nodes=baked.bvh_nodes)
+            shaded = partial(cluster.bvh_shaded_fm, rows=baked.bw_rows, pairs=baked.bvh_pairs)
 
         def trace(origin, direction, t_min, view_origin, cull_backface=False,
                   coherent=True, lean=False):

@@ -24,7 +24,7 @@ import torch
 
 from .. import cuda
 from ..accel import bvh as bvh_mod
-from ..accel.cluster import any_hit_tables, pack_bvh_nodes
+from ..accel.cluster import pack_bvh_nodes, pair_tables
 from ..accel.intersect import MAX_DENSE_TRIS
 from ..accel.traverse import make_intersector
 from ..accel.tri_pack import TriSoA, bake_triangles, pack_shaded_tris_lane
@@ -265,12 +265,14 @@ class BakedScene:
     tris: TriSoA
     tri_pack: torch.Tensor     # [T_pad, 48] float32 on device
     light_rows: torch.Tensor   # [L, 13] float32 on device
-    bvh_nodes: torch.Tensor    # [N, 8] float32 on device (accel/cluster.pack_bvh_nodes)
-    # the BVH any-hit kernel's tables, above MAX_DENSE_TRIS triangles only
-    # (the tier that runs it; None below): the two-box BVH [N_inner, 16]
+    # [N, 8] float32 on device (accel/cluster.pack_bvh_nodes): K1's textured
+    # walk and the counting walks
+    bvh_nodes: torch.Tensor
+    # the BVH kernels' tables, above MAX_DENSE_TRIS triangles only (the
+    # tier that runs them; None below): the two-box BVH [N_inner, 16]
     # (accel/cluster.pack_bvh_pairs, which raises on a tree deeper than
-    # the kernel's stack) and the pack's Baldwin-Weber rows [T_pad, 12]
-    # (accel/cluster.any_hit_tables)
+    # the walks' stack) and the pack's Baldwin-Weber rows [T_pad, 12]
+    # (accel/cluster.pair_tables)
     bvh_pairs: torch.Tensor | None
     bw_rows: torch.Tensor | None
     atlas: TextureAtlas        # data.textures on device
@@ -286,11 +288,11 @@ class BakedScene:
     def build(cls, data: SceneData, tris: TriSoA, device) -> "BakedScene":
         """The device tables of a bake; raises on alpha-tested materials
         (their restart loops are not ported) and, above MAX_DENSE_TRIS
-        triangles, on a BVH deeper than the any-hit kernel's stack."""
+        triangles, on a BVH deeper than the BVH kernels' stack."""
         if has_alpha_materials(data.materials, data.textures):
             raise NotImplementedError(f"alpha-tested materials; see {_ALPHA_ITEM}")
         tri_pack = pack_shaded_tris_lane(tris, data.materials).to(device)
-        rows, pairs = (any_hit_tables(data.bvh, tri_pack)
+        rows, pairs = (pair_tables(data.bvh, tri_pack)
                        if int(tris.v0.shape[0]) > MAX_DENSE_TRIS else (None, None))
         return cls(
             data=data, tris=tris, tri_pack=tri_pack,
@@ -314,9 +316,9 @@ class BakedScene:
 
     def intersector(self):
         """The wavefront's `intersect` closure (accel/traverse.py) over this
-        bake's pack and BVH."""
-        return make_intersector(self.tri_pack, self.n_tris, self.bvh_nodes, self.bvh_pairs,
-                                self.bw_rows, plain=self.plain)
+        bake's pack and BVH tables."""
+        return make_intersector(self.tri_pack, self.n_tris, self.bvh_pairs, self.bw_rows,
+                                plain=self.plain)
 
 
 # --------------------------------------------------- parameters carried across

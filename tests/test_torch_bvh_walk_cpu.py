@@ -1,19 +1,26 @@
-"""The BVH any-hit kernel's walk and its tables, on the CPU.
+"""The BVH kernels' two-box walks and their tables, on the CPU.
 
-`csrc/bvh_anyhit.cuh` (the two-box walk with a short stack) is plain C++
-apart from `BDPT_DEV`, two bit-cast intrinsics and `load4`, its 16-byte
-read, so a small harness defines those (`load4` with memcpy) and g++
-compiles it (`-O1 -ffp-contract=off`: no FMA contraction, as the plain
-versions round every operation) into a shared library loaded with ctypes.
-The tests hold:
+`csrc/bvh_pairs.cuh` (the any-hit and closest-hit walks of the two-box
+table with a short stack) is plain C++ apart from `BDPT_DEV`, two bit-cast
+intrinsics and `load4`, its 16-byte read, so a small harness defines those
+(`load4` with memcpy) and g++ compiles it (`-O1 -ffp-contract=off`: no FMA
+contraction, as the plain versions round every operation) into a shared
+library loaded with ctypes.  The tests hold:
 
-- the walk (`bvh_any_hit` over the bake's two-box table and Baldwin-Weber
-  rows) bit for bit against the dense pair loop (`occluded<true>`) and the
-  threaded walk it replaces (`bvh_occluded`), on pink_room (10,546
-  triangles) and Cornell + icosphere (1,314): axis-aligned rays, rays onto
-  the shared edges of axis-aligned triangles, grazing rays, and lanes that
-  need no walk (t_max = 0, t_max < t_min, t_max = t_min, NaN origins and
-  directions);
+- the any-hit walk (`bvh_any_hit` over the bake's two-box table and
+  Baldwin-Weber rows) bit for bit against the dense pair loop
+  (`occluded<true>`) and the threaded walk it replaces (`bvh_occluded`),
+  on pink_room (10,546 triangles) and Cornell + icosphere (1,314):
+  axis-aligned rays, rays onto the shared edges of axis-aligned triangles,
+  grazing rays, and lanes that need no walk (t_max = 0, t_max < t_min,
+  t_max = t_min, NaN origins and directions);
+- the closest-hit walk (`bvh_closest_pairs`, nearer child first, pops
+  pruned by the best t) on the same rays and on the one-leaf tree, with
+  back-face culling on and off: t, id, u and v bit for bit against the
+  dense loop (`closest_hit<true>`) and the threaded walk it replaces
+  (`bvh_closest_hit`), the (t, id) ties on shared edges included; and on
+  pink_room's camera rays it reads fewer rows than the threaded walk
+  tests boxes;
 - the tables in torch: every leaf triangle reachable from the root exactly
   once, each child box equal to that child's row of `pack_bvh_nodes`, the
   one-leaf tree, and the depth check, which raises on a tree deeper than
@@ -48,7 +55,7 @@ static inline int __float_as_int(float x) { int i; memcpy(&i, &x, 4); return i; 
 static inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x; }
 struct float4 { float x, y, z, w; };
 static inline float4 load4(const float* p) { float4 r; memcpy(&r, p, 16); return r; }
-#include "bvh_anyhit.cuh"
+#include "bvh_pairs.cuh"
 using namespace bdpt;
 
 // rays [n, 8]: o, d, tmin, tmax.  walk 0: the dense loop over `bw`; 1 the
@@ -73,6 +80,37 @@ extern "C" void any_hit(const float* rays, int n, const float* bw, int n_tris,
     counts[4 * i + 3] = c.s3;
   }
 }
+
+// rays [n, 8]: closest hit, with back-face culling if `cull`.  walk 0: the
+// dense loop over `bw`; 1 the threaded walk over `nodes`; 2 the two-box
+// walk over `pairs`; the winner's u, v as the kernels find them (walks 0
+// and 1 recompute them from its row); counts [n, 4] of walks 1 and 2
+extern "C" void closest(const float* rays, int n, const float* bw, int n_tris,
+                        const float* nodes, const float* pairs, int cull, int walk,
+                        float* t_out, int* id_out, float* u_out, float* v_out, int* counts) {
+  for (int i = 0; i < n; ++i) {
+    const float* r = rays + 8 * i;
+    const V3 o = mk3(r[0], r[1], r[2]), d = mk3(r[3], r[4], r[5]);
+    WalkCounts c = {0, 0, 0, 0};
+    float t, u = 0.0f, v = 0.0f;
+    int id;
+    if (walk == 2) {
+      id = bvh_closest_pairs<true>(bw, pairs, o, d, r[6], r[7], cull, t, u, v, &c);
+    } else {
+      id = walk == 0 ? closest_hit<true>(bw, n_tris, o, d, r[6], r[7], cull, t)
+                     : bvh_closest_hit<true, kBwCols>(bw, nodes, o, d, r[6], r[7], cull, t, &c);
+      if (id >= 0) hit_uv<true>(bw + (size_t)id * kBwCols, o, d, t, u, v);
+    }
+    t_out[i] = t;
+    id_out[i] = id;
+    u_out[i] = u;
+    v_out[i] = v;
+    counts[4 * i] = c.nodes;
+    counts[4 * i + 1] = c.s1;
+    counts[4 * i + 2] = c.s2;
+    counts[4 * i + 3] = c.s3;
+  }
+}
 """
 
 
@@ -90,6 +128,7 @@ def lib(tmp_path_factory):
     out = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     out.any_hit.argtypes = [p, i, p, i, p, p, i, p, p]
+    out.closest.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p]
     return out
 
 
@@ -104,12 +143,12 @@ def _bake(name):
 
 @pytest.fixture(scope="module")
 def scenes():
-    """name -> (bake, its any-hit tables): the bake's own above 2048
-    triangles, made by `any_hit_tables` below, where the bake has none."""
+    """name -> (bake, its two-box walks' tables): the bake's own above 2048
+    triangles, made by `pair_tables` below, where the bake has none."""
     out = {}
     for name in ("pink_room", "cornell_icosphere"):
         baked = _bake(name)
-        tables = cluster.any_hit_tables(baked.data.bvh, baked.tri_pack)
+        tables = cluster.pair_tables(baked.data.bvh, baked.tri_pack)
         if baked.n_tris > MAX_DENSE_TRIS:
             assert torch.equal(baked.bw_rows, tables[0])
             assert torch.equal(baked.bvh_pairs.view(torch.int32), tables[1].view(torch.int32))
@@ -253,17 +292,21 @@ def test_pair_table_refuses_a_tree_deeper_than_the_stack():
         cluster.pack_bvh_pairs(_chain_bvh(cluster.STACK_SIZE + 1))
 
 
+def _one_leaf_bvh(baked):
+    """A tree that is one leaf: the scene's box over its first 3 triangles."""
+    lo, hi = baked.data.bvh.node_min[:1], baked.data.bvh.node_max[:1]
+    return BVHArrays(node_min=lo, node_max=hi, node_left=torch.zeros(1, dtype=torch.int32),
+                     node_count=torch.tensor([3], dtype=torch.int32),
+                     node_hit=torch.tensor([-1], dtype=torch.int32),
+                     node_miss=torch.tensor([-1], dtype=torch.int32),
+                     tri_order=torch.arange(3, dtype=torch.int32))
+
+
 def test_one_leaf_tree(lib, scenes):
     """A tree that is one leaf: one row, the leaf beside an empty leaf; the
     walk over it equals the dense loop on the leaf's triangles."""
     baked, bake_rows, _ = scenes["cornell_icosphere"]
-    lo, hi = baked.data.bvh.node_min[:1], baked.data.bvh.node_max[:1]
-    one = BVHArrays(node_min=lo, node_max=hi, node_left=torch.zeros(1, dtype=torch.int32),
-                    node_count=torch.tensor([3], dtype=torch.int32),
-                    node_hit=torch.tensor([-1], dtype=torch.int32),
-                    node_miss=torch.tensor([-1], dtype=torch.int32),
-                    tri_order=torch.arange(3, dtype=torch.int32))
-    pairs = cluster.pack_bvh_pairs(one)
+    pairs = cluster.pack_bvh_pairs(_one_leaf_bvh(baked))
     assert pairs.shape == (1, cluster.PAIR_COLS)
     assert _leaves(pairs) == [(0, 0), (0, 3)] or _leaves(pairs) == [(0, 3), (0, 0)]
     rows = bake_rows[:3].contiguous()
@@ -275,6 +318,85 @@ def test_one_leaf_tree(lib, scenes):
                 _ptr(dense), _ptr(counts))
     walk, _ = _any_hit(lib, scenes["cornell_icosphere"], rays, 2, pairs=pairs, rows=rows)
     assert torch.equal(walk, dense.bool()) and int(dense.sum()) > 0
+
+
+def _closest(lib, tables, rays, cull, walk):
+    """(t, id, u, v, counts [n, 4]) of one closest walk over `tables`
+    (bake, rows, pairs, nodes, n_tris)."""
+    baked, rows, pairs, nodes, n_tris = tables
+    n = rays.shape[0]
+    t, u, v = (torch.zeros(n, dtype=torch.float32) for _ in range(3))
+    ids = torch.zeros(n, dtype=torch.int32)
+    counts = torch.zeros((n, 4), dtype=torch.int32)
+    lib.closest(_ptr(rays), n, _ptr(rows), n_tris, _ptr(nodes), _ptr(pairs), int(cull), walk,
+                _ptr(t), _ptr(ids), _ptr(u), _ptr(v), _ptr(counts))
+    return t, ids, u, v, counts
+
+
+def _closest_tables(scenes, name):
+    """(bake, rows, pairs, nodes, n_tris) of a scene, or of the one-leaf
+    tree over Cornell + icosphere's first 3 triangles."""
+    if name != "one_leaf":
+        baked, rows, pairs = scenes[name]
+        return baked, rows, pairs, baked.bvh_nodes, baked.n_tris
+    baked, rows, _ = scenes["cornell_icosphere"]
+    one = _one_leaf_bvh(baked)
+    return (baked, rows[:3].contiguous(), cluster.pack_bvh_pairs(one),
+            cluster.pack_bvh_nodes(one), 3)
+
+
+def _float_bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("name", ["pink_room", "cornell_icosphere", "one_leaf"])
+def test_closest_walk_bit_equal_to_dense_loop(lib, scenes, name, cull):
+    """t, id, u, v of the two-box closest walk equal the dense loop's and
+    the threaded walk's bit for bit: axis-aligned rays, the (t, id) ties on
+    shared edges, grazing rays, finite and open t_max, and lanes that need
+    no walk, which miss with t = t_max and count nothing."""
+    tables = _closest_tables(scenes, name)
+    rng = np.random.default_rng(20 + int(cull))
+    rays = _rays(tables[0], seed=4 + int(cull))
+    rays = torch.cat([rays, _no_walk_lanes(rays, rng)]).contiguous()
+    dense = _closest(lib, tables, rays, cull, 0)
+    for walk in (1, 2):
+        got = _closest(lib, tables, rays, cull, walk)
+        assert torch.equal(got[1], dense[1]), walk
+        for k in (0, 2, 3):
+            assert torch.equal(_float_bits(got[k]), _float_bits(dense[k])), (walk, k)
+    t, ids, _, _, counts = got
+    assert 0 < int((ids >= 0).sum()) < rays.shape[0]
+    no_walk = slice(rays.shape[0] - 250, None)
+    assert (ids[no_walk] == -1).all() and not counts[no_walk].any()
+    assert torch.equal(_float_bits(t[no_walk]), _float_bits(rays[no_walk, 7].contiguous()))
+    c = counts.to(torch.int64).sum(0)
+    assert c[0] > 0 and c[1] >= c[2] >= c[3] > 0
+
+
+def test_closest_walk_reads_fewer_rows_than_the_threaded_walk_tests_boxes(lib, scenes):
+    """On pink_room's camera rays (back-face culling, as the G-buffer
+    traces them) the nearer-first walk with pruned pops reads fewer
+    two-box rows, and runs fewer pair tests, than the threaded walk (fixed
+    child order) tests boxes and pairs; the answers are the same."""
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
+
+    tables = _closest_tables(scenes, "pink_room")
+    cam = tables[0].data.camera
+    d = camera_ray_dirs(cam, 64, 36, pixel_jitter_for_frame(0), device="cpu").reshape(-1, 3)
+    d = d / d.norm(dim=-1, keepdim=True)
+    o = cam.pos_w.to(torch.float32).expand(d.shape)
+    n = d.shape[0]
+    rays = torch.cat([o, d, torch.zeros((n, 1)), torch.full((n, 1), 1e30)], 1)
+    rays = rays.to(torch.float32).contiguous()
+    threaded = _closest(lib, tables, rays, True, 1)
+    walk = _closest(lib, tables, rays, True, 2)
+    assert torch.equal(walk[1], threaded[1]) and int((walk[1] >= 0).sum()) > n // 2
+    rows, box_tests = int(walk[4][:, 0].sum()), int(threaded[4][:, 0].sum())
+    pairs, threaded_pairs = int(walk[4][:, 1].sum()), int(threaded[4][:, 1].sum())
+    assert rows < box_tests and pairs < threaded_pairs, (rows, box_tests, pairs, threaded_pairs)
 
 
 def _chain_builder(build):

@@ -145,12 +145,13 @@ def test_closest_entry_matches_jax(bakes, entry, cull, t_max):
     jtm = jnp.asarray(tm) if t_max == "lanes" else None
     ptm = torch.from_numpy(tm) if t_max == "lanes" else None
     jo, jd = jnp.asarray(o), jnp.asarray(d)
-    args = (pb.tri_pack, pb.n_tris, pb.bvh_nodes, torch.from_numpy(o), torch.from_numpy(d),
+    args = (pb.bw_rows, pb.n_tris, pb.bvh_pairs, torch.from_numpy(o), torch.from_numpy(d),
             T_MIN, ptm)
     if not entry.startswith("intersect_shaded"):
         want = getattr(jpc, entry)(jb.tris, jo, jd, T_MIN, jtm, cull)
         _assert_hits_match(getattr(cluster, entry)(*args, cull_backface=cull), want)
         return
+    args = (pb.tri_pack, pb.n_tris, pb.bw_rows, pb.bvh_pairs) + args[3:]
     ck = jpc.pick_ck(pb.n_tris)
     pack = jpc.pack_shaded_tris_cluster(jb.tris, jb.data.materials, ck)
     want, wf = getattr(jpc, entry)(jb.tris, pack, jpc.pack_cluster_aabbs(jb.tris, ck), jo, jd,
@@ -170,11 +171,13 @@ def test_wrappers_take_the_plain_versions_on_the_cpu(bakes):
     o, d, tm = (torch.from_numpy(x) for x in _rays(bakes[0]))
     args = (pb.tri_pack, pb.n_tris, o, d, T_MIN, tm)
     cuda.reset_launch_counts()
-    got_hit, got_f = cluster.bvh_shaded_fm(pb.tri_pack, pb.n_tris, pb.bvh_nodes, *args[2:])
+    got_hit, got_f = cluster.bvh_shaded_fm(pb.tri_pack, pb.n_tris, pb.bw_rows, pb.bvh_pairs,
+                                           *args[2:])
     want_hit, want_f = isect.shaded_plain(*args)
     assert torch.equal(got_f, want_f) and torch.equal(got_hit.tri, want_hit.tri)
-    intersect = make_intersector(pb.tri_pack, pb.n_tris, pb.bvh_nodes, pb.bvh_pairs,
-                                 pb.bw_rows)
+    got = cluster.bvh_closest(pb.bw_rows, pb.n_tris, pb.bvh_pairs, *args[2:])
+    assert torch.equal(got.t, want_hit.t) and torch.equal(got.tri, want_hit.tri)
+    intersect = make_intersector(pb.tri_pack, pb.n_tris, pb.bvh_pairs, pb.bw_rows)
     assert torch.equal(intersect(o, d, T_MIN, tm, closest=False).hit, isect.occluded_plain(*args))
     culled = intersect(o, d, T_MIN, tm, closest=False, cull_backface=True)
     assert torch.equal(culled.tri, isect.closest_plain(*args, cull_backface=True).tri)
@@ -228,12 +231,13 @@ def test_tiny_negative_direction_components_hit(bakes):
     (`traverse.py:229`), which is 0 for d in (-1e-12, 0): that axis then
     culls every node, and the ray misses (ROADMAP Queue 3).  The port's
     answer is the dense one; its BVH kernels take IEEE 1/d with a NaN guard
-    (csrc/bvh.cuh; tests/test_torch_cuda.py holds them on such rays)."""
+    (csrc/bvh.cuh slab_box; tests/test_torch_cuda.py holds them on such
+    rays)."""
     jb, pb = bakes
     o = np.asarray([[0.0, 0.0, 0.0]] * 3, np.float32)
     d = np.asarray([[-1e-13, 0.0, 1.0], [1e-13, 0.0, 1.0], [0.0, -1e-13, 1.0]], np.float32)
     want = intersect_bvh(jb.data.bvh, jb.tris, jnp.asarray(o), jnp.asarray(d), T_MIN)
-    got = cluster.bvh_closest(pb.tri_pack, pb.n_tris, pb.bvh_nodes, torch.from_numpy(o),
+    got = cluster.bvh_closest(pb.bw_rows, pb.n_tris, pb.bvh_pairs, torch.from_numpy(o),
                               torch.from_numpy(d), T_MIN)
     assert (got.tri >= 0).all()
     np.testing.assert_array_equal(np.asarray(want.tri) >= 0, [False, True, False])

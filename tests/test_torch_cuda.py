@@ -278,28 +278,30 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-# 50x37 is no multiple of the BVH kernels' 128-thread block; the shadow
-# rays with no empty lane, and with 30% of them empty (t_max = 0), which the
-# any-hit kernel keeps out of its warps
+# 50x37 is no multiple of the BVH kernels' 128-thread block, nor is
+# 1111x501, whose 556,611 rays are more than twice the persistent kernels'
+# resident lanes on an H100 (132 SMs x at most 2,048), so their loops
+# refill and drain over two full rounds; the shadow rays with no empty
+# lane, and with 30% of them empty (t_max = 0), which the kernels keep out
+# of their warps
 @pytest.mark.parametrize("dead", [0.0, 0.3])
-@pytest.mark.parametrize("w,h", [(64, 36), (50, 37)])
+@pytest.mark.parametrize("w,h", [(64, 36), (50, 37), (1111, 501)])
 @pytest.mark.parametrize("scene", ["pink_room", "cornell_icosphere"])
 def test_bvh_kernels_match_plain(dev, scene, w, h, dead):
     """t, ids, u, v, the 32 fields and the occlusion bits equal their plain
     versions (the dense programs) bit for bit; on Cornell + icosphere they
-    also equal the dense K4 kernels.  The any-hit kernel also on lanes with
-    a NaN origin or direction."""
+    also equal the dense K4 kernels.  The kernels also on lanes with a NaN
+    origin or direction."""
     baked = _baked(dev, scene, w, h)
     args = (baked.tri_pack, baked.n_tris)
-    rows, pairs = cluster.any_hit_tables(baked.data.bvh, baked.tri_pack)
-    any_args = (rows, baked.n_tris, pairs)
-    nodes = baked.bvh_nodes
+    rows, pairs = cluster.pair_tables(baked.data.bvh, baked.tri_pack)
+    walk_args = (rows, baked.n_tris, pairs)
     cuda.reset_launch_counts()
     for kind, cull in (("gbuffer", True), ("bounce", False), ("shadow", False)):
         o, d, tmax = _scene_rays(baked, w, h, kind, dev, dead)
-        kh, kf = cluster.bvh_shaded_fm(*args, nodes, o, d, 1e-3, tmax, cull)
+        kh, kf = cluster.bvh_shaded_fm(*args, rows, pairs, o, d, 1e-3, tmax, cull)
         ph, pf = isect.shaded_plain(*args, o, d, 1e-3, tmax, cull)
-        kc = cluster.bvh_closest(*args, nodes, o, d, 1e-3, tmax, cull)
+        kc = cluster.bvh_closest(*walk_args, o, d, 1e-3, tmax, cull)
         pc = isect.closest_plain(*args, o, d, 1e-3, tmax, cull)
         for got, want in ((kf, pf), (kc.t, pc.t), (kc.tri, pc.tri), (kc.bary_u, pc.bary_u),
                           (kc.bary_v, pc.bary_v), (kh.t, ph.t)):
@@ -318,11 +320,11 @@ def test_bvh_kernels_match_plain(dev, scene, w, h, dead):
     dz = dz / dz.norm(dim=-1, keepdim=True)
     oz = o.reshape(-1, 3)[:16].contiguous()
     for cull in (False, True):
-        kc = cluster.bvh_closest(*args, nodes, oz, dz, 1e-3, None, cull)
+        kc = cluster.bvh_closest(*walk_args, oz, dz, 1e-3, None, cull)
         pc = isect.closest_plain(*args, oz, dz, 1e-3, None, cull)
         assert torch.equal(_bits(kc.t), _bits(pc.t)) and torch.equal(kc.tri, pc.tri)
     o, d, tmax = _scene_rays(baked, w, h, "shadow", dev, dead)
-    got = cluster.bvh_occluded(*any_args, o, d, 1e-3, tmax)
+    got = cluster.bvh_occluded(*walk_args, o, d, 1e-3, tmax)
     assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax))
     assert 0 < int(got.sum()) < int((tmax > 0).sum())
     if scene == "cornell_icosphere":
@@ -330,10 +332,17 @@ def test_bvh_kernels_match_plain(dev, scene, w, h, dead):
     o, d = o.reshape(-1, 3).clone(), d.reshape(-1, 3).clone()
     o[::7, 1] = float("nan")
     d[3::11, 2] = float("nan")
-    got = cluster.bvh_occluded(*any_args, o, d, 1e-3, tmax.reshape(-1))
+    got = cluster.bvh_occluded(*walk_args, o, d, 1e-3, tmax.reshape(-1))
     assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax.reshape(-1)))
     assert not got[::7].any() and not got[3::11].any() and got.any()
-    assert cuda.LAUNCHES["bvh_shaded"] == 3 and cuda.LAUNCHES["bvh_closest"] == 5
+    for cull in (False, True):
+        kh, kf = cluster.bvh_shaded_fm(*args, rows, pairs, o, d, 1e-3, None, cull)
+        ph, pf = isect.shaded_plain(*args, o, d, 1e-3, None, cull)
+        kc = cluster.bvh_closest(*walk_args, o, d, 1e-3, None, cull)
+        assert torch.equal(_bits(kf), _bits(pf))
+        assert torch.equal(_bits(kc.t), _bits(ph.t)) and torch.equal(kc.tri, ph.tri)
+        assert (kc.tri[::7] == -1).all() and (kc.tri[3::11] == -1).all() and kc.hit.any()
+    assert cuda.LAUNCHES["bvh_shaded"] == 5 and cuda.LAUNCHES["bvh_closest"] == 7
     assert cuda.LAUNCHES["bvh_occluded"] == 2
 
 

@@ -206,12 +206,12 @@ def test_nan_and_empty_rays_miss(bakes):
 def test_dense_tier_refuses_more_than_2048_triangles():
     """The dense kernels stage every triangle in shared memory; above 2048
     triangles the intersector takes the BVH kernels (accel/cluster.py),
-    and needs the bake's node table for them."""
+    and needs the bake's two-box BVH table and Baldwin-Weber rows for them."""
     pack = torch.zeros((2056, 48))
     o = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="2048"):
         isect.occluded(pack, 2049, o, o, T_MIN)
-    with pytest.raises(ValueError, match="node table"):
+    with pytest.raises(ValueError, match="two-box BVH table"):
         make_intersector(pack, 2049)
 
 
