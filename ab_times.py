@@ -1,7 +1,7 @@
 """Kernel and frame times of one checkout of the port, for parent/change pairs.
 
     python3 ab_times.py --root DIR [--label NAME] [--out PATH.json]
-                        [--parts splat,closest,any_hit,k1,frames]
+                        [--parts splat,closest,any_hit,dense,k1,frames]
 
 Imports `fyp_bidirectionalpathtracer_tpu_torch` from the checkout at `--root`
 (this file's own checkout by default), builds that checkout's kernels into
@@ -17,8 +17,21 @@ depth 3, with `chip_smoke.py`'s timers (this file's checkout's), the parts
   calls, `graph_ms` and `library_graph_ms` 20 calls replayed from one CUDA
   graph, which leaves out the host's cost of each call;
   K3 also with the host's cost of a call (`host_us`);
-- k1: K1 on the Cornell box and K1's textured variant on the textured room
-  (`defer_textures`), as `chip_smoke.py` phases 4 and 4f call them;
+- dense: the dense any-hit kernel (K4b/K4d) on the est-3-shaped shadow
+  batch ([4, 720, 1280], as `chip_smoke.k4_rays` makes it: 30% of the
+  lanes set empty, the G-buffer's misses empty too; `live` counts the
+  rest) of the Cornell box (34 triangles) and of the textured room
+  (342), and the dense shaded and closest kernels (K4c/K4e, K4a) on the
+  Cornell G-buffer rays: their launches on the packed rays (`ms`, as
+  `chip_smoke.py` phase 4b times them), the answers' digests (the same
+  digest in two checkouts: the same bits) and the kernels' registers;
+  beside them the BVH any-hit kernel's two-box walk on the textured
+  room's batch (`cluster.pair_tables` makes its tables);
+- k1: K1 on the Cornell box, on Cornell + icosphere (subdivisions 1, 2, 3:
+  114, 354, 1,314 triangles) and + two icospheres (674), and K1's textured
+  variant on the textured room (`defer_textures`), as `chip_smoke.py`
+  phases 4 and 4f call them, each with its outputs' digest and its
+  registers;
 - closest: the BVH closest and shaded kernels (K4h/K4j, K4g) on pink_room's
   G-buffer rays (back-face culling on) and one extension batch (off), as
   `chip_smoke.k4_rays` makes them, at subdivisions 3 and 5 (10,546 and
@@ -32,7 +45,9 @@ depth 3, with `chip_smoke.py`'s timers (this file's checkout's), the parts
   (`ms`, as `chip_smoke.py` times it) and the wrapper's whole call
   (`accel/cluster.bvh_occluded`, `wrapper_ms`);
 - frames: frames through `Renderer`: the Cornell megakernel path, the deferred
-  textured room with splat mode "auto" and "tiled", and pink_room (default
+  textured room with splat mode "auto" and "tiled", the textured room's
+  wavefront (exact taps, as `chip_smoke.py` phase 5c drives it, through the
+  dense shaded and any-hit kernels), and pink_room (default
   config, the wavefront with the BVH kernels): device ms/frame (CUDA
   events around 10 frames after 3 warm-up frames), host ms/frame, and the
   device busy time a frame (the union of the kernels' intervals in a
@@ -49,19 +64,38 @@ asks for it, and the BVH kernels the tables theirs ask for.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
+import re
 import subprocess
 import sys
 import time
 from functools import partial
 from pathlib import Path
 
-from chip_smoke import bound, host_us, k4_rays, time_graph_ms, time_ms
+from chip_smoke import (
+    bound,
+    build_report,
+    host_us,
+    k4_rays,
+    kernel_ptxas,
+    time_graph_ms,
+    time_ms,
+)
 
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
 LIVE_FRAC = 0.15
 MIN_T = 1e-3
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes"""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _times(fn, lib_fn) -> dict:
@@ -207,6 +241,62 @@ def any_hit_times(torch, pkg, dev) -> dict:
     return out
 
 
+def dense_times(torch, pkg, dev) -> dict:
+    """The dense any-hit kernel on the Cornell box's and the textured room's
+    shadow batches, the dense shaded and closest kernels on the Cornell
+    G-buffer: launches on packed rays, answers' digests, registers."""
+    isect, cuda, procedural = pkg["intersect"], pkg["cuda"], pkg["procedural"]
+    lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
+    out = {}
+    for label, built in (("Cornell", procedural.cornell_box()),
+                         ("textured room", procedural.textured_room())):
+        bk = _bake(pkg, dev, built)
+        (o_g, d_g), _, (o_s, d_s, tm_s) = k4_rays(bk, WIDTH, HEIGHT, dev)
+        rows_s, _ = isect.rays(o_s, d_s, MIN_T, tm_s)
+        ns = rows_s.shape[1]
+        occ = torch.empty(ns, dtype=torch.bool, device=dev)
+        run = lambda: cuda.check_error("occluded", lib.bdpt_occluded(  # noqa: E731
+            p(rows_s), ns, p(bk.tri_pack), bk.n_tris, p(occ), stream))
+        run()
+        out[f"occluded {label}"] = {"tris": bk.n_tris, "rays": ns,
+                                    "live": int((tm_s > 0).sum()), "occluded": int(occ.sum()),
+                                    "digest": digest(occ), "ms": time_ms(run, 20)}
+        if label != "Cornell":
+            # the BVH any-hit kernel's two-box walk on the same batch
+            bw_rows, pairs = pkg["cluster"].pair_tables(bk.data.bvh, bk.tri_pack)
+            counter = torch.empty(1, dtype=torch.int32, device=dev)
+            occ_w = torch.empty_like(occ)
+            walk = lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(  # noqa: E731
+                p(rows_s), ns, p(bw_rows), p(pairs), p(occ_w), p(counter), stream))
+            walk()
+            out[f"bvh_occluded {label}"] = {"tris": bk.n_tris, "rays": ns,
+                                            "equal_to_dense": bool(torch.equal(occ_w, occ)),
+                                            "ms": time_ms(walk, 20)}
+            continue
+        rows_g, _ = isect.rays(o_g, d_g, 0.0, None)
+        n = rows_g.shape[1]
+        fields = torch.empty((isect.OUT_W, n), device=dev)
+        t = torch.empty(n, device=dev)
+        ids = torch.empty(n, dtype=torch.int32, device=dev)
+        u, v = torch.empty_like(t), torch.empty_like(t)
+        runs = {"shaded": lambda: lib.bdpt_intersect_shaded(
+                    p(rows_g), n, p(bk.tri_pack), bk.n_tris, 1, p(fields), stream),
+                "closest": lambda: lib.bdpt_intersect_closest(
+                    p(rows_g), n, p(bk.tri_pack), bk.n_tris, 1, p(t), p(ids), p(u), p(v),
+                    stream)}
+        for name, launch in runs.items():
+            cuda.check_error(name, launch())
+            out[f"{name} {label}"] = {
+                "tris": bk.n_tris, "rays": n,
+                "digest": digest(fields) if name == "shaded" else digest(t, ids, u, v),
+                "ms": time_ms(lambda: cuda.check_error(name, launch()), 20)}
+    report = pkg["ptxas"]
+    out["dense ptxas"] = {name: kernel_ptxas(report, key) for name, key in (
+        ("occluded_kernel", "15occluded_kernel"), ("shaded_kernel<true>", "13shaded_kernelILb1E"),
+        ("closest_kernel<true>", "14closest_kernelILb1E"))}
+    return out
+
+
 def _cfg(pkg, **kw):
     return pkg["RenderConfig"](width=WIDTH, height=HEIGHT,
                                bdpt=pkg["BDPTConfig"](max_depth=DEPTH, **kw))
@@ -217,20 +307,41 @@ def _bake(pkg, dev, built):
 
 
 def k1_times(torch, pkg, dev) -> dict:
-    """K1 on the Cornell box and K1's textured variant on the textured room."""
+    """K1 on the Cornell box and on Cornell + icosphere, K1's textured
+    variant on the textured room; their outputs' digests and registers."""
     frame_mod, procedural = pkg["frame"], pkg["procedural"]
     jitter = pkg["pixel_jitter_for_frame"](pkg["BDPT_FRAME_INIT"])
     takes_nodes = "nodes" in inspect.signature(frame_mod.frame_kernel).parameters
+    def icosphere_scene(sub, centers=((0.5, 0.5, 0.5),)):
+        built = procedural.cornell_box()
+        for c in centers:
+            built.meshes.append(procedural.icosphere(c, 0.2, 0, subdivisions=sub))
+        return built
+
     out = {}
     for label, built, c, packed in (
             ("K1 Cornell", procedural.cornell_box(), _cfg(pkg), True),
+            *((f"K1 Cornell + icosphere subdivisions={sub}", icosphere_scene(sub), _cfg(pkg),
+               True) for sub in (1, 2, 3)),
+            ("K1 Cornell + two icospheres subdivisions=2",
+             icosphere_scene(2, ((0.3, 0.5, 0.5), (0.7, 0.5, 0.5))), _cfg(pkg), True),
             ("K1 textured", procedural.textured_room(), _cfg(pkg, defer_textures=True), False)):
         bk = _bake(pkg, dev, built)
         args = frame_mod.frame_args(bk, WIDTH, HEIGHT, pkg["BDPT_FRAME_INIT"], jitter, c,
                                     gbuf_frame=pkg["GBUF_FRAME_INIT"], splat_rgb8e=packed)
         extra = (bk.bvh_nodes,) if takes_nodes else ()
-        out[label] = {"ms": time_ms(lambda: frame_mod.frame_kernel(
-            args, bk.light_rows, bk.tri_pack, *extra), 10)}
+        fo = frame_mod.frame_kernel(args, bk.light_rows, bk.tri_pack, *extra)
+        out[label] = {"tris": bk.n_tris, "digest": digest(*vars(fo).values()),
+                      "ms": time_ms(lambda: frame_mod.frame_kernel(
+                          args, bk.light_rows, bk.tri_pack, *extra), 10)}
+    key = f"frame_kernelILi{DEPTH}E"  # every instantiation at DEPTH, by its template tail
+    out["K1 ptxas"] = {}
+    for name, v in pkg["ptxas"].items():
+        if key in name:
+            tail = name[name.index(key) + len(key):].split("EEv")[0]
+            names = [("false", "true")[int(x)] if t == "b" else x
+                     for t, x in re.findall(r"L([bi])(\d+)E", tail)]
+            out["K1 ptxas"][f"frame_kernel<{', '.join([str(DEPTH)] + names)}>"] = v
     return out
 
 
@@ -248,6 +359,9 @@ def frame_times(torch, pkg, dev) -> dict:
                           _cfg(pkg, defer_textures=True, splat_mode="auto")),
                          ("textured room deferred (tiled)", room,
                           _cfg(pkg, defer_textures=True, splat_mode="tiled")),
+                         ("textured room wavefront", room,
+                          _cfg(pkg, megakernel="off", defer_textures=True,
+                               bounce_tex_mean=False)),
                          ("pink_room", pink, _cfg(pkg))):
         r = Renderer(bk, c)
         r.render(3)
@@ -272,7 +386,7 @@ def frame_times(torch, pkg, dev) -> dict:
 
 
 PARTS = {"splat": splat_times, "closest": closest_times, "any_hit": any_hit_times,
-         "k1": k1_times, "frames": frame_times}
+         "dense": dense_times, "k1": k1_times, "frames": frame_times}
 
 
 def main() -> int:
@@ -321,6 +435,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    pkg["ptxas"] = build_report(cuda)
     cuda.library()
     build_s = time.perf_counter() - t0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -13,8 +13,11 @@ replace the cluster and HBM tiers K4f-K4j (bvh_closest, bvh_shaded and
 bvh_occluded, which walk the two-box BVH of `csrc/bvh_pairs.cuh`) and K6
 (`subpath`, the fused subpath builder).  Holds each against its plain
 PyTorch version at the shapes its path gives it (K1 also at every depth the
-gate admits; K3 bit for bit against a sequential sum; the BVH kernels bit
-for bit, on pink_room at 10,546, 41,266 and 164,146 triangles), then
+gate admits; K3 bit for bit against a sequential sum; the dense K4
+kernels also on Cornell + icosphere and the textured room, whose times
+and bounds the kernels line keeps under `*_textured_room` keys; the BVH
+kernels bit for bit, on pink_room at 10,546, 41,266 and 164,146
+triangles), then
 drives the paths through their
 entry points at 1280x720, depth 3, BMFR off: on the Cornell box the
 megakernel main path (K1 -> K2 -> sort -> K3) and the per-bounce wavefront
@@ -45,7 +48,9 @@ the threaded walk's count beside them.  K3 and K5 are printed beside
 `index_add_` of the same rows, each timed as eager calls (`ms`,
 `library_ms`, as every kernel is) and as CUDA-graph replays (`graph_ms`,
 `library_graph_ms`), which leave out the host's cost of each call; K3 also
-with that host cost (`host_us`, `library_host_us`).
+with that host cost (`host_us`, `library_host_us`).  K1's and the dense
+any-hit kernel's registers, stack and spills (`ptxas`) come from the
+`-Xptxas=-v` report of the build.
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
@@ -54,8 +59,11 @@ with their launch counts, errors, times and bounds.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -136,8 +144,9 @@ def pair_flops(isect, tris, o, d, tmin, tmax, cull: bool, closest: bool) -> int:
     stage each pair reaches (STAGE_FLOPS): closest hit visits every
     triangle and takes the third stage where t lies between tmin and the
     best t of the lower ids so far; any-hit stops at its first hit and
-    takes the third stage where t lies in (tmin, tmax).  Counted in
-    [rays x tris] chunks from the plain pair test."""
+    takes the third stage where t lies in (tmin, tmax).  A dead ray (tmax
+    <= tmin, or NaN) needs no pair.  Counted in [rays x tris] chunks from
+    the plain pair test."""
     n_tris = tris.shape[0]
     ids = torch.arange(n_tris, device=tris.device)
     s1, s2, s3 = STAGE_FLOPS
@@ -157,6 +166,7 @@ def pair_flops(isect, tris, o, d, tmin, tmax, cull: bool, closest: bool) -> int:
             limit = hi
             first = torch.where(valid.any(1), valid.to(torch.uint8).argmax(1), n_tris - 1)
             visited = ids[None] <= first[:, None]
+        visited &= hi > lo
         reached = visited & dir_ok
         total += (s1 * int(visited.sum()) + s2 * int(reached.sum())
                   + s3 * int((reached & (t > lo) & (t < limit)).sum()))
@@ -279,6 +289,51 @@ def host_us(fn, calls: int = 1000) -> float:
     return us
 
 
+def ptxas_report(log: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes, by its mangled
+    name, from the `-Xptxas=-v` lines of a verbose build's log."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and props in out:
+            out[props].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m[1])
+    return out
+
+
+def build_report(cuda) -> dict:
+    """Build the kernels of a checkout (`cuda`, its module) and return the
+    ptxas report of the build that made its library: the nvcc log the
+    module keeps beside the library, or, for a checkout whose module keeps
+    none, the output of a verbose build this call makes ({} where the
+    library was built before)."""
+    if hasattr(cuda, "BUILD_LOG"):
+        return ptxas_report((cuda.build().parent / cuda.BUILD_LOG).read_text())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cuda.build(verbose=True)
+    return ptxas_report(buf.getvalue())
+
+
+def kernel_ptxas(report: dict, key: str) -> dict:
+    """The report's entry of the kernel whose mangled name holds `key`
+    (e.g. "frame_kernelILi3ELb0E": frame_kernel<3, false>), or {}."""
+    hits = [v for k, v in report.items() if key in k]
+    return hits[0] if len(hits) == 1 else {}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -324,7 +379,7 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda.build()
+    ptxas = build_report(cuda)
     cuda.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
     kernels = {}
@@ -550,6 +605,11 @@ def main() -> int:
     k1_plain = time_ms(lambda: frame_mod.frame_plain(args, baked.light_rows, baked.tri_pack),
                        1, warmup=1)
     log(f"K1 alone at {WIDTH}x{HEIGHT} Cornell: kernel {k1_ms:.4f} ms, plain {k1_plain:.2f} ms")
+    # Cornell's instantiation: the small scenes' (frame_launch.cuh)
+    k1_ptxas = kernel_ptxas(ptxas, f"frame_kernelILi{DEPTH}ELb0ELi4E")
+    log(f"K1 frame_kernel<{DEPTH}, false, 4> ptxas: "
+        f"{k1_ptxas or 'not reported (built earlier)'}; frame_kernel<{DEPTH}, false, 1>: "
+        f"{kernel_ptxas(ptxas, f'frame_kernelILi{DEPTH}ELb0ELi1E') or 'not reported'}")
     # bound: bytes: the four output rows plus 20 G-buffer rows (float32) and
     # two int32 splat rows a depth; operations: the ray queries of the rays
     # the plain frame traces (those the kernel traces), as the kernel runs
@@ -607,7 +667,8 @@ def main() -> int:
     # max_abs_err includes the edge-tie pixels the statistical bounds admit;
     # max_frac_over_1e-3 is the worst share of pixels off by more than 1e-3
     kernels["frame"] = dict(max_abs_err=k1_err, max_frac_over_1e_3=k1_frac,
-                            ms=k1_ms, plain_ms=k1_plain, library_ms=None, **k1_bd)
+                            ms=k1_ms, plain_ms=k1_plain, library_ms=None, ptxas=k1_ptxas,
+                            **k1_bd)
 
     # the whole frame after the splats: K1 + K2 + sort + K3 against the
     # plain chain, through `render_frame_megakernel`
@@ -774,7 +835,10 @@ def main() -> int:
             fields_ok = bool((df <= 2e-4).all())
         return t_ok and ties_ok and fields_ok, err, same_bits
 
-    def check_k4(bk, w, h, record: bool):
+    def check_k4(bk, w, h, record=None):
+        """The K4 kernels on `bk`'s rays against their plain versions, then
+        timed; `record`: the suffix of the kernels line's keys for these
+        times ("" for the main keys; None records nothing)."""
         (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(bk, w, h, dev)
         args = (bk.tri_pack, bk.n_tris)
         n = w * h
@@ -832,9 +896,10 @@ def main() -> int:
             "closest": lambda: isect.closest_plain(*args, o_g, d_g, 0.0, None, True),
             "occluded": lambda: isect.occluded_plain(*args, o_s, d_s, MIN_T, tm_s),
         }
-        # bytes: the eight float32 ray rows in; out 32 float32 fields
-        # (shaded), t id u v (closest), one byte (any-hit); operations: the
-        # pair tests these rays need (pair_flops)
+        # bytes: the eight float32 ray rows in (tmin and tmax alone for a
+        # dead ray, tmax <= tmin); out 32 float32 fields (shaded), t id u v
+        # (closest), one byte (any-hit); operations: the pair tests these
+        # rays need (pair_flops)
         out_bytes = {"shaded": 4.0 * isect.OUT_W, "closest": 16.0, "occluded": 1.0}
         tris = bk.tri_pack[:bk.n_tris]
         o_g_, d_g_, tmin_g, tmax_g = isect.components(rows_g)
@@ -842,22 +907,32 @@ def main() -> int:
         flops_g = pair_flops(isect, tris, o_g_, d_g_, tmin_g, tmax_g, True, True)
         flops = {"shaded": flops_g, "closest": flops_g,
                  "occluded": pair_flops(isect, tris, o_s_, d_s_, tmin_s, tmax_s, False, False)}
+        live_g, live_s = int((tmax_g > tmin_g).sum()), int((tmax_s > tmin_s).sum())
         for name in ("shaded", "closest", "occluded"):
-            rays = ns if name == "occluded" else n
+            rays, n_live = (ns, live_s) if name == "occluded" else (n, live_g)
             ms = time_ms(lambda: cuda.check_error(name, launches[name]()), 20)
             plain_ms = time_ms(plains[name], 3)
-            bd = bound(rays * (32.0 + out_bytes[name]) + 48.0 * 4 * bk.n_tris,
+            bd = bound(n_live * 24.0 + rays * (8.0 + out_bytes[name]) + 48.0 * 4 * bk.n_tris,
                        float(flops[name]))
-            log(f"K4 {name} {bk.n_tris} tris, {rays} rays: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+            log(f"K4 {name} {bk.n_tris} tris, {rays} rays ({n_live} live): kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
                 f"{flops[name]} pair-test operations)")
-            if record:
-                err = (max(e for e, _ in results[name]) if name in results else 0.0)
+            err = max(e for e, _ in results[name]) if name in results else 0.0
+            if record == "":
                 kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                      library_ms=None, **bd)
+            elif record is not None and name != "closest":
+                kernels[name].update({f"{k}{record}": v for k, v in dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, tris=bk.n_tris,
+                    bound_ms=bd["bound_ms"], bound_by=bd["bound_by"]).items()})
 
-    check_k4(cornell, WIDTH, HEIGHT, record=True)
-    check_k4(scene("cornell_icosphere", 256, 144), 256, 144, record=False)
+    check_k4(cornell, WIDTH, HEIGHT, record="")
+    kernels["occluded"]["ptxas"] = kernel_ptxas(ptxas, "15occluded_kernel")
+    log(f"K4 any-hit occluded_kernel ptxas: {kernels['occluded']['ptxas'] or 'not reported'}")
+    check_k4(scene("cornell_icosphere", 256, 144), 256, 144)
+    # the textured room (342 triangles): the dense any-hit kernel on its
+    # shadow batch and the shaded kernel on its G-buffer, beside Cornell's
+    check_k4(room(WIDTH, HEIGHT), WIDTH, HEIGHT, record="_textured_room")
 
     # the closest kernel on its path: the unfused tracer's G-buffer
     # (make_intersector closest hit + prepare_shading_data) against the

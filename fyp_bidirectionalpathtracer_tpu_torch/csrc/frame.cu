@@ -48,13 +48,55 @@
 // of the program (163-232 a thread at D = 3, 4), which leave few warps
 // resident to hide the latency of each dependent read.
 //
+// Occupancy of the untextured instantiations: at 163 registers an SM holds
+// three blocks of 128 threads.  Held to four (__launch_bounds__(128, 4):
+// 128 registers, ~300 B of spills at D = 3), K1 ran ~10% faster on scenes
+// of 34, 114, 354 and 674 triangles, and ~8% slower at 1,314, whose rows
+// (63 KB a block) leave room for three blocks an SM, so the spills bought
+// no warps (1280x720, d = 3; NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  So
+// a scene whose rows let four blocks share an SM (1,194 triangles at most
+// on the H100) launches the four-block instantiations of frame_small.cu,
+// and a larger one these; the answers are the same.  A 256-thread block
+// was slower at every size.  A pair step that tested each row against
+// several rays held in registers (16-byte row loads, several rows a step,
+// a division-free reject before the division; not kept) and shadow rays
+// batched by estimator family were also tried for K1's queries and ran 10-60% slower than intersect.cuh's
+// loops, which K1 keeps (why is not measured: no profiler runs on the
+// card).
+//
 // The textured variant (Textured = true, d_max 1..4, the TPU kernel's
 // textured=True program) stores the deferred-texture records and raw
 // estimator parts to their own field-major outputs as each is produced,
 // in place of the own-pixel result; the untextured instantiations are
 // unchanged by it.  Its launch is in frame_textured.cu, built without FMA
-// contraction (see there); the kernel template in frame_launch.cuh.
+// contraction (see there); the kernel template in frame_launch.cuh, the
+// small scenes' instantiations in frame_small.cu.
+#include <atomic>
+
 #include "frame_launch.cuh"
+
+namespace bdpt {
+
+// Do kSmallSceneBlocks blocks, each with the rows of n_tris triangles in
+// shared memory, fit on one SM of the current device?  The room a block
+// may take for that is read from the driver once a device.
+static bool small_blocks_fit(int n_tris) {
+  constexpr int kDevices = 64;
+  static std::atomic<long long> room[kDevices];  // bytes + 1; 0: not read yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  long long r = dev < kDevices ? room[dev].load(std::memory_order_relaxed) : 0;
+  if (r == 0) {
+    int per_sm = 0, reserved = 0;
+    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    r = (long long)(per_sm / kSmallSceneBlocks - reserved) + 1;
+    if (dev < kDevices) room[dev].store(r, std::memory_order_relaxed);
+  }
+  return (long long)n_tris * kBwCols * (long long)sizeof(float) <= r - 1;
+}
+
+}  // namespace bdpt
 
 extern "C" int bdpt_frame_launch(const bdpt::FrameParams* params, int d_max,
                                  const float* lights, const float* tris, float* res,
@@ -64,15 +106,7 @@ extern "C" int bdpt_frame_launch(const bdpt::FrameParams* params, int d_max,
   const bdpt::FrameOutPtrs out = {res, gbuf, splat_pix, splat_pay, splat_rgba,
                                   nullptr, nullptr, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (d_max) {
-    case 1: return bdpt::launch_frame<1>(p, lights, tris, nullptr, 0, out, s);
-    case 2: return bdpt::launch_frame<2>(p, lights, tris, nullptr, 0, out, s);
-    case 3: return bdpt::launch_frame<3>(p, lights, tris, nullptr, 0, out, s);
-    case 4: return bdpt::launch_frame<4>(p, lights, tris, nullptr, 0, out, s);
-    case 5: return bdpt::launch_frame<5>(p, lights, tris, nullptr, 0, out, s);
-    case 6: return bdpt::launch_frame<6>(p, lights, tris, nullptr, 0, out, s);
-    case 7: return bdpt::launch_frame<7>(p, lights, tris, nullptr, 0, out, s);
-    case 8: return bdpt::launch_frame<8>(p, lights, tris, nullptr, 0, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bdpt::small_blocks_fit(p.n_tris))
+    return bdpt::launch_frame_small(p, d_max, lights, tris, out, s);
+  return bdpt::launch_frame_d<false, 1, 8>(d_max, p, lights, tris, nullptr, 0, out, s);
 }

@@ -23,11 +23,5 @@ extern "C" int bdpt_frame_textured_launch(const bdpt::FrameParams* params, int d
                                   vrec, e1, e3};
   cudaStream_t s = (cudaStream_t)stream;
   if (p.splat_rgb8e) return (int)cudaErrorInvalidValue;
-  switch (d_max) {
-    case 1: return bdpt::launch_frame<1, true>(p, lights, tris, nodes, n_nodes, out, s);
-    case 2: return bdpt::launch_frame<2, true>(p, lights, tris, nodes, n_nodes, out, s);
-    case 3: return bdpt::launch_frame<3, true>(p, lights, tris, nodes, n_nodes, out, s);
-    case 4: return bdpt::launch_frame<4, true>(p, lights, tris, nodes, n_nodes, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bdpt::launch_frame_d<true, 1, 4>(d_max, p, lights, tris, nodes, n_nodes, out, s);
 }

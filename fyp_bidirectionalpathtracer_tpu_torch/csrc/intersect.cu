@@ -21,10 +21,33 @@
 // tie rule (the lowest id wins at equal t).
 //
 // What bounds them on the H100: on the Cornell box (34 triangles) the bytes
-// of the rays and the outputs (32 B in; 16 B out for closest, 128 B for
-// shaded, 1 B for occluded), at 3.35 TB/s; with about 39 flops a pair, the
-// pair tests pass that bound from a few hundred triangles up (67 TFLOP/s
-// in float32).  The any-hit loop stops at its first hit.
+// of the rays and the outputs (32 B in, 8 B for a dead ray's tmin and
+// tmax; 16 B out for closest, 128 B for shaded, 1 B for occluded), at
+// 3.35 TB/s; with 5 to 39 flops a pair by the test it reaches, the pair
+// tests pass that bound from a few hundred triangles up (67 TFLOP/s in
+// float32).  The any-hit loop stops at its first hit, and a dead ray
+// needs no pair.
+//
+// The any-hit kernel's shadow batches are mostly dead lanes (tmax <= tmin:
+// 83% of the est-3-shaped batch on Cornell, 79% on the textured room), and
+// with one ray a thread a warp ran its few live lanes through every row
+// while the dead ones idled.  So a block lists its live rays first (warp
+// ballots into shared memory) and its threads then take only those.  On an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md) that took the launch from 0.129
+// to ~0.068 ms on Cornell's batch and from 1.43 to ~0.71 on the textured
+// room's (342 triangles); 1,024 rays a block beat 512, 2,048 and 4,096.
+// That is 4.8x its bytes bound on Cornell (0.0143 ms) and 9.7x its
+// operations bound on the textured room (0.0737 ms: the pair tests of the
+// live rays alone).
+// Tried on the pair loop and left out: several rays a thread against each
+// row read (slower), several rows a step with 16-byte row loads (within
+// 1%), a reject of the pairs whose t falls outside (tmin, tmax) before
+// the division (exact, but 5-17% slower: a warp divides whenever one of
+// its lanes must), and persistent warps that refill from a ring of rows
+// (slower).  On
+// the textured room's batch the BVH any-hit kernel's two-box walk takes
+// 0.28 ms for the same answers, so the dense tier's 2048 triangles are too
+// many for this kernel; the bake sets that limit.
 //
 // Miss lanes: t = tmax (the wrapper maps it to 1e30), id -1, u = v = 0,
 // and every attribute field 0, as the TPU kernels' one-hot fetch gives for
@@ -36,6 +59,7 @@
 namespace bdpt {
 
 constexpr int kRayThreads = 256;
+constexpr int kAnyHitChunk = 4;  // the any-hit kernel's rays a block, per thread
 
 __device__ __forceinline__ void stage_bw(float* smem, const float* __restrict__ tris,
                                          int n_tris) {
@@ -81,15 +105,41 @@ __global__ void __launch_bounds__(kRayThreads)
   for (int k = 0; k < kOutW; ++k) out[k * N + i] = f[k];
 }
 
+// The any-hit kernel.  A block takes kRayThreads x kAnyHitChunk rays: it
+// answers the dead ones (tmax <= tmin) at once, lists the others in shared
+// memory behind the rows (a warp's live lanes in order), then its threads
+// take the listed rays in turn, one a thread.
 __global__ void __launch_bounds__(kRayThreads)
     occluded_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
                     int n_tris, bool* __restrict__ out) {
   extern __shared__ float bw[];
+  int* live = reinterpret_cast<int*>(bw + n_tris * kBwCols);
+  __shared__ int n_live;
+  if (threadIdx.x == 0) n_live = 0;
   stage_bw(bw, tris, n_tris);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rows, (size_t)n, (size_t)i);
-  out[i] = occluded<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax);
+  constexpr unsigned kFull = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  const int base = blockIdx.x * (kRayThreads * kAnyHitChunk);
+#pragma unroll
+  for (int k = 0; k < kAnyHitChunk; ++k) {
+    const int i = base + k * kRayThreads + threadIdx.x;
+    bool is_live = false;
+    if (i < n) {
+      is_live = rows[7 * (size_t)n + i] > rows[6 * (size_t)n + i];
+      if (!is_live) out[i] = false;
+    }
+    const unsigned m = __ballot_sync(kFull, is_live);
+    int slot = 0;
+    if (lane == 0 && m) slot = atomicAdd(&n_live, __popc(m));
+    slot = __shfl_sync(kFull, slot, 0);
+    if (is_live) live[slot + __popc(m & ((1u << lane) - 1))] = i;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_live; j += kRayThreads) {
+    const int i = live[j];
+    const Ray r = load_ray(rows, (size_t)n, (size_t)i);
+    out[i] = occluded<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax);
+  }
 }
 
 template <typename Kernel, typename... Args>
@@ -128,6 +178,14 @@ extern "C" int bdpt_intersect_shaded(const float* rows, int n, const float* tris
 
 extern "C" int bdpt_occluded(const float* rows, int n, const float* tris, int n_tris,
                              bool* occ, void* stream) {
-  return bdpt::launch(bdpt::occluded_kernel, n, n_tris, (cudaStream_t)stream, rows, n, tris,
-                      n_tris, occ);
+  using namespace bdpt;
+  if (n <= 0) return 0;
+  const int per_block = kRayThreads * kAnyHitChunk;
+  const size_t smem = (size_t)n_tris * kBwCols * sizeof(float) + per_block * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(occluded_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  occluded_kernel<<<(n + per_block - 1) / per_block, kRayThreads, smem, (cudaStream_t)stream>>>(
+      rows, n, tris, n_tris, occ);
+  return (int)cudaGetLastError();
 }

@@ -12,7 +12,11 @@ operations one for one) and linked (`nvcc -shared`) into one
 library with a plain `extern "C"` interface, loaded with ctypes.  The
 library lands in `build/torch_kernels/<hash>/` at the root of the
 checkout, keyed by a hash of the sources, so a checkout builds its own
-kernels from its own sources.  A failed build raises with nvcc's output.
+kernels from its own sources.  nvcc runs with `-Xptxas=-v`, and its
+output (each kernel's registers, stack and spills) is kept beside the
+library as `nvcc.log`, written before the library is, so the log is
+always that of the library's build.  A failed build raises with nvcc's
+output.
 
 Each kernel wrapper counts its launches in `LAUNCHES`; a run resets the
 counts with `reset_launch_counts()` and reads them to show which kernels
@@ -33,14 +37,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("frame.cu", "frame_textured.cu", "compact.cu", "intersect.cu", "bvh.cu",
-           "splat_rows.cu", "subpath.cu")
+SOURCES = ("frame.cu", "frame_small.cu", "frame_textured.cu", "compact.cu", "intersect.cu",
+           "bvh.cu", "splat_rows.cu", "subpath.cu")
 HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "frame_launch.cuh", "bvh.cuh",
            "bvh_pairs.cuh", "subpath.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {"subpath.cu": ("-fmad=false",), "frame_textured.cu": ("-fmad=false",)}
 LIB_NAME = "libbdpt_kernels.so"
+BUILD_LOG = "nvcc.log"
 
 LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
             "splat_rows": 0, "closest": 0, "shaded": 0, "occluded": 0,
@@ -104,7 +109,8 @@ def _start(cmd):
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless this source hash is built; returns the .so."""
+    """Compile the kernels unless this source hash is built; returns the .so.
+    verbose: print nvcc's output of a build this call makes."""
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -113,8 +119,7 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / (s + ".o") for s in SOURCES]
-        extra = ["-Xptxas=-v"] if verbose else []
-        log = _run([_start([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), *extra, "-I",
+        log = _run([_start([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-Xptxas=-v", "-I",
                             str(CSRC), "-c", str(CSRC / s), "-o", str(o)])
                     for s, o in zip(SOURCES, objs)])
         tmp_lib = Path(tmp) / LIB_NAME
@@ -122,6 +127,8 @@ def build(verbose: bool = False) -> Path:
                              *map(str, objs)])])
         if verbose:
             print(log)
+        (Path(tmp) / BUILD_LOG).write_text(log)
+        os.replace(Path(tmp) / BUILD_LOG, out_dir / BUILD_LOG)
         os.replace(tmp_lib, lib_path)
     return lib_path
 

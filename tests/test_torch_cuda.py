@@ -240,6 +240,34 @@ def test_k4_kernels_match_plain(dev, scene, w, h):
     assert cuda.LAUNCHES["occluded"] == 1
 
 
+def test_dense_any_hit_on_the_textured_room(dev):
+    """The dense any-hit kernel bit for bit against its plain version on the
+    textured room's (342 triangles) est-3-shaped shadow batch: from the
+    G-buffer hits toward random points of the room, 30% of the lanes empty,
+    NaN lanes; 4 x 101 x 67 = 27,068 rays, no multiple of the kernel's
+    block of 256 threads x 4 rays."""
+    w, h = 101, 67
+    baked = Scene.from_built(textured_room(), aspect=w / h).bake(device=dev)
+    args = (baked.tri_pack, baked.n_tris)
+    o_g, d_g, _ = _k4_rays(baked, w, h, "gbuffer", dev)
+    hit, _ = isect.intersect_shaded_fm(*args, o_g, d_g, 0.0, None, True)
+    pos = o_g + hit.t[..., None] * d_g
+    g = torch.Generator().manual_seed(11)
+    lo, hi = (x[0].to(dev) for x in (baked.data.bvh.node_min, baked.data.bvh.node_max))
+    vec = lo + (hi - lo) * torch.rand((4, h, w, 3), generator=g).to(dev) - pos
+    length = vec.norm(dim=-1)
+    empty = torch.rand((4, h, w), generator=g).to(dev) < 0.3
+    tmax = torch.where(empty | ~hit.hit, 0.0, length - 1e-3)
+    o, d = pos.expand(4, h, w, 3).clone(), vec / length[..., None]
+    o[0, 0, :5, 0] = float("nan")
+    d[1, 1, :5, 2] = float("nan")
+    cuda.reset_launch_counts()
+    got = isect.occluded(*args, o, d, 1e-3, tmax)
+    assert cuda.LAUNCHES["occluded"] == 1 and got.numel() % 1024 != 0
+    assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax))
+    assert 0 < int(got.sum()) < int((tmax > 0).sum())
+
+
 @pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
 def test_wavefront_frame_matches_plain_chain(dev, w, h):
     baked = _baked(dev, "cornell", w, h)

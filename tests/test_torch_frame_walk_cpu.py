@@ -82,15 +82,21 @@ static inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x
 #include "frame_program.cuh"
 using namespace bdpt;
 
-extern "C" void frame_pixels(const FrameParams* p, int textured, int rn, const float* lights,
-                             const float* bw, const float* nodes, const float* tris,
-                             float* res, float* gbuf, int* splat_pix, int* splat_pay,
-                             float* splat_rgba, float* vrec, float* e1, float* e3) {
+// frame_pixel<d, textured> on every pixel: d = 3 textured, 1..3 untextured
+extern "C" void frame_pixels(const FrameParams* p, int d, int textured, int rn,
+                             const float* lights, const float* bw, const float* nodes,
+                             const float* tris, float* res, float* gbuf, int* splat_pix,
+                             int* splat_pay, float* splat_rgba, float* vrec, float* e1,
+                             float* e3) {
   rounded = rn;
   const FrameOutPtrs out = {res, gbuf, splat_pix, splat_pay, splat_rgba, vrec, e1, e3};
   for (int lin = 0; lin < p->width * p->height; ++lin) {
     if (textured)
       frame_pixel<3, true>(*p, lights, bw, nodes, tris, lin, out);
+    else if (d == 1)
+      frame_pixel<1, false>(*p, lights, bw, nodes, tris, lin, out);
+    else if (d == 2)
+      frame_pixel<2, false>(*p, lights, bw, nodes, tris, lin, out);
     else
       frame_pixel<3, false>(*p, lights, bw, nodes, tris, lin, out);
   }
@@ -132,7 +138,7 @@ def lib(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     out = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    out.frame_pixels.argtypes = [p, i, i] + [p] * 12
+    out.frame_pixels.argtypes = [p, i, i, i] + [p] * 12
     out.trace.argtypes = [p, i, p, i, p, i, i, p, p]
     return out
 
@@ -163,7 +169,7 @@ ROUNDED = ("sqrt", "sin", "cos", "exp", "log", "pow")
 
 
 def _device_frame(lib, args, baked, rounded, monkeypatch):
-    """frame_pixel<3, textured> on every pixel, into zeroed rows shaped as
+    """frame_pixel<d_max, textured> on every pixel, into zeroed rows shaped as
     frame_plain's outputs; `rounded`: both sides' elementary functions in
     float64 rounded to float32."""
     if rounded:
@@ -176,7 +182,7 @@ def _device_frame(lib, args, baked, rounded, monkeypatch):
     got = frame_mod.FrameOut(**{k: None if v is None else torch.zeros_like(v)
                                 for k, v in vars(want).items()})
     params, bw = frame_mod._params(args), _bw(baked)  # bw lives through the call
-    lib.frame_pixels(ctypes.byref(params), int(args.textured), int(rounded),
+    lib.frame_pixels(ctypes.byref(params), args.d_max, int(args.textured), int(rounded),
                      _ptr(baked.light_rows), _ptr(bw), _ptr(baked.bvh_nodes),
                      _ptr(baked.tri_pack),
                      *(_ptr(getattr(got, k)) for k in ("res", "gbuf", "splat_pix", "splat_pay",
@@ -236,6 +242,20 @@ def test_untextured_program_matches_plain(lib, scenes, rounded, monkeypatch):
     assert not args.textured and args.n_tris == 1314
     got, want = _device_frame(lib, args, baked, rounded, monkeypatch)
     _assert_rows_match(got, want, rounded, {"gbuf": [3]})
+    assert int((want.splat_pix < args.n_pix).sum()) > 0
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_untextured_program_matches_plain_at_low_depth(lib, scenes, d, monkeypatch):
+    """The untextured program at d = 1 and 2 (one or two light vertices, no
+    or one est-3 connection), "rounded": bit for bit as at d = 3."""
+    baked = scenes["cornell_icosphere"]
+    cfg = RenderConfig(width=W, height=H, bdpt=BDPTConfig(max_depth=d))
+    args = frame_mod.frame_args(baked, W, H, FRAME, pixel_jitter_for_frame(FRAME), cfg,
+                                splat_rgb8e=True)
+    assert args.d_max == d
+    got, want = _device_frame(lib, args, baked, True, monkeypatch)
+    _assert_rows_match(got, want, True, {})
     assert int((want.splat_pix < args.n_pix).sum()) > 0
 
 
