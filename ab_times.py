@@ -1,7 +1,8 @@
 """Kernel and frame times of one checkout of the port, for parent/change pairs.
 
     python3 ab_times.py --root DIR [--label NAME] [--out PATH.json]
-                        [--parts splat,closest,any_hit,dense,k1,frames]
+                        [--parts splat,compact,closest,any_hit,dense,lanes,k1,frames]
+                        [--variant NAME=VALUE,...]
 
 Imports `fyp_bidirectionalpathtracer_tpu_torch` from the checkout at `--root`
 (this file's own checkout by default), builds that checkout's kernels into
@@ -17,16 +18,32 @@ depth 3, with `chip_smoke.py`'s timers (this file's checkout's), the parts
   calls, `graph_ms` and `library_graph_ms` 20 calls replayed from one CUDA
   graph, which leaves out the host's cost of each call;
   K3 also with the host's cost of a call (`host_us`);
+- compact: K2 (`compact_live`) on U = 2,764,800 updates, 15% live, as
+  `chip_smoke.py` phase 2 makes them: its outputs' digest, eager and
+  graph-replayed ms, the host's us a call and the device operations of
+  one call (kernels and memsets, from a profiler trace), beside
+  `torch.sort(stable=True)` of all U and the bytes bound;
 - dense: the dense any-hit kernel (K4b/K4d) on the est-3-shaped shadow
   batch ([4, 720, 1280], as `chip_smoke.k4_rays` makes it: 30% of the
   lanes set empty, the G-buffer's misses empty too; `live` counts the
   rest) of the Cornell box (34 triangles) and of the textured room
-  (342), and the dense shaded and closest kernels (K4c/K4e, K4a) on the
-  Cornell G-buffer rays: their launches on the packed rays (`ms`, as
-  `chip_smoke.py` phase 4b times them), the answers' digests (the same
-  digest in two checkouts: the same bits) and the kernels' registers;
-  beside them the BVH any-hit kernel's two-box walk on the textured
-  room's batch (`cluster.pair_tables` makes its tables);
+  (342), and the dense shaded and closest kernels (K4c/K4e, K4a) on each
+  scene's G-buffer rays (culling on) and extension batch (BRDF samples
+  from the G-buffer hits, culling off): their launches on the packed
+  rays (`ms`, as `chip_smoke.py` phase 4b times them), the answers'
+  digests (the same digest in two checkouts: the same bits) and the
+  kernels' registers; beside them, on the same batches, the BVH
+  kernels' two-box walks (`bvh_occluded`, `bvh_shaded`;
+  `cluster.pair_tables` makes their tables) and whether their answers
+  equal the dense kernels'; and the shaded kernel on the batches one
+  wavefront frame of each scene gives it (`frame batch k`: k = 0 the
+  G-buffer, then the extensions, terminated lanes included), captured
+  from `intersect.intersect_shaded_fm`'s calls, each with its digest, its
+  live rays and its bound (`chip_smoke.py`'s bytes and `pair_flops`), and
+  their sum over the frame;
+- lanes: the share of terminated lanes in each extension batch of one
+  Cornell and one textured-room wavefront frame, which `passes/bdpt.py`
+  traces with the live ones;
 - k1: K1 on the Cornell box, on Cornell + icosphere (subdivisions 1, 2, 3:
   114, 354, 1,314 triangles) and + two icospheres (674), and K1's textured
   variant on the textured room (`defer_textures`), as `chip_smoke.py`
@@ -54,6 +71,12 @@ depth 3, with `chip_smoke.py`'s timers (this file's checkout's), the parts
   `torch.profiler` trace of 5 frames, by the checkout's `frame_profile`)
   with the idle share it leaves.
 
+`--variant NAME=VALUE,...` times a copy of the checkout's package, made
+under `build/ab_variants/` of this file's checkout, in which each
+`constexpr int NAME = ...;` of `csrc/intersect.cu` is set to VALUE (for
+example `kClosestRays=4` or `kClosestThreads=128`): the dense kernels'
+variants, timed in the same call as the checkout itself.
+
 Prints one JSON object (and writes it to `--out`).  Run it on parent and
 change in turns in one call (parent, change, change, parent), each checkout
 unpacked from `git archive` into a directory that `.gitignore` lists, so the
@@ -68,6 +91,7 @@ import hashlib
 import inspect
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -75,17 +99,18 @@ from functools import partial
 from pathlib import Path
 
 from chip_smoke import (
+    LIVE_FRAC,
     bound,
     build_report,
     host_us,
     k4_rays,
     kernel_ptxas,
+    pair_flops,
     time_graph_ms,
     time_ms,
 )
 
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
-LIVE_FRAC = 0.15
 MIN_T = 1e-3
 
 
@@ -243,15 +268,18 @@ def any_hit_times(torch, pkg, dev) -> dict:
 
 def dense_times(torch, pkg, dev) -> dict:
     """The dense any-hit kernel on the Cornell box's and the textured room's
-    shadow batches, the dense shaded and closest kernels on the Cornell
-    G-buffer: launches on packed rays, answers' digests, registers."""
+    shadow batches; the dense shaded and closest kernels on their G-buffer
+    rays (culling on) and an extension batch (off), beside the BVH kernels'
+    two-box walks on the same batches: launches on packed rays, answers'
+    digests, registers."""
     isect, cuda, procedural = pkg["intersect"], pkg["cuda"], pkg["procedural"]
     lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
     out = {}
-    for label, built in (("Cornell", procedural.cornell_box()),
-                         ("textured room", procedural.textured_room())):
+    for label, built, kw in (("Cornell", procedural.cornell_box(), {}),
+                             ("textured room", procedural.textured_room(),
+                              dict(defer_textures=True, bounce_tex_mean=False))):
         bk = _bake(pkg, dev, built)
-        (o_g, d_g), _, (o_s, d_s, tm_s) = k4_rays(bk, WIDTH, HEIGHT, dev)
+        (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(bk, WIDTH, HEIGHT, dev)
         rows_s, _ = isect.rays(o_s, d_s, MIN_T, tm_s)
         ns = rows_s.shape[1]
         occ = torch.empty(ns, dtype=torch.bool, device=dev)
@@ -261,39 +289,163 @@ def dense_times(torch, pkg, dev) -> dict:
         out[f"occluded {label}"] = {"tris": bk.n_tris, "rays": ns,
                                     "live": int((tm_s > 0).sum()), "occluded": int(occ.sum()),
                                     "digest": digest(occ), "ms": time_ms(run, 20)}
-        if label != "Cornell":
-            # the BVH any-hit kernel's two-box walk on the same batch
-            bw_rows, pairs = pkg["cluster"].pair_tables(bk.data.bvh, bk.tri_pack)
-            counter = torch.empty(1, dtype=torch.int32, device=dev)
-            occ_w = torch.empty_like(occ)
-            walk = lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(  # noqa: E731
-                p(rows_s), ns, p(bw_rows), p(pairs), p(occ_w), p(counter), stream))
-            walk()
-            out[f"bvh_occluded {label}"] = {"tris": bk.n_tris, "rays": ns,
-                                            "equal_to_dense": bool(torch.equal(occ_w, occ)),
-                                            "ms": time_ms(walk, 20)}
-            continue
-        rows_g, _ = isect.rays(o_g, d_g, 0.0, None)
-        n = rows_g.shape[1]
+        # the BVH kernels' two-box walks on the same batches
+        bw_rows, pairs = pkg["cluster"].pair_tables(bk.data.bvh, bk.tri_pack)
+        counter = torch.empty(1, dtype=torch.int32, device=dev)
+        occ_w = torch.empty_like(occ)
+        walk = lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(  # noqa: E731
+            p(rows_s), ns, p(bw_rows), p(pairs), p(occ_w), p(counter), stream))
+        walk()
+        out[f"bvh_occluded {label}"] = {"tris": bk.n_tris, "rays": ns,
+                                        "equal_to_dense": bool(torch.equal(occ_w, occ)),
+                                        "ms": time_ms(walk, 20)}
+        n = o_g.shape[0] * o_g.shape[1]
         fields = torch.empty((isect.OUT_W, n), device=dev)
+        fields_w = torch.empty_like(fields)
         t = torch.empty(n, device=dev)
         ids = torch.empty(n, dtype=torch.int32, device=dev)
         u, v = torch.empty_like(t), torch.empty_like(t)
-        runs = {"shaded": lambda: lib.bdpt_intersect_shaded(
-                    p(rows_g), n, p(bk.tri_pack), bk.n_tris, 1, p(fields), stream),
-                "closest": lambda: lib.bdpt_intersect_closest(
-                    p(rows_g), n, p(bk.tri_pack), bk.n_tris, 1, p(t), p(ids), p(u), p(v),
-                    stream)}
-        for name, launch in runs.items():
-            cuda.check_error(name, launch())
-            out[f"{name} {label}"] = {
-                "tris": bk.n_tris, "rays": n,
-                "digest": digest(fields) if name == "shaded" else digest(t, ids, u, v),
-                "ms": time_ms(lambda: cuda.check_error(name, launch()), 20)}
+        for batch, (o, d, tmin, cull) in (("", (o_g, d_g, 0.0, 1)),
+                                          (" extension", (o_e, d_e, MIN_T, 0))):
+            rows, _ = isect.rays(o, d, tmin, None)
+            runs = {"shaded": lambda: lib.bdpt_intersect_shaded(
+                        p(rows), n, p(bk.tri_pack), bk.n_tris, cull, p(fields), stream),
+                    "closest": lambda: lib.bdpt_intersect_closest(
+                        p(rows), n, p(bk.tri_pack), bk.n_tris, cull, p(t), p(ids), p(u), p(v),
+                        stream)}
+            for name, launch in runs.items():
+                cuda.check_error(name, launch())
+                out[f"{name} {label}{batch}"] = {
+                    "tris": bk.n_tris, "rays": n, "cull": bool(cull),
+                    "digest": digest(fields) if name == "shaded" else digest(t, ids, u, v),
+                    "ms": time_ms(lambda: cuda.check_error(name, launch()), 20)}
+            shaded_w = lambda: cuda.check_error("bvh_shaded", lib.bdpt_bvh_shaded(  # noqa: E731
+                p(rows), n, p(bk.tri_pack), p(bw_rows), p(pairs), cull, p(fields_w),
+                p(counter), stream))
+            shaded_w()
+            out[f"bvh_shaded {label}{batch}"] = {
+                "tris": bk.n_tris, "rays": n, "cull": bool(cull),
+                "equal_to_dense": bool(torch.equal(fields_w.view(torch.int32),
+                                                   fields.view(torch.int32))),
+                "ms": time_ms(shaded_w, 20)}
+        del o_g, d_g, o_e, d_e, o_s, d_s, tm_s, rows_s, fields, fields_w
+        out.update(frame_batches(torch, pkg, dev, label, bk, kw))
     report = pkg["ptxas"]
     out["dense ptxas"] = {name: kernel_ptxas(report, key) for name, key in (
         ("occluded_kernel", "15occluded_kernel"), ("shaded_kernel<true>", "13shaded_kernelILb1E"),
+        ("shaded_kernel<false>", "13shaded_kernelILb0E"),
         ("closest_kernel<true>", "14closest_kernelILb1E"))}
+    return out
+
+
+def frame_batches(torch, pkg, dev, label, bk, kw) -> dict:
+    """The shaded kernel on the ray rows that one wavefront frame of `bk`
+    (megakernel "off", the `BDPTConfig` fields `kw`) passes to
+    `intersect.intersect_shaded_fm`, captured from its calls: each
+    batch's launch on its packed rows, digest and bound, and the frame's
+    sum."""
+    isect, cuda = pkg["intersect"], pkg["cuda"]
+    lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
+    captured, shaded_fm = [], isect.intersect_shaded_fm
+
+    def capturing(tri_pack, n_tris, origin, direction, t_min, t_max=None, cull_backface=False):
+        captured.append((isect.rays(origin, direction, t_min, t_max)[0].clone(),
+                         bool(cull_backface)))
+        return shaded_fm(tri_pack, n_tris, origin, direction, t_min, t_max, cull_backface)
+
+    isect.intersect_shaded_fm = capturing
+    try:
+        pkg["Renderer"](bk, _cfg(pkg, megakernel="off", **kw)).render_frame()
+        torch.cuda.synchronize()
+    finally:
+        isect.intersect_shaded_fm = shaded_fm
+    out, total, total_bound = {}, 0.0, 0.0
+    tris = bk.tri_pack[:bk.n_tris]
+    for k, (rows, cull) in enumerate(captured):
+        n = rows.shape[1]
+        fields = torch.empty((isect.OUT_W, n), device=dev)
+        run = lambda: cuda.check_error("shaded", lib.bdpt_intersect_shaded(  # noqa: E731
+            p(rows), n, p(bk.tri_pack), bk.n_tris, int(cull), p(fields), stream))
+        run()
+        o, d, tmin, tmax = isect.components(rows)
+        n_live = int((tmax > tmin).sum())
+        # chip_smoke.py phase 4b's bytes: ray rows, 32 fields out, the rows
+        bd = bound(n_live * 24.0 + n * (8.0 + 4.0 * isect.OUT_W) + 48.0 * 4 * bk.n_tris,
+                   float(pair_flops(isect, tris, o, d, tmin, tmax, cull, True)))
+        ms = time_ms(run, 20)
+        total, total_bound = total + ms, total_bound + bd["bound_ms"]
+        out[f"shaded {label} frame batch {k}"] = {
+            "tris": bk.n_tris, "rays": n, "live": n_live, "cull": cull,
+            "digest": digest(fields), "ms": ms, **bd}
+        del rows, fields
+    out[f"shaded {label} frame"] = {"launches": len(captured), "ms": total,
+                                    "bound_ms": total_bound}
+    return out
+
+
+def compact_times(torch, pkg, dev) -> dict:
+    """K2 on U = 2,764,800 updates, 15% live, as `chip_smoke.py` phase 2
+    makes them: its outputs' digest, eager and graph-replayed ms, the
+    host's us a call, the device operations (kernels and memsets) of one
+    call in a profiler trace, beside `torch.sort(stable=True)` of all U
+    and the bytes bound (the keys, the live updates' payloads and both
+    outputs: 12 B an update and 4 B a live one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    compact, splat_tile = pkg["compact"], pkg["splat_tile"]
+    n_pix = WIDTH * HEIGHT
+    u = DEPTH * n_pix
+    sent = ((n_pix + 1023) // 1024) * 1024
+    g = torch.Generator().manual_seed(0)
+    live = torch.rand(u, generator=g) < LIVE_FRAC
+    keys = torch.where(live, torch.randint(0, n_pix, (u,), generator=g),
+                       torch.full((u,), n_pix)).to(torch.int32)
+    rgb = torch.rand(u, 3, generator=g) * 0.9
+    pay = splat_tile.pack_rgb8e(rgb[:, 0], rgb[:, 1], rgb[:, 2])
+    keys_d, pay_d = keys.to(dev), pay.to(dev)
+    call = lambda: compact.compact_live(keys_d, pay_d, n_pix, sent)  # noqa: E731
+    got = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    ops = sum(e.device_type == DeviceType.CUDA for e in prof.events()) / 10
+    lib_call = lambda: torch.sort(keys_d, stable=True)  # noqa: E731
+    n_live = int(got[2].item())
+    return {"K2": {"updates": u, "live": n_live, "digest": digest(*got),
+                   "device_ops_per_call": ops, "ms": time_ms(call, 20),
+                   "graph_ms": time_graph_ms(call), "host_us": host_us(call),
+                   "library_ms": time_ms(lib_call, 20),
+                   "library_graph_ms": time_graph_ms(lib_call),
+                   "bound_ms": bound(12.0 * u + 4.0 * n_live, 0.0)["bound_ms"]}}
+
+
+def lane_shares(torch, pkg, dev) -> dict:
+    """The share of terminated lanes in each extension batch of one
+    wavefront frame (the Cornell box; the textured room with exact taps, as
+    `chip_smoke.py` phase 5c drives it): `passes/bdpt.py` traces every lane
+    of a batch and keeps the live lanes' answers."""
+    procedural, Renderer, bdpt = pkg["procedural"], pkg["Renderer"], pkg["bdpt"]
+    shoot = bdpt.shoot_ray
+    out = {}
+    for label, built, kw in (("Cornell", procedural.cornell_box(), {}),
+                             ("textured room", procedural.textured_room(),
+                              dict(defer_textures=True, bounce_tex_mean=False))):
+        shares = []
+
+        def counting(payload, trace, cfg, coherent=True):
+            shares.append(float(payload.terminated.float().mean()))
+            return shoot(payload, trace, cfg, coherent)
+
+        bdpt.shoot_ray = counting
+        try:
+            Renderer(_bake(pkg, dev, built), _cfg(pkg, megakernel="off", **kw)).render_frame()
+            torch.cuda.synchronize()
+        finally:
+            bdpt.shoot_ray = shoot
+        out[f"terminated share {label}"] = shares
     return out
 
 
@@ -385,8 +537,32 @@ def frame_times(torch, pkg, dev) -> dict:
     return out
 
 
-PARTS = {"splat": splat_times, "closest": closest_times, "any_hit": any_hit_times,
-         "dense": dense_times, "k1": k1_times, "frames": frame_times}
+PARTS = {"splat": splat_times, "compact": compact_times, "closest": closest_times,
+         "any_hit": any_hit_times, "dense": dense_times, "lanes": lane_shares, "k1": k1_times,
+         "frames": frame_times}
+
+
+def variant_root(root: Path, variant: str) -> Path:
+    """A copy of `root`'s package under this file's `build/ab_variants/`
+    with each NAME=VALUE of `variant` set as `constexpr int NAME = VALUE;`
+    in `csrc/intersect.cu`; returns the copy's root.  A copy made before
+    is written over and keeps its kernels' build, which its sources' hash
+    names."""
+    name = "fyp_bidirectionalpathtracer_tpu_torch"
+    out = (Path(__file__).resolve().parent / "build" / "ab_variants"
+           / re.sub(r"[^A-Za-z0-9_.-]", "_", f"{root.name}-{variant}"))
+    shutil.copytree(root / name, out / name, dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    src = out / name / "csrc" / "intersect.cu"
+    text = src.read_text()
+    for item in variant.split(","):
+        key, value = item.split("=")
+        text, n = re.subn(rf"(constexpr int {re.escape(key)} = )-?\d+;", rf"\g<1>{int(value)};",
+                          text)
+        if n != 1:
+            raise ValueError(f"--variant: {key} is not one constant of {src}")
+    src.write_text(text)
+    return out
 
 
 def main() -> int:
@@ -396,9 +572,15 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out")
     ap.add_argument("--parts", default=",".join(PARTS),
-                    help="which of " + ", ".join(PARTS) + " to time (comma-separated)")
+                    help="which of " + ", ".join(PARTS) + " to time (comma-separated; "
+                         "none: build only)")
+    ap.add_argument("--variant", default="",
+                    help="NAME=VALUE,...: time a copy of the package with these "
+                         "constants of csrc/intersect.cu")
     a = ap.parse_args()
     root = Path(a.root).resolve()
+    if a.variant:
+        root = variant_root(root, a.variant)
     sys.path[0] = str(root)  # in place of this file's directory
     import torch
 
@@ -414,7 +596,8 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect
     from fyp_bidirectionalpathtracer_tpu_torch.models import procedural
     from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
-    from fyp_bidirectionalpathtracer_tpu_torch.ops import splat_tile
+    from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, splat_tile
+    from fyp_bidirectionalpathtracer_tpu_torch.passes import bdpt
     from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
     from fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile import _busy_us
     from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import (
@@ -427,7 +610,7 @@ def main() -> int:
 
     pkg = dict(frame=frame, cluster=cluster, intersect=intersect, cuda=cuda,
                procedural=procedural, pink_room=pink_room,
-               splat_tile=splat_tile, Scene=Scene,
+               splat_tile=splat_tile, compact=compact, bdpt=bdpt, Scene=Scene,
                Renderer=Renderer, BDPTConfig=BDPTConfig, RenderConfig=RenderConfig,
                pixel_jitter_for_frame=pixel_jitter_for_frame, BDPT_FRAME_INIT=BDPT_FRAME_INIT,
                GBUF_FRAME_INIT=GBUF_FRAME_INIT, busy_us=_busy_us)
@@ -440,8 +623,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    result = {"label": a.label, "root": str(root), "device": smi, "build_s": build_s}
-    for part in a.parts.split(","):
+    result = {"label": a.label, "root": str(root), "variant": a.variant, "device": smi,
+              "build_s": build_s}
+    for part in filter(None, a.parts.split(",")):
         result.update(PARTS[part](torch, pkg, dev))
     text = json.dumps(result)
     if a.out:

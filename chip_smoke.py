@@ -15,7 +15,9 @@ bvh_occluded, which walk the two-box BVH of `csrc/bvh_pairs.cuh`) and K6
 PyTorch version at the shapes its path gives it (K1 also at every depth the
 gate admits; K3 bit for bit against a sequential sum; the dense K4
 kernels also on Cornell + icosphere and the textured room, whose times
-and bounds the kernels line keeps under `*_textured_room` keys; the BVH
+and bounds the kernels line keeps under `*_textured_room` keys, the
+shaded kernel's on an extension batch too (culling off, `extension_*`
+keys); the BVH
 kernels bit for bit, on pink_room at 10,546, 41,266 and 164,146
 triangles), then
 drives the paths through their
@@ -45,10 +47,11 @@ dense loops' pair tests; the other count is printed beside it.  The BVH
 kernels' bounds count their two-box walks (the closest kernels' on the
 G-buffer rays and, as `extension_bound_ms`, on an extension batch), with
 the threaded walk's count beside them.  K3 and K5 are printed beside
-`index_add_` of the same rows, each timed as eager calls (`ms`,
-`library_ms`, as every kernel is) and as CUDA-graph replays (`graph_ms`,
-`library_graph_ms`), which leave out the host's cost of each call; K3 also
-with that host cost (`host_us`, `library_host_us`).  K1's and the dense
+`index_add_` of the same rows, and K2 beside `torch.sort(stable=True)` of
+all its updates, each timed as eager calls (`ms`, `library_ms`, as every
+kernel is) and as CUDA-graph replays (`graph_ms`, `library_graph_ms`),
+which leave out the host's cost of each call; K2 and K3 also with that
+host cost (`host_us`; K3's `library_host_us`).  K1's and the dense
 any-hit kernel's registers, stack and spills (`ptxas`) come from the
 `-Xptxas=-v` report of the build.
 
@@ -401,15 +404,26 @@ def main() -> int:
     n_live = int(pn.item())
     if not (torch.equal(kk, pk) and torch.equal(kp, pp) and torch.equal(kn, pn)):
         raise AssertionError("K2 differs from its plain version")
-    k2_ms = time_ms(lambda: compact.compact_live(keys_d, pay_d, n_pix, sent), 20)
+    def k2_call():
+        return compact.compact_live(keys_d, pay_d, n_pix, sent)
+
+    def k2_lib_call():  # one PyTorch call that groups the updates by pixel as K2 + sort do
+        return torch.sort(keys_d, stable=True)
+
+    # eager calls (`ms`, as every kernel's), CUDA-graph replays of 20 calls
+    # (`graph_ms`, without the host's cost of a call) and that host cost
+    k2_ms, k2_graph, k2_host = time_ms(k2_call, 20), time_graph_ms(k2_call), host_us(k2_call)
     k2_plain = time_ms(lambda: compact.compact_plain(keys_d, pay_d, n_pix, sent), 5)
-    # one PyTorch call that groups the updates by pixel as K2 + sort do
-    k2_lib = time_ms(lambda: torch.sort(keys_d, stable=True), 20)
-    log(f"K2 compaction U={u} live={n_live}: bit-equal; kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain:.4f} ms, torch.sort(stable) of all U {k2_lib:.4f} ms")
-    # bytes: keys and payloads read once and written once
-    kernels["compact"] = dict(max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain,
-                              library_ms=k2_lib, **bound(16.0 * u, 0.0))
+    k2_lib, k2_lib_graph = time_ms(k2_lib_call, 20), time_graph_ms(k2_lib_call)
+    log(f"K2 compaction U={u} live={n_live}: bit-equal; kernel {k2_ms:.4f} ms (graph "
+        f"{k2_graph:.4f} ms, host {k2_host:.2f} us a call), plain {k2_plain:.4f} ms, "
+        f"torch.sort(stable) of all U {k2_lib:.4f} ms (graph {k2_lib_graph:.4f} ms)")
+    # bytes: every key read, the live updates' payloads read, both outputs
+    # written (a dead update's payload is not read)
+    kernels["compact"] = dict(max_abs_err=0.0, ms=k2_ms, graph_ms=k2_graph, host_us=k2_host,
+                              plain_ms=k2_plain, library_ms=k2_lib,
+                              library_graph_ms=k2_lib_graph,
+                              **bound(12.0 * u + 4.0 * n_live, 0.0))
 
     # ---- phase 3: K3 on the sorted live prefix ---------------------------
     ls, order = torch.sort(kk[:n_live], stable=True)
@@ -874,6 +888,7 @@ def main() -> int:
         lib = cuda.library()
         stream = cuda.stream(dev)
         rows_g, _ = isect.rays(o_g, d_g, 0.0, None)
+        rows_e, _ = isect.rays(o_e, d_e, MIN_T, None)
         rows_s, _ = isect.rays(o_s, d_s, MIN_T, tm_s)
         ns = rows_s.shape[1]
         fields = torch.empty((isect.OUT_W, n), device=dev)
@@ -885,6 +900,9 @@ def main() -> int:
         launches = {
             "shaded": lambda: lib.bdpt_intersect_shaded(p(rows_g), n, p(bk.tri_pack), bk.n_tris,
                                                         1, p(fields), stream),
+            # an extension batch: culling off, t_min = MIN_T
+            "shaded extension": lambda: lib.bdpt_intersect_shaded(
+                p(rows_e), n, p(bk.tri_pack), bk.n_tris, 0, p(fields), stream),
             "closest": lambda: lib.bdpt_intersect_closest(p(rows_g), n, p(bk.tri_pack),
                                                           bk.n_tris, 1, p(t_), p(id_), p(u_),
                                                           p(v_), stream),
@@ -893,6 +911,7 @@ def main() -> int:
         }
         plains = {
             "shaded": lambda: isect.shaded_plain(*args, o_g, d_g, 0.0, None, True),
+            "shaded extension": lambda: isect.shaded_plain(*args, o_e, d_e, MIN_T, None, False),
             "closest": lambda: isect.closest_plain(*args, o_g, d_g, 0.0, None, True),
             "occluded": lambda: isect.occluded_plain(*args, o_s, d_s, MIN_T, tm_s),
         }
@@ -900,23 +919,37 @@ def main() -> int:
         # dead ray, tmax <= tmin); out 32 float32 fields (shaded), t id u v
         # (closest), one byte (any-hit); operations: the pair tests these
         # rays need (pair_flops)
-        out_bytes = {"shaded": 4.0 * isect.OUT_W, "closest": 16.0, "occluded": 1.0}
+        out_bytes = {"shaded": 4.0 * isect.OUT_W, "shaded extension": 4.0 * isect.OUT_W,
+                     "closest": 16.0, "occluded": 1.0}
         tris = bk.tri_pack[:bk.n_tris]
         o_g_, d_g_, tmin_g, tmax_g = isect.components(rows_g)
+        o_e_, d_e_, tmin_e, tmax_e = isect.components(rows_e)
         o_s_, d_s_, tmin_s, tmax_s = isect.components(rows_s)
         flops_g = pair_flops(isect, tris, o_g_, d_g_, tmin_g, tmax_g, True, True)
         flops = {"shaded": flops_g, "closest": flops_g,
+                 "shaded extension": pair_flops(isect, tris, o_e_, d_e_, tmin_e, tmax_e, False,
+                                                True),
                  "occluded": pair_flops(isect, tris, o_s_, d_s_, tmin_s, tmax_s, False, False)}
-        live_g, live_s = int((tmax_g > tmin_g).sum()), int((tmax_s > tmin_s).sum())
-        for name in ("shaded", "closest", "occluded"):
-            rays, n_live = (ns, live_s) if name == "occluded" else (n, live_g)
-            ms = time_ms(lambda: cuda.check_error(name, launches[name]()), 20)
+        live = {"shaded": int((tmax_g > tmin_g).sum()), "shaded extension":
+                int((tmax_e > tmin_e).sum()), "occluded": int((tmax_s > tmin_s).sum())}
+        live["closest"] = live["shaded"]
+        for name in ("shaded", "shaded extension", "closest", "occluded"):
+            rays, n_live = (ns if name == "occluded" else n), live[name]
+            ms = time_ms(lambda: cuda.check_error(name.split()[0], launches[name]()), 20)
             plain_ms = time_ms(plains[name], 3)
             bd = bound(n_live * 24.0 + rays * (8.0 + out_bytes[name]) + 48.0 * 4 * bk.n_tris,
                        float(flops[name]))
             log(f"K4 {name} {bk.n_tris} tris, {rays} rays ({n_live} live): kernel {ms:.4f} "
                 f"ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
                 f"{flops[name]} pair-test operations)")
+            if name == "shaded extension":
+                # beside the G-buffer launch's keys of the shaded kernel
+                if record is not None:
+                    kernels["shaded"].update({f"{k}{record}": v for k, v in dict(
+                        extension_ms=ms, extension_plain_ms=plain_ms,
+                        extension_bound_ms=bd["bound_ms"],
+                        extension_bound_by=bd["bound_by"]).items()})
+                continue
             err = max(e for e, _ in results[name]) if name in results else 0.0
             if record == "":
                 kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,

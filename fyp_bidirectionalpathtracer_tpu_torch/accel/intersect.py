@@ -190,6 +190,12 @@ def _check(tri_pack, n_tris, origin, direction):
     check_rays(tri_pack, n_tris, origin, direction)
 
 
+def _check_aligned(tri_pack):
+    """The closest and shaded kernels read the pack's rows as 16-byte words."""
+    if tri_pack.data_ptr() % 16:
+        raise ValueError("tri_pack must start on a 16-byte boundary for the kernels")
+
+
 def _closest_fields(tri_pack, n_tris, rows, cull_backface):
     o, d, tmin, tmax = components(rows)
     hit, t, tri = closest_rows(tri_pack, n_tris, o, d, tmin, tmax, cull_backface)
@@ -214,6 +220,7 @@ def intersect_closest(tri_pack, n_tris, origin, direction, t_min, t_max=None,
     if origin.device.type == "cpu":
         return closest_plain(tri_pack, n_tris, origin, direction, t_min, t_max,
                              cull_backface)
+    _check_aligned(tri_pack)
     rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = rows.shape[1], rows.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -276,6 +283,7 @@ def intersect_shaded_fm(tri_pack, n_tris, origin, direction, t_min, t_max=None,
     if origin.device.type == "cpu":
         return shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max,
                             cull_backface)
+    _check_aligned(tri_pack)
     rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = rows.shape[1], rows.device
     fields = torch.empty((OUT_W, n), dtype=torch.float32, device=dev)

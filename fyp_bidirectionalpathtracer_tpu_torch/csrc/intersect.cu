@@ -9,16 +9,22 @@
 //               accel/pallas_lane.py:_occlusion_kernel (K4d)
 // Their wrappers and plain PyTorch versions are in accel/intersect.py.
 //
-// Design: one thread per ray.  Each block stages the 12 Baldwin-Weber floats
-// of every triangle in dynamic shared memory (96 KB at 2048 triangles, with
-// the opt-in above 48 KB), as K1 does; every pair test then reads shared
-// memory.  The rays come as eight structure-of-arrays rows [8, N]
-// (ox oy oz dx dy dz tmin tmax), so a warp's loads coalesce.  The winner's
-// 33 attribute floats are read from the global pack once per ray, and the
-// shaded output is field-major [32, N], so a warp's stores coalesce.  The
-// TPU kernels' [T, 128] pair tiles, one-hot MXU fetch and 128-triangle
-// chunks do not carry over; the strict < over ascending ids gives their
-// tie rule (the lowest id wins at equal t).
+// Design.  Each block stages the 12 Baldwin-Weber floats of every
+// triangle in dynamic shared memory (96 KB at 2048 triangles, with the
+// opt-in above 48 KB), as K1 does; every pair test then reads shared
+// memory.  The rays come as eight structure-of-arrays rows [8, N] (ox oy
+// oz dx dy dz tmin tmax), so a warp's loads coalesce.  The any-hit kernel
+// takes one ray a thread.  The closest and shaded kernels run as many
+// blocks as the device holds at once (the occupancy API), each stages the
+// rows once, with three 16-byte loads a row, and then takes tiles of
+// kClosestThreads x kClosestRays rays in a grid-stride loop; a thread
+// holds kClosestRays rays and reads each row once for all of them, with
+// 16-byte shared loads (closest_tiles, closest_hit_rays: intersect.cuh).
+// The winner's 33 attribute floats are read from the global pack once per
+// ray, and the shaded output is field-major [32, N], so a warp's stores
+// coalesce.  The TPU kernels' [T, 128] pair tiles, one-hot MXU fetch and
+// 128-triangle chunks do not carry over; the strict < over ascending ids
+// gives their tie rule (the lowest id wins at equal t).
 //
 // What bounds them on the H100: on the Cornell box (34 triangles) the bytes
 // of the rays and the outputs (32 B in, 8 B for a dead ray's tmin and
@@ -49,17 +55,31 @@
 // 0.28 ms for the same answers, so the dense tier's 2048 triangles are too
 // many for this kernel; the bake sets that limit.
 //
+// The closest and shaded kernels are issue-bound at 342 triangles (~13
+// instructions a pair the direction test drops, ~33 one that reaches the
+// division, in the SASS of the one-ray loop), so a row read shared by R
+// rays saves little, and staging the rows once a resident block saves L2
+// reads that were no bottleneck: this schedule is slower than one block a
+// 256 rays, one ray a thread, at every R (PERF.md, PR 9).  In it, R = 2
+// is the fastest on the G-buffer batch, R = 1 on extension batches.
+//
 // Miss lanes: t = tmax (the wrapper maps it to 1e30), id -1, u = v = 0,
 // and every attribute field 0, as the TPU kernels' one-hot fetch gives for
 // a finite tmax.  Fields 27..31 are zero.
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "intersect.cuh"
 
 namespace bdpt {
 
-constexpr int kRayThreads = 256;
-constexpr int kAnyHitChunk = 4;  // the any-hit kernel's rays a block, per thread
+constexpr int kRayThreads = 256;  // the any-hit kernel's threads a block
+constexpr int kAnyHitChunk = 4;   // the any-hit kernel's rays a block, per thread
+constexpr int kClosestThreads = 256;  // the closest and shaded kernels' threads a block
+constexpr int kClosestRays = 2;       // and their rays a thread
 
 __device__ __forceinline__ void stage_bw(float* smem, const float* __restrict__ tris,
                                          int n_tris) {
@@ -68,41 +88,55 @@ __device__ __forceinline__ void stage_bw(float* smem, const float* __restrict__ 
   __syncthreads();
 }
 
-template <bool kCull>
-__global__ void __launch_bounds__(kRayThreads)
-    closest_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
-                   int n_tris, float* t_out, int* id_out, float* u_out, float* v_out) {
-  extern __shared__ float bw[];
-  stage_bw(bw, tris, n_tris);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rows, (size_t)n, (size_t)i);
-  float t;
-  const int id = closest_hit<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax, kCull, t);
-  float u = 0.0f, v = 0.0f;
-  if (id >= 0) hit_uv<true>(tris + (size_t)id * kPackCols, r.o, r.d, t, u, v);
-  t_out[i] = t;
-  id_out[i] = id;
-  u_out[i] = u;
-  v_out[i] = v;
+// The rows of every triangle, a thread a row, three 16-byte loads (the
+// pack's 192-byte rows keep the pack's 16-byte alignment).
+__device__ __forceinline__ void stage_rows(float* smem, const float* __restrict__ tris,
+                                           int n_tris) {
+  for (int i = threadIdx.x; i < n_tris; i += blockDim.x) {
+    const float4* src = reinterpret_cast<const float4*>(tris + (size_t)i * kPackCols);
+    float4* dst = reinterpret_cast<float4*>(smem + i * kBwCols);
+    const float4 a = __ldg(src), b = __ldg(src + 1), c = __ldg(src + 2);
+    dst[0] = a;
+    dst[1] = b;
+    dst[2] = c;
+  }
+  __syncthreads();
 }
 
 template <bool kCull>
-__global__ void __launch_bounds__(kRayThreads)
+__global__ void __launch_bounds__(kClosestThreads)
+    closest_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
+                   int n_tris, float* __restrict__ t_out, int* __restrict__ id_out,
+                   float* __restrict__ u_out, float* __restrict__ v_out) {
+  extern __shared__ __align__(16) float bw[];
+  stage_rows(bw, tris, n_tris);
+  closest_tiles<kClosestRays>(
+      rows, (size_t)n, bw, n_tris, kCull, blockIdx.x, gridDim.x, threadIdx.x, blockDim.x,
+      [&](size_t i, V3 o, V3 d, float t, int id) {
+        float u = 0.0f, v = 0.0f;
+        if (id >= 0) hit_uv<true>(tris + (size_t)id * kPackCols, o, d, t, u, v);
+        t_out[i] = t;
+        id_out[i] = id;
+        u_out[i] = u;
+        v_out[i] = v;
+      });
+}
+
+template <bool kCull>
+__global__ void __launch_bounds__(kClosestThreads)
     shaded_kernel(const float* __restrict__ rows, int n, const float* __restrict__ tris,
                   int n_tris, float* __restrict__ out) {
-  extern __shared__ float bw[];
-  stage_bw(bw, tris, n_tris);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ __align__(16) float bw[];
+  stage_rows(bw, tris, n_tris);
   const size_t N = (size_t)n;
-  const Ray r = load_ray(rows, N, (size_t)i);
-  float t;
-  const int id = closest_hit<true>(bw, n_tris, r.o, r.d, r.tmin, r.tmax, kCull, t);
-  float f[kOutW];
-  hit_fields(tris, id, t, r.o, r.d, f);
+  closest_tiles<kClosestRays>(
+      rows, N, bw, n_tris, kCull, blockIdx.x, gridDim.x, threadIdx.x, blockDim.x,
+      [&](size_t i, V3 o, V3 d, float t, int id) {
+        float f[kOutW];
+        hit_fields(tris, id, t, o, d, f);
 #pragma unroll
-  for (int k = 0; k < kOutW; ++k) out[k * N + i] = f[k];
+        for (int k = 0; k < kOutW; ++k) out[k * N + i] = f[k];
+      });
 }
 
 // The any-hit kernel.  A block takes kRayThreads x kAnyHitChunk rays: it
@@ -142,15 +176,46 @@ __global__ void __launch_bounds__(kRayThreads)
   }
 }
 
+// The blocks of `kernel` an SM holds at once with `smem` bytes of dynamic
+// shared memory, times the SMs: the occupancy API's answer, read once a
+// (kernel, device, smem).
+static cudaError_t resident_blocks(const void* kernel, size_t smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(kernel, dev, smem);
+  std::lock_guard<std::mutex> hold(mu);
+  auto it = known.find(key);
+  if (it == known.end()) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kClosestThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(key, per_sm * sms).first;
+  }
+  *blocks = it->second;
+  return cudaSuccess;
+}
+
+// A closest or shaded kernel: the resident blocks, or fewer where the rays
+// fill fewer tiles.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int n, int n_tris, cudaStream_t stream, Args... args) {
   if (n <= 0) return 0;
   const size_t smem = (size_t)(n_tris > 0 ? n_tris : 1) * kBwCols * sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int blocks = 0;
+  if (err == cudaSuccess) err = resident_blocks((const void*)kernel, smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kRayThreads - 1) / kRayThreads);
-  kernel<<<grid, kRayThreads, smem, stream>>>(args...);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int tile = kClosestThreads * kClosestRays;
+  const int tiles = (n + tile - 1) / tile;
+  const int grid = tiles < blocks ? tiles : blocks;
+  kernel<<<grid, kClosestThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,10 @@
 
 #include "common.cuh"
 
+#ifndef __CUDACC__
+#include <string.h>
+#endif
+
 namespace bdpt {
 
 constexpr int kPackCols = 48;
@@ -63,6 +67,64 @@ BDPT_DEV int closest_hit(const float* bw, int n_tris, V3 o, V3 d, float tmin, fl
   return best;
 }
 
+// Four floats of a row, read at once: a 16-byte load of 16-byte-aligned
+// rows on the device (a shared-memory broadcast when a warp's lanes read
+// the same row), a memcpy on the CPU.
+struct Row4 {
+  float x, y, z, w;
+};
+BDPT_DEV Row4 row4(const float* p) {
+  Row4 r;
+#ifdef __CUDACC__
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  r.x = q.x;
+  r.y = q.y;
+  r.z = q.z;
+  r.w = q.w;
+#else
+  memcpy(&r, p, sizeof(r));
+#endif
+  return r;
+}
+
+// closest_hit<true> of R rays at once, for the dense closest and shaded
+// kernels: each row `bw` (16-byte aligned) is read once for all R, as
+// (n, n.v0), then (r1, r1.v0) and (r2, r2.v0) only for a ray whose t
+// passes.  Each ray's operations are closest_hit<true>'s, in its order, with
+// the same strict < over ascending ids, so its t (in t_best, which holds
+// tmax on entry) and its id (in best, -1 on a miss) are closest_hit's bits.
+template <int R>
+BDPT_DEV void closest_hit_rays(const float* bw, int n_tris, const V3 (&o)[R], const V3 (&d)[R],
+                               const float (&tmin)[R], bool cull_backface, float (&t_best)[R],
+                               int (&best)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) best[k] = -1;
+  for (int i = 0; i < n_tris; ++i) {
+    const float* r = bw + kBwCols * i;
+    const Row4 n = row4(r);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float ndir = dot3_<true>(n.x, n.y, n.z, d[k].x, d[k].y, d[k].z);
+      const bool dir_ok = cull_backface ? (ndir < -1e-9f) : (fabsf(ndir) > 1e-9f);
+      if (!dir_ok) continue;
+      const float t =
+          sub_<true>(n.w, dot3_<true>(n.x, n.y, n.z, o[k].x, o[k].y, o[k].z)) / ndir;
+      if (!(t > tmin[k] && t < t_best[k])) continue;
+      const Row4 a = row4(r + 4), b = row4(r + 8);
+      const float u =
+          add_<true>(sub_<true>(dot3_<true>(a.x, a.y, a.z, o[k].x, o[k].y, o[k].z), a.w),
+                     mul_<true>(t, dot3_<true>(a.x, a.y, a.z, d[k].x, d[k].y, d[k].z)));
+      const float v =
+          add_<true>(sub_<true>(dot3_<true>(b.x, b.y, b.z, o[k].x, o[k].y, o[k].z), b.w),
+                     mul_<true>(t, dot3_<true>(b.x, b.y, b.z, d[k].x, d[k].y, d[k].z)));
+      if (u >= 0.0f && v >= 0.0f && add_<true>(u, v) <= 1.0f) {
+        t_best[k] = t;
+        best[k] = i;
+      }
+    }
+  }
+}
+
 // Any hit in (tmin, tmax), no culling; stops at the first hit.
 template <bool kExact>
 BDPT_DEV bool occluded(const float* bw, int n_tris, V3 o, V3 d, float tmin, float tmax) {
@@ -107,6 +169,46 @@ BDPT_DEV Ray load_ray(const float* __restrict__ rows, size_t n, size_t i) {
   r.tmin = rows[6 * n + i];
   r.tmax = rows[7 * n + i];
   return r;
+}
+
+// The closest and shaded kernels' schedule: block b of `blocks` takes the
+// tiles b, b + blocks, ... of threads x R rays, and its thread j the rays
+// j, j + threads, ..., R of them, of each tile, so a warp's loads and
+// stores coalesce.  The R rays go through closest_hit_rays together (a ray
+// at or past n as the empty ray: o = d = 0, t in (0, 0), which no row's
+// direction test passes), then answer(i, o, d, t, id) answers each ray of
+// the batch, one at a time.
+template <int R, typename Answer>
+BDPT_DEV void closest_tiles(const float* __restrict__ rows, size_t n, const float* bw,
+                            int n_tris, bool cull_backface, size_t b, size_t blocks, size_t j,
+                            size_t threads, Answer answer) {
+  const size_t tile = threads * R;
+  for (size_t i0 = b * tile + j; i0 < n; i0 += blocks * tile) {
+    V3 o[R], d[R];
+    float tmin[R], t[R];
+    int id[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const size_t i = i0 + k * threads;
+      Ray r;
+      if (i < n) {
+        r = load_ray(rows, n, i);
+      } else {
+        r.o = r.d = mk3(0.0f, 0.0f, 0.0f);
+        r.tmin = r.tmax = 0.0f;
+      }
+      o[k] = r.o;
+      d[k] = r.d;
+      tmin[k] = r.tmin;
+      t[k] = r.tmax;
+    }
+    closest_hit_rays<R>(bw, n_tris, o, d, tmin, cull_backface, t, id);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const size_t i = i0 + k * threads;
+      if (i < n) answer(i, o[k], d[k], t[k], id[k]);
+    }
+  }
 }
 
 // The shaded kernels' 32 fields of a ray's closest hit (accel/intersect.py

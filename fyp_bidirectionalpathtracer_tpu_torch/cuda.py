@@ -137,8 +137,7 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bdpt_frame_launch.argtypes = [p, i, p, p, p, p, p, p, p, p]
     lib.bdpt_frame_textured_launch.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p, p]
-    lib.bdpt_compact_count.argtypes = [p, i, i, p, p]
-    lib.bdpt_compact_scatter.argtypes = [p, p, i, i, i, p, p, p, p]
+    lib.bdpt_compact.argtypes = [p, p, i, i, i, p, i, p, p, p, p]
     lib.bdpt_splat_reduce.argtypes = [p, p, i, i, p, p]
     lib.bdpt_intersect_closest.argtypes = [p, i, p, i, i, p, p, p, p, p]
     lib.bdpt_intersect_shaded.argtypes = [p, i, p, i, i, p, p]
@@ -149,8 +148,8 @@ def _declare(lib) -> None:
     lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
     lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, p, p]
     lib.bdpt_subpath.argtypes = [p, i, p, i, i, i, i, p, p, p]
-    for fn in (lib.bdpt_frame_launch, lib.bdpt_frame_textured_launch, lib.bdpt_compact_count,
-               lib.bdpt_compact_scatter, lib.bdpt_splat_reduce,
+    for fn in (lib.bdpt_frame_launch, lib.bdpt_frame_textured_launch, lib.bdpt_compact,
+               lib.bdpt_splat_reduce,
                lib.bdpt_intersect_closest, lib.bdpt_intersect_shaded,
                lib.bdpt_occluded, lib.bdpt_bvh_closest, lib.bdpt_bvh_shaded,
                lib.bdpt_bvh_occluded, lib.bdpt_bvh_count, lib.bdpt_splat_rows,

@@ -6,12 +6,17 @@ frame; compacting them first lets the sort that groups them by pixel run
 on the live ones only.
 
 K2 replaces the TPU kernel `ops/compact.py:_kernel`; its CUDA source is
-`csrc/compact.cu`: per-block live counts, an exclusive scan of the block
-counts (`torch.cumsum`, as JAX scans its chunk counts in XLA outside the
-Pallas kernel), then an in-block scan and scatter.  The output is exact:
-the live (key, payload) pairs in source order, then sentinel keys with
-zero payloads, plus the live count.  The TPU version's <=127-element
-sentinel gaps at its 16K-chunk seams are a VMEM device and are not copied.
+`csrc/compact.cu`: one pass with decoupled look-back.  A block takes a tile
+of the updates by an atomic ticket, counts its live ones, publishes the
+count, finds the live updates before its tile from its predecessors'
+status words (the scan of the tile counts, which JAX runs in XLA outside
+its Pallas kernel, happens inside the one launch), and writes its live
+pairs in source order and its dead ones, as sentinel keys with zero
+payloads, from the end of the output backwards.  The output is exact: the live (key, payload) pairs in
+source order, then sentinel keys with zero payloads, plus the live count.
+A call is two launches (the scratch's memset, the kernel) and no host
+sync.  The TPU version's <=127-element sentinel gaps at its 16K-chunk
+seams are a VMEM device and are not copied.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from .. import cuda
 
-BLOCK_ITEMS = 1024  # updates per CUDA block (256 threads x 4), csrc/compact.cu
+TILE_ITEMS = 4096  # updates a tile (256 threads x 16), csrc/compact.cu kTileItems
 
 
 def compact_plain(keys: torch.Tensor, pay: torch.Tensor, n_targets: int,
@@ -46,18 +51,13 @@ def compact_live(keys: torch.Tensor, pay: torch.Tensor, n_targets: int, sent: in
         return compact_plain(keys, pay, n_targets, sent)
     u = keys.numel()
     dev = keys.device
-    n_blocks = max(1, (u + BLOCK_ITEMS - 1) // BLOCK_ITEMS)
-    lib = cuda.library()
-    stream = cuda.stream(dev)
-    counts = torch.empty((n_blocks,), dtype=torch.int32, device=dev)
-    cuda.check_error("compact", lib.bdpt_compact_count(
-        cuda.ptr(keys), u, n_targets, cuda.ptr(counts), stream))
-    # exclusive block offsets plus the total at [n_blocks]
-    offs = torch.zeros((n_blocks + 1,), dtype=torch.int32, device=dev)
-    offs[1:] = torch.cumsum(counts, 0)
+    n_tiles = max(1, (u + TILE_ITEMS - 1) // TILE_ITEMS)
+    # the ticket counter and a status word a tile, zeroed by the launch
+    scratch = torch.empty((n_tiles + 1,), dtype=torch.int64, device=dev)
     out_k = torch.empty_like(keys)
     out_p = torch.empty_like(pay)
-    cuda.check_launch("compact", lib.bdpt_compact_scatter(
-        cuda.ptr(keys), cuda.ptr(pay), u, n_targets, sent, cuda.ptr(offs),
-        cuda.ptr(out_k), cuda.ptr(out_p), stream))
-    return out_k, out_p, offs[n_blocks:]
+    n_live = torch.empty((1,), dtype=torch.int32, device=dev)
+    cuda.check_launch("compact", cuda.library().bdpt_compact(
+        cuda.ptr(keys), cuda.ptr(pay), u, n_targets, sent, cuda.ptr(scratch), n_tiles,
+        cuda.ptr(out_k), cuda.ptr(out_p), cuda.ptr(n_live), cuda.stream(dev)))
+    return out_k, out_p, n_live

@@ -19,6 +19,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.accel import frame as frame_mod
 from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
 from fyp_bidirectionalpathtracer_tpu_torch.accel import subpath
 from fyp_bidirectionalpathtracer_tpu_torch.core import rng
+from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
 from fyp_bidirectionalpathtracer_tpu_torch.ops.compact import compact_live, compact_plain
 from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     pack_rgb8e,
@@ -63,13 +64,25 @@ def _updates(u, n_targets, frac, seed=0):
     return keys, pack_rgb8e(rgb[:, 0], rgb[:, 1], rgb[:, 2])
 
 
-@pytest.mark.parametrize("u,frac", [(1, 1.0), (1000, 0.5), (300_001, 0.15)])
+# sizes about a tile (4,096 updates) and the Cornell 720p frame's 2,764,800;
+# all live and none live
+@pytest.mark.parametrize("u,frac", [(0, 0.15), (1, 1.0), (1000, 0.5), (1023, 0.15),
+                                    (1024, 0.15), (1025, 0.15), (4095, 0.5), (4097, 0.5),
+                                    (300_001, 0.15), (300_001, 1.0), (300_001, 0.0),
+                                    (2_764_800, 0.15)])
 def test_compact_kernel_bit_equal(dev, u, frac):
+    """K2 bit for bit against its plain version: the live pairs in source
+    order, the sentinel tail, the live count; two calls in a row, on
+    scratch the caching allocator hands back (a status word left set would
+    show), a launch each."""
     keys, pay = _updates(u, 5000, frac)
-    got = compact_live(keys.to(dev), pay.to(dev), 5000, 5120)
     want = compact_plain(keys, pay, 5000, 5120)
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    cuda.reset_launch_counts()
+    for _ in range(2):
+        got = compact_live(keys.to(dev), pay.to(dev), 5000, 5120)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert cuda.LAUNCHES["compact"] == 2
 
 
 def test_splat_reduce_kernel(dev):
@@ -188,13 +201,23 @@ def test_frame_with_splats_matches_plain_chain(dev, w, h):
 
 def _k4_rays(baked, w, h, kind, dev):
     """[h, w] rays of one kind: 'gbuffer' (camera rays), 'bounce' (random
-    origins in the box, random directions) or 'shadow' (finite t_max, 30%
-    of the lanes empty)."""
+    origins in the box, random directions), 'extension' (from the camera
+    rays' hits, cosine samples about the interpolated normal: the
+    wavefront's extension rays are BRDF samples there) or 'shadow' (finite
+    t_max, 30% of the lanes empty)."""
     g = torch.Generator().manual_seed(7)
-    if kind == "gbuffer":
+    if kind in ("gbuffer", "extension"):
         d = camera_ray_dirs(baked.data.camera, w, h, torch.tensor([0.5, 0.5]))
         d = d / d.norm(dim=-1, keepdim=True)
         o, tmax = baked.data.camera.pos_w.expand(d.shape), None
+        if kind == "extension":
+            o, d = o.contiguous().to(dev), d.contiguous().to(dev)
+            hit, fields = isect.intersect_shaded_fm(baked.tri_pack, baked.n_tris, o, d, 0.0,
+                                                    None, True)
+            nrm = torch.movedim(fields[4:7], 0, -1)
+            nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp(min=1e-20)
+            o = o + hit.t[..., None] * d
+            _, d = cos_hemisphere_sample(rng.pixel_seeds(w, h, 0x1337, device=dev), nrm)
     else:
         o = torch.rand((h, w, 3), generator=g) * 0.9 + 0.05
         d = torch.randn((h, w, 3), generator=g)
@@ -220,12 +243,15 @@ def _assert_k4_hits(k, p, kf=None, pf=None):
 
 # 50x37 is no multiple of the kernels' 256-thread block, so their tail runs
 @pytest.mark.parametrize("w,h", [(64, 48), (50, 37)])
-@pytest.mark.parametrize("scene", ["cornell", "cornell_icosphere"])
+@pytest.mark.parametrize("scene", ["cornell", "cornell_icosphere", "textured_room"])
 def test_k4_kernels_match_plain(dev, scene, w, h):
+    """The dense shaded and closest kernels on camera rays (culling on),
+    random rays and an extension batch (culling off), and the any-hit
+    kernel on a shadow batch, against their plain versions."""
     baked = _baked(dev, scene, w, h)
     args = (baked.tri_pack, baked.n_tris)
     cuda.reset_launch_counts()
-    for kind, cull in (("gbuffer", True), ("bounce", False)):
+    for kind, cull in (("gbuffer", True), ("bounce", False), ("extension", False)):
         o, d, _ = _k4_rays(baked, w, h, kind, dev)
         kh, kf = isect.intersect_shaded_fm(*args, o, d, 1e-3, None, cull)
         ph, pf = isect.shaded_plain(*args, o, d, 1e-3, None, cull)
@@ -236,7 +262,8 @@ def test_k4_kernels_match_plain(dev, scene, w, h):
     got = isect.occluded(*args, o, d, 1e-3, tmax)
     assert torch.equal(got, isect.occluded_plain(*args, o, d, 1e-3, tmax))
     assert 0 < int(got.sum()) < w * h
-    assert cuda.LAUNCHES["shaded"] == 2 and cuda.LAUNCHES["closest"] == 2
+    # the extension batch's camera rays are the fourth shaded launch
+    assert cuda.LAUNCHES["shaded"] == 4 and cuda.LAUNCHES["closest"] == 3
     assert cuda.LAUNCHES["occluded"] == 1
 
 

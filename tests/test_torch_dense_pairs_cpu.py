@@ -16,6 +16,12 @@ triangles), the textured room (342) and Cornell + icosphere (1,314):
   between surface points with empty, NaN and dead lanes, as the any-hit
   kernel lists and answers them; and rays whose rounded t on one triangle
   lands exactly on t_min or t_max, or one float beside it;
+- the dense closest and shaded kernels' step, `closest_hit_rays<R>` for R
+  = 1, 2 and 4 under their schedule `closest_tiles` (tiles of threads x R
+  rays over a grid-stride loop of blocks, a ray past the batch traced as
+  the empty ray), likewise against `closest_rows`, culling on and off, on
+  all those rays at once: a count that is no multiple of R or of a tile,
+  over a few small grids;
 - that those boundary rays reach the edge: with `>=` and `<=` in place of
   the any-hit test's `>` and `<` on t (a copy of the header patched in the
   test's own directory) some of them get another answer.
@@ -80,6 +86,37 @@ extern "C" void closest(const float* rays, int n, const float* bw, int n_tris, i
     v_out[i] = v;
   }
 }
+
+// rows [8, n] as the closest and shaded kernels take them: `blocks` blocks
+// of `threads` threads in turn, each thread its rays (closest_tiles<R>),
+// culling if `cull`; u, v of the winner's row
+template <int R>
+static void closest_tiles_of(const float* rows, int n, const float* bw, int n_tris, int cull,
+                             int threads, int blocks, float* t_out, int* id_out, float* u_out,
+                             float* v_out) {
+  for (int b = 0; b < blocks; ++b)
+    for (int j = 0; j < threads; ++j)
+      closest_tiles<R>(rows, (size_t)n, bw, n_tris, cull != 0, b, blocks, j, threads,
+                       [&](size_t i, V3 o, V3 d, float t, int id) {
+                         float u = 0.0f, v = 0.0f;
+                         if (id >= 0) hit_uv<true>(bw + (size_t)id * kBwCols, o, d, t, u, v);
+                         t_out[i] = t;
+                         id_out[i] = id;
+                         u_out[i] = u;
+                         v_out[i] = v;
+                       });
+}
+
+extern "C" void closest_rays(const float* rows, int n, const float* bw, int n_tris, int cull,
+                             int r, int threads, int blocks, float* t_out, int* id_out,
+                             float* u_out, float* v_out) {
+  if (r == 4)
+    closest_tiles_of<4>(rows, n, bw, n_tris, cull, threads, blocks, t_out, id_out, u_out, v_out);
+  else if (r == 2)
+    closest_tiles_of<2>(rows, n, bw, n_tris, cull, threads, blocks, t_out, id_out, u_out, v_out);
+  else
+    closest_tiles_of<1>(rows, n, bw, n_tris, cull, threads, blocks, t_out, id_out, u_out, v_out);
+}
 """
 
 
@@ -96,6 +133,7 @@ def _build(tmp, include):
     p, i = ctypes.c_void_p, ctypes.c_int
     out.any_hit.argtypes = [p, i, p, i, p]
     out.closest.argtypes = [p, i, p, i, i, p, p, p, p]
+    out.closest_rays.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p]
     return out
 
 
@@ -130,6 +168,26 @@ def _bake(name):
 @pytest.fixture(scope="module")
 def scenes():
     return {name: _bake(name) for name in ("cornell", "textured_room", "cornell_icosphere")}
+
+
+@pytest.fixture(scope="module")
+def plain_closest(scenes):
+    """closest_rows's (t, id int32, u, v) on `_closest_rays_for`'s rays, by
+    (scene, kind, cull), each computed once for the module's tests."""
+    cache = {}
+
+    def get(name, kind, cull):
+        if (name, kind, cull) not in cache:
+            baked = scenes[name]
+            o, d, tmin, tmax = _components(_closest_rays_for(baked, kind))
+            _, t, ids = isect.closest_rows(baked.tri_pack, baked.n_tris, o, d, tmin, tmax, cull)
+            hit = ids >= 0
+            u, v = isect.winner_uv(baked.tri_pack[ids.clamp(min=0)], o, d, t)
+            cache[name, kind, cull] = (t, ids.to(torch.int32), torch.where(hit, u, 0.0),
+                                       torch.where(hit, v, 0.0))
+        return cache[name, kind, cull]
+
+    return get
 
 
 def _ptr(t):
@@ -206,6 +264,15 @@ def _rays_for(baked, seed, kind):
     return _rays(baked, seed=seed).contiguous()
 
 
+def _closest_rays_for(baked, kind):
+    """The closest loops' rays of one kind; walk rays over the whole ray
+    (t_max 1e30), as K1 asks."""
+    rays = _rays_for(baked, 4, kind)
+    if kind == "walk":
+        rays[:, 7] = 1e30
+    return rays
+
+
 def _any_hit(lib, baked, rays):
     out = torch.zeros(rays.shape[0], dtype=torch.int32)
     bw = _bw(baked)
@@ -250,21 +317,46 @@ def test_any_hit_loop_bit_equal(lib, scenes, name, kind):
 @pytest.mark.parametrize("cull", [False, True])
 @pytest.mark.parametrize("kind", ["walk", "boundary"])
 @pytest.mark.parametrize("name", SCENES)
-def test_closest_loop_bit_equal(lib, scenes, name, kind, cull):
+def test_closest_loop_bit_equal(lib, scenes, plain_closest, name, kind, cull):
     baked = scenes[name]
-    rays = _rays_for(baked, 4, kind)
-    if kind == "walk":
-        rays[:, 7] = 1e30  # closest hit over the whole ray, as K1 asks
-    want = _closest(lib, baked, rays, cull)
-    o, d, tmin, tmax = _components(rays)
-    _, t, ids = isect.closest_rows(baked.tri_pack, baked.n_tris, o, d, tmin, tmax, cull)
-    assert torch.equal(ids.to(torch.int32), want[1])
-    assert torch.equal(_bits(t), _bits(want[0]))
-    hit = ids >= 0
-    u, v = isect.winner_uv(baked.tri_pack[ids.clamp(min=0)], o, d, t)
-    assert torch.equal(_bits(torch.where(hit, u, 0.0)), _bits(want[2]))
-    assert torch.equal(_bits(torch.where(hit, v, 0.0)), _bits(want[3]))
-    assert 0 < int(hit.sum()) < rays.shape[0]
+    got = _closest(lib, baked, _closest_rays_for(baked, kind), cull)
+    want = plain_closest(name, kind, cull)
+    assert torch.equal(want[1], got[1])
+    for w, g in zip(want[:1] + want[2:], got[:1] + got[2:]):
+        assert torch.equal(_bits(w), _bits(g))
+    assert 0 < int((want[1] >= 0).sum()) < want[1].numel()
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("r", [1, 2, 4])
+def test_closest_rays_step_bit_equal(lib, scenes, plain_closest, r, name, cull):
+    """closest_hit_rays<r> under closest_tiles<r>, the closest and shaded
+    kernels' schedule, bit for bit against closest_rows on the walk (ties,
+    grazing), shadow (empty, dead and NaN lanes) and boundary rays at once:
+    4k + 3 rays, no multiple of r or of a tile, over grids of 1-4 blocks of
+    3-64 threads, so tiles and threads end part-full and blocks take one
+    tile or several; every ray answered once, and nothing written past the
+    n rays (64 guard outputs that must keep their fill)."""
+    baked = scenes[name]
+    kinds = ("walk", "shadow", "boundary")
+    rays = torch.cat([_closest_rays_for(baked, kind) for kind in kinds])
+    want = [torch.cat(x) for x in zip(*(plain_closest(name, kind, cull) for kind in kinds))]
+    n = rays.shape[0] - (rays.shape[0] - 3) % 4
+    want = [w[:n] for w in want]
+    rows = rays[:n].T.contiguous()
+    bw = _bw(baked)
+    for threads, blocks in ((3, 1), (5, 2), (6, 3), (7, 4), (64, 1), (64, 3)):
+        t, u, v = (torch.full((n + 64,), 7.0) for _ in range(3))
+        ids = torch.full((n + 64,), -7, dtype=torch.int32)
+        lib.closest_rays(_ptr(rows), n, _ptr(bw), baked.n_tris, int(cull), r, threads, blocks,
+                         _ptr(t), _ptr(ids), _ptr(u), _ptr(v))
+        assert bool((ids[n:] == -7).all()) and all(bool((x[n:] == 7.0).all()) for x in (t, u, v))
+        assert torch.equal(want[1], ids[:n])
+        for w, g in zip(want[:1] + want[2:], (t, u, v)):
+            assert torch.equal(_bits(w), _bits(g[:n]))
+    hit = want[1] >= 0
+    assert 0 < int(hit.sum()) < n and bool(torch.isnan(rows[:6]).any())
 
 
 def test_boundary_rays_reach_the_edge(lib, closed_range_lib, scenes):
