@@ -33,12 +33,17 @@ closest kernel with the attribute and texture gathers); the textured room
 (`models/procedural.textured_room`) with `defer_textures=True`, the
 deferred-texture megakernel (K1's textured variant, the replay, and the
 splat through K2 -> sort -> K3 with "auto" or K5 with "tiled"), beside its
-wavefront; and `accel/subpath.build_subpath` (K6) on 921,600 Cornell rays.
-Each path is run with the launch counts set to 0 just before it and read
-just after; two renders of one frame must be bit-identical, the wavefront
-frames must agree with their plain chains (Cornell also with the
-megakernel frame, the textured room with both of its megakernel frames),
-and small renders must match the checked-in goldens.
+wavefront; `accel/subpath.build_subpath` (K6) on 921,600 Cornell rays;
+and the Cornell megakernel path with the BMFR denoiser on (every stage,
+the full screen: `bench.py`'s BMFR cell), beside the BMFR-off frame, with
+one pass's stages timed by solver ('qr', 'normal'), their device
+operations counted and the card's pass held against the port's CPU pass
+on the same 1280x720 inputs.  Each path is run with the launch counts set
+to 0 just before it and read just after; two renders of one frame must be
+bit-identical, the wavefront frames must agree with their plain chains
+(Cornell also with the megakernel frame, the textured room with both of
+its megakernel frames), and small renders must match the checked-in
+goldens.
 
 K1's bound counts the ray queries of the rays its plain version traces as
 the kernel runs them: the textured variant's walk (node slab tests and
@@ -57,8 +62,11 @@ any-hit kernel's registers, stack and spills (`ptxas`) come from the
 
 Exits nonzero on any failure and without a CUDA device.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit, and the line before that lists the kernels
-with their launch counts, errors, times and bounds.
+card's name and power limit, the line before that lists the kernels with
+their launch counts, errors, times and bounds, and the line before that
+is the BMFR phase's {"bmfr": {...}}: ms/frame on and off, the stage times
+and device operations by solver, the card-vs-CPU errors and the
+regression's bound.
 """
 from __future__ import annotations
 
@@ -96,6 +104,7 @@ MIN_T = 1e-3                 # BDPTConfig.min_t
 SLAB_FLOPS = 31
 PINK_SAMPLE = 14             # every 14th ray of a 1280x720 batch: 65,829 rays
 GOLDEN_PINK = os.path.join(REPO, "tests", "golden", "pink_room_fallback_2f_64x40.png")
+GOLDEN_BMFR = os.path.join(REPO, "tests", "golden", "cornell_bmfr_6f_64.png")
 
 
 def log(*a):
@@ -358,6 +367,7 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.ops import splat as splat_mod
     from fyp_bidirectionalpathtracer_tpu_torch.ops.shading import make_shaded_tracer
     from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
+    from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr as bmfr_mod
     from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
     from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import (
         pixel_jitter_for_frame,
@@ -371,7 +381,11 @@ def main() -> int:
     )
     from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
     from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
-    from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
+        BDPTConfig,
+        BMFRConfig,
+        RenderConfig,
+    )
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -550,8 +564,8 @@ def main() -> int:
             built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
         return Scene.from_built(built, aspect=w / h).bake(device=dev)
 
-    def cfg_for(w, h, megakernel="auto", **bdpt_kw):
-        return RenderConfig(width=w, height=h,
+    def cfg_for(w, h, megakernel="auto", bmfr=BMFRConfig(), **bdpt_kw):
+        return RenderConfig(width=w, height=h, bmfr=bmfr,
                             bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel, **bdpt_kw))
 
     def room(w, h):
@@ -1199,12 +1213,14 @@ def main() -> int:
         raise AssertionError("the pink_room wavefront frame differs from its plain chain")
 
     # ---- phase 5: the two paths at 1280x720 ---------------------------------
-    def drive(megakernel, baked=None, label=None, **bdpt_kw):
+    host_ms_of = {}
+
+    def drive(megakernel, baked=None, label=None, bmfr=BMFRConfig(), **bdpt_kw):
         """3 warm-up and 10 timed frames through Renderer on a new
         accumulation, counts from 0 (the Cornell box unless `baked`)."""
         baked = cornell if baked is None else baked
         label = label or f"{megakernel} path"
-        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, **bdpt_kw))
+        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, bmfr, **bdpt_kw))
         warmup, frames = 3, 10
         cuda.reset_launch_counts()
         for _ in range(warmup):
@@ -1218,6 +1234,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / frames
+        host_ms_of[label] = host_ms
         launches = dict(cuda.LAUNCHES)
         ms = start.elapsed_time(end) / frames
         mrays = n_pix * RAYS_PER_PIXEL / (ms * 1e-3) / 1e6
@@ -1231,7 +1248,7 @@ def main() -> int:
             raise AssertionError(f"{label} output has the wrong shape or count")
         twice = []
         for _ in range(2):
-            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, **bdpt_kw))
+            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, bmfr, **bdpt_kw))
             r.render_frame()
             twice.append({k: v.clone() for k, v in r.channels.items()})
         if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
@@ -1239,7 +1256,7 @@ def main() -> int:
         log(f"{label}: the same frame rendered twice is bit-identical")
         return launches, warmup + frames, twice[0]["BDPT"], ms
 
-    mk_launches, n_frames, mk_frame, _ = drive("auto")
+    mk_launches, n_frames, mk_frame, mk_ms = drive("auto")
     for key in ("frame", "compact", "splat_tile"):
         if mk_launches[key] != n_frames:
             raise AssertionError(f"kernel {key} launched {mk_launches[key]} times in "
@@ -1338,6 +1355,98 @@ def main() -> int:
                              f"{sp_launches}")
     log(f"build_subpath {n_pix} rays x {DEPTH} bounces: launches {sp_launches}")
 
+    # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
+    # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
+    # is phase 5's megakernel run
+    bmfr_cfg = BMFRConfig(enabled=True, preprocess=True, regression=True, postprocess=True,
+                          half_screen_debug=False)
+    bm_label = "Cornell megakernel + BMFR (full screen)"
+    bm_launches, bm_frames, _, bm_ms = drive("auto", label=bm_label, bmfr=bmfr_cfg)
+    for key in ("frame", "compact", "splat_tile"):
+        if bm_launches[key] != bm_frames:
+            raise AssertionError(f"kernel {key} launched {bm_launches[key]} times in "
+                                 f"{bm_frames} BMFR frames")
+    # one pass's stages on a frame with history (2 frames rendered; a still
+    # camera, as the bench's)
+    r = Renderer(cornell, cfg_for(WIDTH, HEIGHT, bmfr=bmfr_cfg))
+    r.render(2)
+    ch, st, cam = r.channels, r.state.bmfr, r.camera
+    pos, nrm, alb, acc = (ch[k] for k in ("WorldPosition", "WorldNormal", "MaterialDiffuse",
+                                          "Accumulated"))
+    stage_fns = {}
+    for solver in ("qr", "normal"):
+        scfg = replace(bmfr_cfg, regression_solver=solver)
+        pre = bmfr_mod.preprocess(st, pos, nrm, acc, cam.prev_view_proj, scfg)
+        st_blit = replace(st, prev_noisy=pre[0], prev_norm=nrm, prev_pos=pos)
+        reg = bmfr_mod.regression(pos, nrm, alb, pre[0], st.frame_number, scfg)
+        stage_fns[solver] = {
+            "preprocess": partial(bmfr_mod.preprocess, st, pos, nrm, acc, cam.prev_view_proj,
+                                  scfg),
+            "regression": partial(bmfr_mod.regression, pos, nrm, alb, pre[0], st.frame_number,
+                                  scfg),
+            "postprocess": partial(bmfr_mod.postprocess, st_blit, reg, pre[1], pre[2], scfg),
+            "pass": partial(bmfr_mod.bmfr_pass, st, ch, cam, scfg)}
+    # eager (paced by the host's cost of each of a pass's ~1,000 launches)
+    # and CUDA-graph replays (the device's time)
+    stages = {solver: {key: value for name, fn in fns.items()
+                       for key, value in ((f"{name}_ms", time_ms(fn, 10)),
+                                          (f"{name}_graph_ms", time_graph_ms(fn, 5)))}
+              for solver, fns in stage_fns.items()}
+    # the card's pass against the port's own CPU pass on the same inputs
+    st_cpu = BMFRState(*(t.cpu() for t in (st.prev_pos, st.prev_norm, st.prev_noisy,
+                                            st.prev_filtered, st.frame_number)))
+    ch_cpu = {k: v.cpu() for k, v in ch.items()}
+    vs_cpu = {}
+    for solver in ("qr", "normal"):
+        scfg = replace(bmfr_cfg, regression_solver=solver)
+        _, on_card = bmfr_mod.bmfr_pass(st, ch, cam, scfg)
+        _, on_cpu = bmfr_mod.bmfr_pass(st_cpu, ch_cpu, cam, scfg)
+        d = (on_card.cpu() - on_cpu).abs().amax(-1)
+        vs_cpu[solver] = {"max_abs_err": float(d.max()),
+                          "share_over_1e-3": float((d > 1e-3).float().mean()),
+                          "finite": bool(torch.isfinite(on_card).all())}
+    log(f"BMFR pass, card vs CPU at {WIDTH}x{HEIGHT}: {vs_cpu} (qr: <= 0.1% of pixels over "
+        f"1e-3; normal reported)")
+    if not (vs_cpu["qr"]["share_over_1e-3"] <= 1e-3 and vs_cpu["qr"]["finite"]
+            and vs_cpu["normal"]["finite"]):
+        raise AssertionError("the card's BMFR pass differs from the CPU's")
+    # device operations of one call (kernels, copies and memsets, from a
+    # profiler trace); after every timing, as CUPTI slows later launches
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    for solver, fns in stage_fns.items():
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            stages[solver][f"{name}_device_ops"] = sum(
+                e.device_type == DeviceType.CUDA for e in prof.events())
+    n_blocks = ((HEIGHT + 31) // 32 + 1) * ((WIDTH + 31) // 32 + 1)
+    # the regression reads its block window once ([n_by * 32, n_bx * 32, 12]
+    # float32), reads the noisy image and writes the output ([H, W, 4]);
+    # operations: per block and column c of the QR, the norm (2 a pixel) and
+    # the reflection of the 12 - c later columns (4 a pixel each), the fit
+    # (60 a pixel) and the features (13 a pixel)
+    reg_bytes = 4.0 * (n_blocks * 1024 * 12 + 2 * 4 * n_pix)
+    reg_flops = n_blocks * 1024.0 * (sum(2 + 4 * (12 - c) for c in range(10)) + 60 + 13)
+    reg_bound = bound(reg_bytes, reg_flops)
+    bmfr_line = {"bmfr": {
+        "device": smi, "size": f"{WIDTH}x{HEIGHT}", "depth": DEPTH,
+        "config": "BMFRConfig(enabled, preprocess, regression, postprocess, "
+                  "half_screen_debug=False), solver auto = qr, history_pack auto = f32",
+        "ms_per_frame": bm_ms, "host_ms_per_frame": host_ms_of[bm_label],
+        "ms_per_frame_bmfr_off": mk_ms, "host_ms_per_frame_bmfr_off": host_ms_of["auto path"],
+        "kernel_launches": {k: bm_launches[k] for k in ("frame", "compact", "splat_tile")},
+        "frames": bm_frames, "stages": stages, "card_vs_cpu": vs_cpu,
+        "regression_bytes": reg_bytes, "regression_flops": reg_flops,
+        "regression_bound_ms": reg_bound["bound_ms"],
+        "regression_bound_by": reg_bound["bound_by"]}}
+    log(f"{bm_label}: {bm_ms:.4f} ms/frame against {mk_ms:.4f} BMFR off; stages {stages}; "
+        f"regression bound {reg_bound['bound_ms']:.4f} ms ({reg_bound['bound_by']})")
+    del r, ch, st, cam, ch_cpu, st_cpu, stage_fns
+
     launches = {"frame": mk_launches["frame"], "compact": mk_launches["compact"],
                 "splat_tile": mk_launches["splat_tile"], "shaded": wf_launches["shaded"],
                 "occluded": wf_launches["occluded"],
@@ -1378,6 +1487,17 @@ def main() -> int:
         if not value >= MIN_PSNR:
             raise AssertionError(f"golden image mismatch (megakernel {mk})")
 
+    # the BMFR golden (tests/test_golden.py's case: regression on, the
+    # reference's half-screen default)
+    small = Renderer(scene("cornell", 64, 64),
+                     RenderConfig(width=64, height=64,
+                                  bmfr=BMFRConfig(enabled=True, regression=True)))
+    small.render(6)
+    value = psnr_u8(small.display().cpu().numpy(), read_png_rgb8(GOLDEN_BMFR))
+    log(f"golden cornell_bmfr_6f_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
+    if not value >= MIN_PSNR:
+        raise AssertionError("BMFR golden image mismatch")
+
     # the pink_room golden: with exact taps at every vertex (what JAX's CPU
     # path renders) at the JAX package's bar; the default config's
     # mean-albedo bounce decodes beside it
@@ -1412,6 +1532,7 @@ def main() -> int:
     }
     # the HBM tier's kernels that the same walk replaces
     also = {"bvh_closest": [cl + ":602"], "bvh_occluded": [cl + ":546"]}
+    log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],
          "replaces": meta[name][1], "launches": launches[name], "path": paths[name],

@@ -6,7 +6,8 @@ against.  It covers scenes with a constant env map on two paths: the
 whole-frame megakernel (untextured, at most 2048 triangles) and the
 per-bounce wavefront (textured materials, any triangle count: the dense
 intersectors up to 2048 triangles, a BVH walk above), each with the
-estimator-2 splat reduction and temporal accumulation.
+estimator-2 splat reduction, temporal accumulation and the BMFR denoiser
+(single device).
 
 Layer map (JAX counterpart in parentheses):
   core/      TEA/LCG RNG, vector helpers, samplers     (core/)
@@ -19,7 +20,7 @@ Layer map (JAX counterpart in parentheses):
   ops/       splat K2 + K3, BRDF and materials,         (ops/)
              shading decode, texture taps
   passes/    G-buffer, BDPT wavefront, accumulation,    (passes/)
-             BMFR passthrough
+             BMFR (plain torch, as JAX's is plain jnp)
   pipeline/  render_frame_fn and Renderer, profiler     (pipeline/)
   csrc/      the hand-written CUDA C++ kernels, built by `cuda.py`
 

@@ -2,11 +2,12 @@
 
     python -m fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile \
         [--scene cornell|pink_room|textured] [--megakernel auto|off]
-        [--defer-textures] [--frames 5] [--repeats 2] [--out PATH.json]
-        [--trace PATH.json]
+        [--defer-textures] [--bmfr] [--frames 5] [--repeats 2]
+        [--out PATH.json] [--trace PATH.json]
 
-Renders a scene at 1280x720, depth 3, BMFR off, default config otherwise
-(the frames that `chip_smoke.py` times) through `Renderer`: the Cornell box
+Renders a scene at 1280x720, depth 3, BMFR off (`--bmfr`: on, every stage,
+full screen, as `chip_smoke.py` phase 5e), default config otherwise (the
+frames that `chip_smoke.py` times) through `Renderer`: the Cornell box
 on the megakernel path (`auto`) or the per-bounce wavefront (`off`);
 pink_room (`models/pink_room.pink_room(asset_dir="")`, 10,546 triangles,
 procedural textures), which the megakernel gate sends to the wavefront and
@@ -28,7 +29,7 @@ splat.  Prints one JSON object:
   `kernel_launches_per_frame` the number of CUDA kernels a frame runs;
 - `stages_ms`: host-clock ms of each stage of one frame with a device sync
   after it (attribution only: the syncs serialise what overlaps in a real
-  frame), once per repeat.
+  frame), once per repeat; with `--bmfr` the BMFR pass is one of them.
 
 `--out` also writes the JSON to a file, `--trace` the Chrome trace.
 """
@@ -54,10 +55,11 @@ from ..models.procedural import cornell_box, textured_room
 from ..ops.shading import make_shaded_tracer
 from ..ops.splat import scatter_add_rgba, scatter_add_rgba_prepacked
 from ..passes.bdpt import bdpt_pass
+from ..passes.bmfr import bmfr_pass
 from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
 from ..scene.camera import begin_frame
 from ..scene.scene import Scene
-from ..utils.config import BDPTConfig, RenderConfig
+from ..utils.config import BDPTConfig, BMFRConfig, RenderConfig
 from .renderer import BDPT_FRAME_INIT, GBUF_FRAME_INIT, Renderer
 
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
@@ -113,6 +115,9 @@ def stage_times(renderer: Renderer) -> dict:
             out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
                 lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
                                                    fo.splat_pay.reshape(-1), args.n_pix))
+    if cfg.bmfr.enabled:
+        out["bmfr_pass (preprocess, regression, postprocess)"], _ = _timed(
+            lambda: bmfr_pass(r.state.bmfr, r.channels, r.camera, cfg.bmfr))
     out["begin_frame (camera update)"], _ = _timed(lambda: begin_frame(r.camera))
     out["whole render_frame"], _ = _timed(r.render_frame)
     return out
@@ -124,7 +129,7 @@ SCENES = {"cornell": cornell_box, "pink_room": lambda: pink_room(asset_dir=""),
 
 def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
             megakernel: str = "auto", scene: str = "cornell",
-            defer_textures: bool = False) -> dict:
+            defer_textures: bool = False, bmfr: bool = False) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -135,7 +140,10 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     baked = Scene.from_built(SCENES[scene](), aspect=WIDTH / HEIGHT).bake(device=dev)
-    r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT,
+    # bench.py's BMFR cell: every stage, the full screen
+    bmfr_cfg = (BMFRConfig(enabled=True, regression=True, half_screen_debug=False) if bmfr
+                else BMFRConfig())
+    r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT, bmfr=bmfr_cfg,
                                      bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel,
                                                      defer_textures=defer_textures)))
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
@@ -160,6 +168,7 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
         "triangles": baked.n_tris,
         "megakernel": megakernel,
         "defer_textures": defer_textures,
+        "bmfr": bmfr,
         "path": "megakernel" if megakernel != "off" and supports_megakernel(r.baked, r.cfg)
                 else "wavefront",
         "frames": frames,
@@ -180,12 +189,16 @@ def main() -> None:
     ap.add_argument("--defer-textures", action="store_true",
                     help="BDPTConfig(defer_textures=True): the textured room takes the "
                          "deferred-texture megakernel")
+    ap.add_argument("--bmfr", action="store_true",
+                    help="BMFRConfig(enabled=True, regression=True, half_screen_debug=False): "
+                         "the denoiser's three stages after accumulation")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--out")
     ap.add_argument("--trace")
     a = ap.parse_args()
-    result = profile(a.frames, a.repeats, a.trace, a.megakernel, a.scene, a.defer_textures)
+    result = profile(a.frames, a.repeats, a.trace, a.megakernel, a.scene, a.defer_textures,
+                     a.bmfr)
     text = json.dumps(result, indent=1)
     if a.out:
         with open(a.out, "w") as f:

@@ -3,8 +3,10 @@
 Port of `fyp_bidirectionalpathtracer_tpu/pipeline/renderer.py`:
 `render_frame_fn`, `Renderer`, `GBUF_FRAME_INIT`, `BDPT_FRAME_INIT`, with
 the same signatures and channel dict.  The pass list is
-G-buffer + BDPT -> est-2 splat reduction -> accumulation -> BMFR (a
-passthrough while disabled).
+G-buffer + BDPT -> est-2 splat reduction -> accumulation -> BMFR (a blit
+of Accumulated while disabled, the reference's default; enabled, the
+preprocess, regression and postprocess of `passes/bmfr.py` on the frame's
+device).
 
 Routing: megakernel 'auto' and 'on' run the frame program for a scene in
 its gate, as the kernel K1 on a CUDA device and as its plain version on

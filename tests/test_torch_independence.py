@@ -1,7 +1,8 @@
 """The port imports nothing of JAX and nothing of the JAX package: neither
 in its source (a static check of every import statement) nor at run time
 (a subprocess that refuses those imports, and PIL, which the machine with
-the card lacks, renders the Cornell box through both paths, pink_room with
+the card lacks, renders the Cornell box through both paths and with the
+BMFR denoiser on, pink_room with
 its procedural textures and the textured room through the deferred-texture
 megakernel with both splat kernels' plain versions, and runs the fused
 subpath builder)."""
@@ -61,7 +62,11 @@ from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
-from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
+    BDPTConfig,
+    BMFRConfig,
+    RenderConfig,
+)
 
 baked = Scene.from_built(cornell_box(), aspect=1.0).bake(device="cpu")
 for mk in ("on", "off"):
@@ -69,6 +74,10 @@ for mk in ("on", "off"):
                                        bdpt=BDPTConfig(megakernel=mk))).render_frame()
     assert tuple(out.shape) == (16, 16, 4) and bool(out.isfinite().all()), mk
     print(mk, "ok")
+bmfr = BMFRConfig(enabled=True, regression=True, half_screen_debug=False)
+out = Renderer(baked, RenderConfig(width=16, height=16, bmfr=bmfr)).render_frame()
+assert tuple(out.shape) == (16, 16, 4) and bool(out.isfinite().all())
+print("bmfr", "ok")
 room = Scene.from_built(pink_room(asset_dir=""), aspect=1.6).bake(device="cpu")
 out = Renderer(room, RenderConfig(width=16, height=10)).render_frame()
 assert tuple(out.shape) == (10, 16, 4) and bool(out.isfinite().all())
@@ -99,5 +108,5 @@ def test_port_renders_with_jax_imports_refused():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["on", "ok", "off", "ok", "pink_room", "ok", "textured", "ok",
-                                   "subpath", "ok"], proc.stdout
+    assert proc.stdout.split() == ["on", "ok", "off", "ok", "bmfr", "ok", "pink_room", "ok",
+                                   "textured", "ok", "subpath", "ok"], proc.stdout

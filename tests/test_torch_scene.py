@@ -28,11 +28,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
     baked_scene_from_arrays,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.utils import config
-from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
-    BDPTConfig,
-    BMFRConfig,
-    RenderConfig,
-)
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 
 
 def jax_scene_arrays(jb) -> dict:
@@ -165,9 +161,9 @@ def _base_textured():
     (RenderConfig(width=8, height=8, bdpt=BDPTConfig(defer_textures=True,
                                                      splat_mode="tiled_sortonly")),
      _base_textured),
-    (RenderConfig(width=8, height=8, bmfr=BMFRConfig(enabled=True)), cornell_box),
+    (RenderConfig(width=8, height=8, bdpt=BDPTConfig(splat_mode="sorted")), cornell_box),
     (RenderConfig(width=8, height=8, tone_map_operator="aces"), cornell_box),
-], ids=["defer-textures", "bmfr", "tonemap"])
+], ids=["defer-textures", "splat-sorted", "tonemap"])
 def test_pipeline_refuses_unported_options(cfg, built):
     """defer-textures: the deferred-texture megakernel runs, and its splat
     in the timing-attribution mode `tiled_sortonly` raises and names the
