@@ -38,7 +38,23 @@ and the Cornell megakernel path with the BMFR denoiser on (every stage,
 the full screen: `bench.py`'s BMFR cell), beside the BMFR-off frame, with
 one pass's stages timed by solver ('qr', 'normal'), their device
 operations counted and the card's pass held against the port's CPU pass
-on the same 1280x720 inputs.  Each path is run with the launch counts set
+on the same 1280x720 inputs.  Phase 6 drives, through `Renderer` at the
+default config, the scenes the megakernel gate sends to the wavefront:
+the alpha panel room (6a, 8 triangles: the dense shaded kernel with the
+alpha restarts and the closest kernel on the alpha shadow batches, which
+become closest-hit queries with a per-lane t_max) and the same room with
+a 5,120-triangle icosphere in the cutout material (6b: `bvh_shaded` and
+`bvh_closest` under restarts), each restart round's batch recorded as the
+kernel receives it and held bit for bit against the plain version with
+equal alpha decisions; the open scene under a 1024x512 lat-long probe
+(6c, nearest and bilinear); Cornell with a tilted normal map (6d); and
+the Cornell G-buffer lit by `passes/extras.probe_lit_pass` with a
+`LightProbe` at its default sizes built from 6c's probe (6e: the build's
+integrals timed, the card's held against the CPU's at a small size, the
+result tone-mapped with 'aces' and 'clamp').  Each of 6a-6d is held
+against the same scene baked with `plain=True` on the card, and profiled
+(busy, idle, ms by kernel) after every timing; its numbers are the line
+{"phase6": ...}.  Each path is run with the launch counts set
 to 0 just before it and read just after; two renders of one frame must be
 bit-identical, the wavefront frames must agree with their plain chains
 (Cornell also with the megakernel frame, the textured room with both of
@@ -66,7 +82,7 @@ card's name and power limit, the line before that lists the kernels with
 their launch counts, errors, times and bounds, and the line before that
 is the BMFR phase's {"bmfr": {...}}: ms/frame on and off, the stage times
 and device operations by solver, the card-vs-CPU errors and the
-regression's bound.
+regression's bound.  Before it comes {"phase6": {...}}.
 """
 from __future__ import annotations
 
@@ -105,6 +121,8 @@ SLAB_FLOPS = 31
 PINK_SAMPLE = 14             # every 14th ray of a 1280x720 batch: 65,829 rays
 GOLDEN_PINK = os.path.join(REPO, "tests", "golden", "pink_room_fallback_2f_64x40.png")
 GOLDEN_BMFR = os.path.join(REPO, "tests", "golden", "cornell_bmfr_6f_64.png")
+GOLDEN_ENV = os.path.join(REPO, "tests", "golden", "env_open_4f_64.png")
+GOLDEN_PROBE_LIT = os.path.join(REPO, "tests", "golden", "cornell_probe_lit_64.png")
 
 
 def log(*a):
@@ -346,6 +364,53 @@ def kernel_ptxas(report: dict, key: str) -> dict:
     return hits[0] if len(hits) == 1 else {}
 
 
+def alpha_bvh_scene(procedural):
+    """Phase 6b's scene: the alpha panel room (`models/procedural.
+    alpha_panel_scene`) and an icosphere of 5,120 triangles
+    (subdivisions 4) in the panel's cutout material behind the panel."""
+    built = procedural.alpha_panel_scene()
+    built.meshes.append(procedural.icosphere((0.5, 0.45, 0.75), 0.2, 1, subdivisions=4))
+    return built
+
+
+def latlong_probe_gradient(height: int = 32, width: int = 64) -> np.ndarray:
+    """tests/test_envmap.py's lat-long probe [h, w, 4]: hue with longitude,
+    brightness with latitude (the env-map golden's)."""
+    v, u = np.meshgrid(np.linspace(0, 1, height), np.linspace(0, 1, width), indexing="ij")
+    return np.stack([u, 1.0 - u, v, np.ones_like(u)], -1).astype(np.float32)
+
+
+def latlong_probe(height: int = 512, width: int = 1024, seed: int = 0) -> np.ndarray:
+    """Phase 6c's lat-long probe: the gradient plus noise from a fixed seed."""
+    env = latlong_probe_gradient(height, width)
+    env[..., :3] += np.random.RandomState(seed).uniform(0.0, 0.2, (height, width, 3))
+    return env
+
+
+def open_scene(procedural, scene_cls, env, aspect: float):
+    """tests/test_envmap.py's open scene (a floor quad and a point light,
+    most primary rays missing into the sky) with `env` as its probe."""
+    s = procedural.BuiltScene(materials=[procedural.MaterialDesc(
+        "floor", base_color=(0.7, 0.7, 0.7, 1.0))])
+    s.meshes.append(procedural.quad((-2, 0, -2), (-2, 0, 2), (2, 0, 2), (2, 0, -2), 0))
+    s.lights = [{"type": "point", "pos": (0.0, 2.0, 0.0), "intensity": (3.0, 3.0, 3.0)}]
+    s.camera = {"pos": (0.0, 0.5, -3.0), "target": (0.0, 1.2, 0.0),
+                "up": (0.0, 1.0, 0.0), "focal_length": 21.0, "aspect": 1.0}
+    sc = scene_cls.from_built(s, aspect=aspect)
+    sc.env_map = env
+    return sc
+
+
+def normal_mapped_cornell(procedural):
+    """Phase 6d's scene: Cornell with tests/test_passes.py's tilted
+    tangent-space normal map (0.75, 0.5, 1) on material 0."""
+    built = procedural.cornell_box()
+    tilt = np.zeros((8, 8, 4), np.float32)
+    tilt[..., 0], tilt[..., 1], tilt[..., 2:] = 0.75, 0.5, 1.0
+    built.materials[0].normal_map_image = tilt
+    return built
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -363,12 +428,18 @@ def main() -> int:
         many_light_scene,
         textured_room,
     )
-    from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, splat_tile
+    from fyp_bidirectionalpathtracer_tpu_torch.models import procedural
+    from fyp_bidirectionalpathtracer_tpu_torch.ops import alpha as alpha_mod
+    from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, lightprobe, splat_tile, tonemap
     from fyp_bidirectionalpathtracer_tpu_torch.ops import splat as splat_mod
-    from fyp_bidirectionalpathtracer_tpu_torch.ops.shading import make_shaded_tracer
+    from fyp_bidirectionalpathtracer_tpu_torch.ops.shading import (
+        make_shaded_tracer,
+        shading_from_fields_fm,
+    )
     from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
     from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr as bmfr_mod
     from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.extras import probe_lit_pass
     from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import (
         pixel_jitter_for_frame,
         ray_traced_gbuffer,
@@ -380,10 +451,13 @@ def main() -> int:
         render_frame_fn,
     )
     from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile import profile_renderer
     from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.types import on_device
     from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
         BDPTConfig,
         BMFRConfig,
+        GBufferConfig,
         RenderConfig,
     )
 
@@ -564,8 +638,8 @@ def main() -> int:
             built.meshes.append(icosphere((0.5, 0.5, 0.5), 0.2, 0, subdivisions=3))
         return Scene.from_built(built, aspect=w / h).bake(device=dev)
 
-    def cfg_for(w, h, megakernel="auto", bmfr=BMFRConfig(), **bdpt_kw):
-        return RenderConfig(width=w, height=h, bmfr=bmfr,
+    def cfg_for(w, h, megakernel="auto", bmfr=BMFRConfig(), gbuffer=GBufferConfig(), **bdpt_kw):
+        return RenderConfig(width=w, height=h, bmfr=bmfr, gbuffer=gbuffer,
                             bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel, **bdpt_kw))
 
     def room(w, h):
@@ -1215,12 +1289,13 @@ def main() -> int:
     # ---- phase 5: the two paths at 1280x720 ---------------------------------
     host_ms_of = {}
 
-    def drive(megakernel, baked=None, label=None, bmfr=BMFRConfig(), **bdpt_kw):
+    def drive(megakernel, baked=None, label=None, bmfr=BMFRConfig(), gbuffer=GBufferConfig(),
+              **bdpt_kw):
         """3 warm-up and 10 timed frames through Renderer on a new
         accumulation, counts from 0 (the Cornell box unless `baked`)."""
         baked = cornell if baked is None else baked
         label = label or f"{megakernel} path"
-        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, bmfr, **bdpt_kw))
+        renderer = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, bmfr, gbuffer, **bdpt_kw))
         warmup, frames = 3, 10
         cuda.reset_launch_counts()
         for _ in range(warmup):
@@ -1248,7 +1323,7 @@ def main() -> int:
             raise AssertionError(f"{label} output has the wrong shape or count")
         twice = []
         for _ in range(2):
-            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, bmfr, **bdpt_kw))
+            r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, bmfr, gbuffer, **bdpt_kw))
             r.render_frame()
             twice.append({k: v.clone() for k, v in r.channels.items()})
         if not all(torch.equal(twice[0][k], twice[1][k]) for k in twice[0]):
@@ -1355,6 +1430,235 @@ def main() -> int:
                              f"{sp_launches}")
     log(f"build_subpath {n_pix} rays x {DEPTH} bounces: launches {sp_launches}")
 
+    # ---- phase 6: alpha, lat-long env maps, normal maps, the light probe -----
+    # the scenes the megakernel gate sends to the wavefront for them, at
+    # 1280x720, depth 3, the default config; timed before phase 5e's
+    # profiler (CUPTI slows every launch after it has traced) and profiled
+    # after it (`p6_renderers`)
+    p6 = {"device": smi, "size": f"{WIDTH}x{HEIGHT}", "depth": DEPTH, "runs": {}}
+    p6_renderers = {}
+    p6_kernels = {}
+
+    def alpha_restarts(bk, label, step=1):
+        """The batches the alpha restarts hand the kernels on `bk`: its
+        1280x720 G-buffer trace through make_shaded_tracer's restarts and
+        an est-3-shaped shadow batch through baked.intersector()'s (a
+        closest-hit query with a per-lane t_max), recorded as the kernels
+        receive them; on every step-th ray of each round the kernel bit for
+        bit against its plain version and the alpha decisions at both hits
+        equal; each round's kernel timed on the whole batch (the wrapper's
+        call) and its live lanes (t_min < t_max: not inert) counted."""
+        opaque = replace(bk, has_alpha=False)  # the same kernels, unwrapped
+        kernel_trace, kernel_query = make_shaded_tracer(opaque), opaque.intersector()
+        traced, queried = [], []
+
+        def record_trace(o, d, tmin, view, cull_backface=False, coherent=True):
+            traced.append((o, d, tmin, None, cull_backface))
+            return kernel_trace(o, d, tmin, view, cull_backface)
+
+        def record_query(o, d, tmin, tmax=None, closest=True, cull_backface=False,
+                         coherent=True):
+            queried.append((o, d, tmin, tmax, cull_backface))
+            return kernel_query(o, d, tmin, tmax, closest, cull_backface)
+
+        dense = bk.n_tris <= isect.MAX_DENSE_TRIS
+        args = (bk.tri_pack, bk.n_tris)
+        if dense:
+            shaded_k, closest_k = (partial(isect.intersect_shaded_fm, *args),
+                                   partial(isect.intersect_closest, *args))
+            k_names = ("shaded", "closest")
+        else:
+            shaded_k = partial(cluster.bvh_shaded_fm, *args, bk.bw_rows, bk.bvh_pairs)
+            closest_k = partial(cluster.bvh_closest, bk.bw_rows, bk.n_tris, bk.bvh_pairs)
+            k_names = ("bvh_shaded", "bvh_closest")
+        (o_g, d_g), _, (o_s, d_s, tm_s) = k4_rays(
+            bk, WIDTH, HEIGHT, dev,
+            None if dense else partial(cluster.bvh_shaded_fm, rows=bk.bw_rows,
+                                       pairs=bk.bvh_pairs))
+        alpha_mod.wrap_tracer(bk, record_trace)(o_g, d_g, 0.0, o_g, cull_backface=True)
+        alpha_mod.wrap_intersector(bk, record_query)(o_s, d_s, MIN_T, tm_s, closest=False)
+        mats, tris = on_device(bk.data.materials, dev), on_device(bk.tris, dev)
+        stats = {}
+        for name, kernel, batches in ((k_names[0], shaded_k, traced),
+                                      (k_names[1], closest_k, queried)):
+            rounds = []
+            for r, (o, d, tmin, tmax, cull) in enumerate(batches):
+                tmin = torch.broadcast_to(torch.as_tensor(tmin, device=dev), o.shape[:-1])
+                tmax_full = torch.full_like(tmin, 1e30) if tmax is None else tmax
+                os_, ds_, ts_ = pick(o, step), pick(d, step), pick(tmin, step, 1)
+                tx_ = None if tmax is None else pick(tmax, step, 1)
+                if tmax is None:
+                    kh, kf = kernel(os_, ds_, ts_, None, cull)
+                    ph, pf = isect.shaded_plain(*args, os_, ds_, ts_, None, cull)
+                    equal = all(torch.equal(bits(a), bits(b)) for a, b in (
+                        (kf, pf), (kh.t, ph.t), (kh.tri, ph.tri)))
+                    fails = [alpha_mod._fails(bk.atlas, mats, h, sd.material_id, sd.uv)
+                             for h, sd in ((kh, shading_from_fields_fm(kf, bk.atlas, kh, os_,
+                                                                       ds_, os_)),
+                                           (ph, shading_from_fields_fm(pf, bk.atlas, ph, os_,
+                                                                       ds_, os_)))]
+                    plain = partial(isect.shaded_plain, *args, os_, ds_, ts_, None, cull)
+                    full = partial(kernel, o, d, tmin, None, cull)
+                else:
+                    kc = kernel(os_, ds_, ts_, tx_, cull)
+                    pc = isect.closest_plain(*args, os_, ds_, ts_, tx_, cull)
+                    equal = all(torch.equal(bits(a), bits(b)) for a, b in (
+                        (kc.t, pc.t), (kc.tri, pc.tri), (kc.bary_u, pc.bary_u),
+                        (kc.bary_v, pc.bary_v)))
+                    fails = [alpha_mod._alpha_fails(tris, mats, bk.atlas, h, os_, ds_)
+                             for h in (kc, pc)]
+                    plain = partial(isect.closest_plain, *args, os_, ds_, ts_, tx_, cull)
+                    full = partial(kernel, o, d, tmin, tmax, cull)
+                decisions = bool(torch.equal(*fails))
+                torch.cuda.synchronize()
+                rounds.append(dict(
+                    round=r, rays=int(tmin.numel()), checked_rays=int(ts_.numel()),
+                    live=int((tmin < tmax_full).sum()), failed_alpha=int(fails[0].sum()),
+                    bit_equal=equal, decisions_equal=decisions, ms=time_ms(full, 5),
+                    plain_ms=time_ms(plain, 1)))
+                if not (equal and decisions):
+                    raise AssertionError(f"{name} differs from its plain version on the alpha "
+                                         f"restart batch {r} of {label}")
+            total = sum(x["ms"] for x in rounds)
+            stats[name] = {"scene": label, "tris": bk.n_tris, "rounds": rounds,
+                           "ms": total, "restart_share": (total - rounds[0]["ms"]) / total,
+                           "max_abs_err": 0.0}
+            log(f"alpha restarts {label}, {name} ({len(rounds)} rounds, {rounds[0]['rays']} "
+                f"rays, every {step} checked): bit-equal to the plain version, alpha "
+                f"decisions equal; live lanes by round {[x['live'] for x in rounds]}, ms by "
+                f"round {[round(x['ms'], 4) for x in rounds]}, restart rounds' share "
+                f"{stats[name]['restart_share']:.3f}")
+        return stats
+
+    def p6_run(label, bk, per_frame, plain_size=(WIDTH, HEIGHT), gbuffer=GBufferConfig()):
+        """`bk` through Renderer at 1280x720 (drive: counts from 0, two
+        renders of one frame bit-identical), each kernel's launches a frame
+        as `per_frame` says, and the kernel frame within the image bounds of
+        the same scene baked with plain=True on the card at `plain_size`."""
+        launches, n, _, ms = drive("auto", bk, label, gbuffer=gbuffer)
+        for key in cuda.LAUNCHES:
+            if launches[key] != per_frame.get(key, 0) * n:
+                raise AssertionError(f"{label}: kernel {key} launched {launches[key]} times in "
+                                     f"{n} frames, want {per_frame.get(key, 0)} a frame")
+        w, h = plain_size
+        frames = []
+        for plain in (False, True):
+            ch, _, _ = render_frame_fn(replace(bk, plain=plain), bk.data.camera,
+                                       AccumState.create(h, w, dev), BMFRState.create(h, w, dev),
+                                       GBUF_FRAME_INIT, BDPT_FRAME_INIT, False,
+                                       cfg_for(w, h, gbuffer=gbuffer))
+            frames.append(ch["BDPT"])
+        frac, mad, dmean, ok = image_stats(*frames)
+        identical = bool(torch.equal(*frames))
+        log(f"{label} {w}x{h}, kernels vs plain chain: identical {identical}, frac>1e-3 "
+            f"{frac:.4f} (<= 0.02), mean|d| {mad:.2e} (< 5e-3), mean radiance d {dmean:.2e} "
+            f"(< 2e-3); launches a frame {per_frame} (as required)")
+        if not ok:
+            raise AssertionError(f"{label}: the kernel frame differs from its plain chain")
+        p6["runs"][label] = {"tris": bk.n_tris, "ms_per_frame": ms,
+                             "host_ms_per_frame": host_ms_of[label], "frames": n,
+                             "launches_per_frame": {k: v // n for k, v in launches.items() if v},
+                             "vs_plain": {"size": f"{w}x{h}", "identical": identical,
+                                          "frac": frac, "mad": mad, "dmean": dmean}}
+        p6_renderers[label] = (bk, cfg_for(WIDTH, HEIGHT, gbuffer=gbuffer))
+        return launches
+
+    wave = {"compact": 1, "splat_tile": 1}
+    traces = 1 + (DEPTH - 1) + DEPTH  # the G-buffer, the camera and light extensions
+    restarts = 1 + alpha_mod.MAX_RESTARTS
+    # 6a: the alpha panel room (8 triangles): the dense tier
+    panel = Scene.from_built(procedural.alpha_panel_scene(),
+                             aspect=WIDTH / HEIGHT).bake(device=dev)
+    if not (panel.has_alpha and not frame_mod.supports_megakernel(panel, cfg_for(64, 48))):
+        raise AssertionError("the alpha panel room must take the wavefront")
+    p6_kernels.update(alpha_restarts(panel, "6a alpha panel"))
+    p6_run("6a alpha panel (dense)", panel,
+           {"shaded": traces * restarts, "closest": 3 * restarts, **wave})
+    # 6b: the same room and a 5,120-triangle icosphere in the cutout: the
+    # BVH tier (the plain chain at 640x360: 5,128 triangles in torch)
+    panel_bvh = Scene.from_built(alpha_bvh_scene(procedural),
+                                 aspect=WIDTH / HEIGHT).bake(device=dev)
+    if not (panel_bvh.has_alpha and panel_bvh.n_tris > isect.MAX_DENSE_TRIS):
+        raise AssertionError("6b's scene must be alpha-tested and above the dense tier")
+    p6_kernels.update(alpha_restarts(panel_bvh, "6b alpha panel + icosphere", step=4))
+    p6_run("6b alpha panel + icosphere (BVH)", panel_bvh,
+           {"bvh_shaded": traces * restarts, "bvh_closest": 3 * restarts, **wave},
+           plain_size=(640, 360))
+    # 6c: the open scene under a 1024x512 lat-long probe, nearest and bilinear
+    probe_map = latlong_probe()
+    env_bk = open_scene(procedural, Scene, probe_map, WIDTH / HEIGHT).bake(device=dev)
+    if frame_mod.supports_megakernel(env_bk, cfg_for(64, 48, "on")):
+        raise AssertionError("supports_megakernel must refuse a 1024x512 env map")
+    for bilinear in (False, True):
+        p6_run(f"6c env map 1024x512 ({'bilinear' if bilinear else 'nearest'})", env_bk,
+               {"shaded": traces, "occluded": 3, **wave},
+               gbuffer=GBufferConfig(env_bilinear=bilinear))
+    # 6d: Cornell with the tilted normal map on material 0
+    nm_bk = Scene.from_built(normal_mapped_cornell(procedural),
+                             aspect=WIDTH / HEIGHT).bake(device=dev)
+    if not (nm_bk.has_normal_maps and not frame_mod.supports_megakernel(nm_bk, cfg_for(64, 48))):
+        raise AssertionError("the normal-mapped Cornell box must take the wavefront")
+    p6_run("6d Cornell normal map", nm_bk, {"shaded": traces, "occluded": 3, **wave})
+    # 6e: the Cornell G-buffer lit by probe_lit_pass, the probe at its default
+    # sizes from 6c's map; the build's integrals timed one by one
+    probe_env = torch.from_numpy(probe_map).to(dev)
+    build = {}
+    for name, fn in (("diffuse", lambda: lightprobe.integrate_diffuse_ld(probe_env)),
+                     ("specular", lambda: lightprobe.integrate_specular_ld(probe_env)),
+                     ("dfg", lambda: lightprobe.integrate_dfg(device=dev))):
+        torch.cuda.synchronize()
+        t_build = time.perf_counter()
+        build[name] = fn()
+        torch.cuda.synchronize()
+        build[f"{name}_ms"] = (time.perf_counter() - t_build) * 1e3
+    probe = lightprobe.LightProbe.__new__(lightprobe.LightProbe)  # the maps built above
+    probe.origin, probe.diffuse, probe.specular, probe.dfg = (
+        probe_env, build["diffuse"], build["specular"], build["dfg"])
+    if not all(bool(torch.isfinite(m).all()) and bool((m >= 0).all())
+               for m in (probe.diffuse, probe.specular, probe.dfg)):
+        raise AssertionError("the light probe's maps are not finite and non-negative")
+    # the card's integrals against the CPU's on a small probe
+    small_env = latlong_probe(32, 64, seed=1)
+    vs_cpu = {}
+    for name, fn in (("diffuse", partial(lightprobe.integrate_diffuse_ld, size=16,
+                                         sample_count=64)),
+                     ("specular", partial(lightprobe.integrate_specular_ld, size=16,
+                                          sample_count=64, mip_count=3))):
+        on_card = fn(torch.from_numpy(small_env).to(dev)).cpu()
+        on_cpu = fn(torch.from_numpy(small_env))
+        vs_cpu[name] = float((on_card - on_cpu).abs().max())
+        if not torch.allclose(on_card, on_cpu, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"the card's {name} integral differs from the CPU's")
+    cb = scene("cornell", WIDTH, HEIGHT)
+    ch = ray_traced_gbuffer(cb, make_shaded_tracer(cb), WIDTH, HEIGHT, GBUF_FRAME_INIT, jitter)
+    cuda.reset_launch_counts()
+    lit = probe_lit_pass(cb, cb.intersector(), ch, probe)
+    torch.cuda.synchronize()
+    pass_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    if pass_launches != {"occluded": int(cb.data.lights.count)}:
+        raise AssertionError(f"probe_lit_pass launched {pass_launches}")
+    pass_ms = time_ms(lambda: probe_lit_pass(cb, cb.intersector(), ch, probe), 5)
+    shown = {}
+    for name in ("aces", "clamp"):
+        img = tonemap.tone_map(lit[..., :3], tonemap.OPERATOR_NAMES[name])
+        shown[name] = {"mean": float(img.mean()), "min": float(img.min()),
+                       "max": float(img.max())}
+        if not (bool(torch.isfinite(img).all()) and shown[name]["min"] >= 0.0
+                and shown[name]["max"] <= 1.0 and shown[name]["mean"] > 0.0):
+            raise AssertionError(f"the probe-lit image tone-mapped with {name} is off")
+    p6["probe"] = {"source": "1024x512 lat-long (6c)", "sizes": "LightProbe defaults: "
+                   "diffuse 128 x 4096 samples, specular 1024 x 1024 samples x 8 mips, "
+                   "DFG 128 x 128 samples",
+                   **{f"{k}_ms": build[f"{k}_ms"] for k in ("diffuse", "specular", "dfg")},
+                   "card_vs_cpu_max_abs_err": vs_cpu, "pass_ms": pass_ms,
+                   "pass_launches": pass_launches, "tone_mapped": shown}
+    log(f"6e light probe (default sizes, 1024x512 source): diffuse "
+        f"{build['diffuse_ms']:.1f} ms, specular {build['specular_ms']:.1f} ms, DFG "
+        f"{build['dfg_ms']:.1f} ms (host clock with a sync); card vs CPU at 16 texels "
+        f"{vs_cpu}; probe_lit_pass {WIDTH}x{HEIGHT} {pass_ms:.4f} ms, launches "
+        f"{pass_launches}; tone-mapped {shown}")
+    del probe, build, lit, ch
+
     # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
     # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
     # is phase 5's megakernel run
@@ -1447,6 +1751,32 @@ def main() -> int:
         f"regression bound {reg_bound['bound_ms']:.4f} ms ({reg_bound['bound_by']})")
     del r, ch, st, cam, ch_cpu, st_cpu, stage_fns
 
+    # phase 6's frames profiled (after every timing): device busy and idle
+    # (against the unprofiled ms/frame above), launches and ms by kernel:
+    # the port's own kernels (namespace bdpt::) and torch's 8 longest, by
+    # their names up to the template arguments
+    for label, (bk, cfg) in p6_renderers.items():
+        prof = profile_renderer(Renderer(bk, cfg), frames=3, repeats=0)
+        run = p6["runs"][label]
+        by_kernel = prof["kernels_ms_per_frame"]
+        ours = {k.split("(")[0]: v for k, v in by_kernel.items() if "bdpt::" in k}
+        torch_ms = {}
+        for k, v in by_kernel.items():
+            if "bdpt::" not in k:
+                name = re.sub(r"^void ", "", k.split("<")[0])
+                torch_ms[name] = torch_ms.get(name, 0.0) + v
+        torch_top = dict(sorted(torch_ms.items(), key=lambda kv: -kv[1])[:8])
+        run.update(device_busy_ms_per_frame=prof["device_busy_ms_per_frame"],
+                   device_idle_share=1.0 - prof["device_busy_ms_per_frame"] / run["ms_per_frame"],
+                   device_operations_per_frame=prof["kernel_launches_per_frame"],
+                   port_kernels_ms_per_frame=ours, port_kernels_ms_sum=sum(ours.values()),
+                   torch_kernels_ms_per_frame=torch_top)
+        log(f"{label} profile: busy {run['device_busy_ms_per_frame']:.4f} ms of "
+            f"{run['ms_per_frame']:.4f} ms/frame (idle {run['device_idle_share']:.3f}), "
+            f"{run['device_operations_per_frame']:.0f} device operations a frame; the port's "
+            f"kernels {ours} (sum {run['port_kernels_ms_sum']:.4f} ms); torch's longest "
+            f"{torch_top}")
+
     launches = {"frame": mk_launches["frame"], "compact": mk_launches["compact"],
                 "splat_tile": mk_launches["splat_tile"], "shaded": wf_launches["shaded"],
                 "occluded": wf_launches["occluded"],
@@ -1456,13 +1786,18 @@ def main() -> int:
                 "frame_textured": tex_runs["auto"][0]["frame_textured"],
                 "splat_rows": tex_runs["tiled"][0]["splat_rows"],
                 "subpath": sp_launches["subpath"]}
-    launches["closest"] = kernels["closest"].pop("launches")
+    # the closest kernel's main path: phase 6a's alpha shadow batches and
+    # restarts (the force_fused=False G-buffer of phase 4 launches it once)
+    kernels["closest"]["gbuffer_force_fused_false_launches"] = kernels["closest"].pop("launches")
+    p6a = p6["runs"]["6a alpha panel (dense)"]
+    launches["closest"] = p6a["launches_per_frame"]["closest"] * p6a["frames"]
     # the run each kernel's launch count comes from
     paths = {name: f"megakernel {WIDTH}x{HEIGHT}, {n_frames} frames"
              for name in ("frame", "compact", "splat_tile")}
     paths.update({name: f"wavefront {WIDTH}x{HEIGHT}, {n_frames} frames"
                   for name in ("shaded", "occluded")})
-    paths["closest"] = "gbuffer force_fused=False 250x143, 1 frame"
+    paths["closest"] = (f"6a alpha panel wavefront {WIDTH}x{HEIGHT}, {p6a['frames']} frames "
+                        f"(alpha shadow batches and restarts)")
     paths.update({name: f"pink_room wavefront {WIDTH}x{HEIGHT}, {pk_frames} frames"
                   for name in ("bvh_shaded", "bvh_occluded")})
     paths["bvh_closest"] = f"pink_room subdivisions=4 wavefront {WIDTH}x{HEIGHT}, {n_big} frames"
@@ -1475,7 +1810,7 @@ def main() -> int:
         kernels[name] = dict(max_abs_err=0.0, library_ms=None,
                              **{k: v for k, v in bvh_stats["pink_room"][name].items()})
 
-    # ---- phase 6: goldens ---------------------------------------------------
+    # ---- phase 7: goldens ---------------------------------------------------
     golden = read_png_rgb8(GOLDEN)
     for mk in ("auto", "off"):
         small = Renderer(scene("cornell", 64, 64),
@@ -1513,6 +1848,28 @@ def main() -> int:
         if not mean and not value >= MIN_PSNR:
             raise AssertionError("pink_room golden image mismatch")
 
+    # the env-map golden (tests/test_envmap.py's open scene, 64x64, 4 frames)
+    # and the probe-lit one (tests/test_lightprobe.py: the Cornell G-buffer,
+    # probe_lit_pass with its 1x1 env's probe, the clamp tone map)
+    small = open_scene(procedural, Scene, latlong_probe_gradient(), 1.0).bake(device=dev)
+    r = Renderer(small, RenderConfig(width=64, height=64))
+    r.render(4)
+    value = psnr_u8(r.display().cpu().numpy(), read_png_rgb8(GOLDEN_ENV))
+    log(f"golden env_open_4f_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
+    if not value >= MIN_PSNR:
+        raise AssertionError("env-map golden image mismatch")
+    small = scene("cornell", 64, 64)
+    gb = ray_traced_gbuffer(small, make_shaded_tracer(small), 64, 64, GBUF_FRAME_INIT,
+                            pixel_jitter_for_frame(GBUF_FRAME_INIT))
+    small_probe = lightprobe.LightProbe(small.env_map, diff_samples=256, spec_samples=64,
+                                        diff_size=16, spec_size=32, spec_mips=4)
+    lit = probe_lit_pass(small, small.intersector(), gb, small_probe)
+    value = psnr_u8(tonemap.tone_map(lit[..., :3], tonemap.CLAMP).cpu().numpy(),
+                    read_png_rgb8(GOLDEN_PROBE_LIT))
+    log(f"golden cornell_probe_lit_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
+    if not value >= MIN_PSNR:
+        raise AssertionError("probe-lit golden image mismatch")
+
     pkg = "fyp_bidirectionalpathtracer_tpu_torch/csrc/"
     cl = "fyp_bidirectionalpathtracer_tpu/accel/pallas_cluster.py"
     meta = {
@@ -1532,6 +1889,13 @@ def main() -> int:
     }
     # the HBM tier's kernels that the same walk replaces
     also = {"bvh_closest": [cl + ":602"], "bvh_occluded": [cl + ":546"]}
+    # the alpha restarts' batches (phase 6a, 6b) beside each kernel's main keys
+    for name, value in p6_kernels.items():
+        kernels[name]["alpha_restarts"] = value
+    for name in kernels:
+        kernels[name]["phase6_launches_per_frame"] = {
+            label: run["launches_per_frame"].get(name, 0) for label, run in p6["runs"].items()}
+    log(json.dumps({"phase6": p6}))
     log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],

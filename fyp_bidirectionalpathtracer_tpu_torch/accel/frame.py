@@ -26,15 +26,15 @@ The sampler helpers the JAX kernel imports from `accel/pallas_subpath.py`
 (`_sample_brdf_tiles`, `_perpendicular`, `_normalize3`, `_next_rand`) are
 `sample_brdf` here and the core/ helpers it uses.
 
-Scope (`supports_megakernel`): 1x1 env map, at most 2048 triangles,
-1 <= max_depth <= 8; a textured scene only through deferred texturing
+Scope (`supports_megakernel`): 1x1 env map, no alpha-tested material, at
+most 2048 triangles, 1 <= max_depth <= 8; a textured scene only through deferred texturing
 (`defer_textures`, base colour and emissive the only textured kinds,
 max_depth <= 4, uniform weights).  The textured variant of the program
 (`FrameArgs.textured`, JAX `frame_kernel(textured=True)`) shades with each
 material's mean albedo and writes, instead of the own-pixel result, the
 per-vertex texture records and the raw estimator parts; `textured_replay`
 then applies the texel/mean ratios in the reference's accumulation order
-(JAX `_textured_replay`).  Alpha-tested scenes do not bake.
+(JAX `_textured_replay`).
 """
 from __future__ import annotations
 
@@ -189,8 +189,10 @@ def supports_megakernel(baked, cfg, max_tris: int = MAX_TRIS) -> bool:
     1155-1185`): a textured scene qualifies through deferred texturing when
     only base colour (and emissive) is textured (`tex_defer_ok`), at
     depth <= 4 and with uniform weights (the replay bakes 1/totalLength
-    into its clamp).  Alpha-tested scenes do not bake; the port's kernel
-    takes depth <= 8."""
+    into its clamp).  Alpha-tested scenes (K1 has no alpha test) and env
+    maps larger than 1x1 (K1 reads one texel) go to the wavefront; a
+    normal-mapped scene fails `tex_defer_ok`.  The port's kernel takes
+    depth <= 8."""
     b = cfg.bdpt
     untextured = not is_textured(baked)
     tex_ok = untextured or (b.defer_textures and baked.tex_defer_ok
@@ -199,6 +201,7 @@ def supports_megakernel(baked, cfg, max_tris: int = MAX_TRIS) -> bool:
         baked.n_tris <= max_tris
         and tuple(baked.data.env_map.shape[:2]) == (1, 1)
         and tex_ok
+        and not baked.has_alpha
         and (b.connection_weight == "uniform" or untextured)
         and 1 <= b.max_depth <= MAX_DEPTH
     )

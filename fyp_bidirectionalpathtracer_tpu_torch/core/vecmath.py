@@ -28,6 +28,11 @@ def saturate(x):
     return torch.clamp(x, 0.0, 1.0)
 
 
+def reflect(i, n):
+    """HLSL reflect: i - 2 dot(i, n) n (i points toward the surface)."""
+    return i - 2.0 * dot(i, n)[..., None] * n
+
+
 def luminance(c):
     """Rec.709 luminance."""
     return 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
@@ -64,6 +69,16 @@ def normalize(a, eps: float = 0.0):
     """a / sqrt(|a|^2 + eps); with eps=0 HLSL normalize (a zero vector
     gives nan/inf)."""
     return a / torch.sqrt(dot(a, a) + eps)[..., None]
+
+
+def ws_vector_to_latlong(d):
+    """World-space direction -> lat-long (u, v) in [0, 1]^2
+    (wsVectorToLatLong, BDPTUtils.hlsli:80-88): u from atan2(x, -z), v
+    from acos(y)."""
+    p = normalize(d)
+    u = (1.0 + torch.atan2(p[..., 0], -p[..., 2]) * M_1_PI) * 0.5
+    v = torch.acos(torch.clamp(p[..., 1], -1.0, 1.0)) * M_1_PI
+    return u, v
 
 
 # ------------------------------------------------------- per-component form

@@ -7,9 +7,10 @@ kind), `interpolate_hit`, `shading_from_fields(_fm)` / `_decode_fields`,
 BDPTUtils.hlsli:1-61) and `make_shaded_tracer` with its three branches:
 the dense shaded kernel (at most 2048 triangles), the BVH shaded kernel
 (the JAX cluster branch, up to 32768), and closest hit plus gathers above
-that.  Normal maps stay out, as on the reference's secondary surfaces
-(BDPTUtils.hlsli:40-41); the bake refuses normal-mapped scenes (ROADMAP
-Queue 1 item 10b), so the G-buffer's primary hits need none either.
+that, each wrapped in the alpha restarts of `ops/alpha.wrap_tracer` when
+the scene has alpha-tested materials; and `apply_normal_mapping`, the
+G-buffer's tangent-space normal maps at primary hits (the reference's
+secondary surfaces take none, BDPTUtils.hlsli:40-41).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from ..accel import cluster
 from ..accel import intersect as isect
 from ..accel.traverse import CLUSTER_THRESHOLD, HitRecord, TriSoA
-from ..core.vecmath import dot, normalize
+from ..core.vecmath import cross, dot, normalize
 from ..scene.types import SHADING_METAL_ROUGH, MaterialArray, TextureAtlas, on_device
 from .texture import sample_combined, sample_or_constant
 
@@ -177,6 +178,49 @@ def prepare_shading_data(tris: TriSoA, materials: MaterialArray, atlas,
                     camera_pos)
 
 
+def _tangent_pack(tris: TriSoA) -> torch.Tensor:
+    """[T, 4] per-triangle tangent seed: the UV-gradient tangent (3) and
+    the bitangent's handedness sign (1, 0 where the UVs are degenerate),
+    from the edge / uv-edge solve."""
+    duv1 = tris.uv1 - tris.uv0
+    duv2 = tris.uv2 - tris.uv0
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    t_raw = duv2[:, 1:2] * tris.e1 - duv1[:, 1:2] * tris.e2
+    ok = det.abs() > 1e-12
+    sign = torch.where(det >= 0, 1.0, -1.0) * ok.to(torch.float32)
+    return torch.cat([t_raw, sign[:, None]], dim=-1)
+
+
+def apply_normal_mapping(baked, hit: HitRecord, sd: ShadingData) -> ShadingData:
+    """sd.n perturbed by the material's tangent-space normal map
+    (applyNormalMap through Falcor's prepareShadingData, Shading.slang:
+    135-157): the G-buffer's primary hits only; bounces keep the simple
+    path (BDPTUtils.hlsli:40-41).  Tangents come from the UV gradients;
+    degenerate UVs or no map leave n as it is.  The tap reads the
+    per-texture packed table."""
+    dev = sd.n.device
+    normal_tex = baked.data.materials.normal_tex.to(dev)
+    tri = torch.clamp(hit.tri, min=0).long()
+    trow = _tangent_pack(on_device(baked.tris, dev))[tri]
+    m = torch.clamp(sd.material_id, min=0).long()
+    slot = normal_tex[m]
+
+    n = sd.n
+    t_raw, sign = trow[..., 0:3], trow[..., 3]
+    t_proj = t_raw - n * dot(n, t_raw)[..., None]
+    t_len = torch.sqrt(torch.clamp(dot(t_proj, t_proj), min=1e-20))
+    t_hat = t_proj / t_len[..., None]
+    b_hat = cross(n, t_hat) * sign[..., None]
+
+    flat = torch.tensor([0.5, 0.5, 1.0, 0.0], dtype=torch.float32,
+                        device=dev).expand(sd.uv.shape[:-1] + (4,))
+    nt = sample_or_constant(baked.atlas, slot, sd.uv, flat)[..., 0:3] * 2.0 - 1.0
+    n_new = normalize(t_hat * nt[..., 0:1] + b_hat * nt[..., 1:2] + n * nt[..., 2:3])
+    use = hit.hit & (slot >= 0) & (sign != 0.0) & (t_len > 1e-8)
+    n_out = torch.where(use[..., None], n_new, n)
+    return replace(sd, n=n_out, n_dot_v=torch.where(use, dot(n_out, sd.v), sd.n_dot_v))
+
+
 def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: bool = False,
                        lean_bf16: bool | None = None, bounce_tex_mean: bool = False):
     """Build `trace(origin, direction, t_min, view_origin, cull_backface=False,
@@ -198,8 +242,18 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
     direction sort whose permutation is inverted) and `lean_bf16` (JAX's
     bf16 quantisation of lean bounce shading on the TPU; the port keeps
     float32, as JAX on the CPU does) are accepted and ignored.  A bake with
-    `plain=True` runs the kernels' plain versions."""
+    `plain=True` runs the kernels' plain versions.
+
+    A scene with alpha-tested materials wraps each branch in
+    `ops/alpha.wrap_tracer`, as JAX does (`:398-402`).  On the gather
+    branch `baked.intersector()` is itself alpha-wrapped, so the restarts
+    nest there, as in JAX's (`:699-715`)."""
     del sort_divergent, lean_bf16
+    from .alpha import wrap_tracer
+
+    def alpha_wrap(trace):
+        return wrap_tracer(baked, trace) if baked.has_alpha else trace
+
     atlas_full = baked.atlas
     atlas_mean = mean_atlas(atlas_full) if bounce_tex_mean else atlas_full
     dense = baked.n_tris <= isect.MAX_DENSE_TRIS
@@ -223,7 +277,7 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
             return hit, shading_from_fields_fm(fields_fm, atlas_mean if lean else atlas_full,
                                                hit, origin, direction, view_origin)
 
-        return trace
+        return alpha_wrap(trace)
 
     intersect = baked.intersector()
     tris = on_device(baked.tris, baked.device)
@@ -236,4 +290,4 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
         return hit, prepare_shading_data(tris, materials, atlas_full, hit, origin, direction,
                                          view_origin)
 
-    return trace
+    return alpha_wrap(trace)

@@ -9,7 +9,8 @@ frame program (`accel/frame.py`).  Channels (lightProbeGBuffer.rt.hlsl:
 camera), MaterialDiffuse (diffuse, opacity; a miss gives (env, 1)),
 MaterialSpecRough (specular, linear roughness), MaterialExtraParams (IoR,
 0, 0, 0), Emissive (emissive, 0).  Primary rays cull backfaces
-(lightProbeGBuffer.rt.hlsl:152).
+(lightProbeGBuffer.rt.hlsl:152); a normal-mapped scene perturbs the
+primary hits' normals (Shading.slang:135-157).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from ..core import rng, samplers
 from ..core.vecmath import normalize
 from ..ops.envmap import eval_env_bilinear, eval_env_nearest
+from ..ops.shading import apply_normal_mapping
 from ..scene.camera import camera_ray_dirs
 
 
@@ -58,11 +60,15 @@ def ray_traced_gbuffer(baked, trace, width: int, height: int, frame_count, pixel
 
     hit, sd = trace(origin, direction, 0.0, cam_pos.expand(d_raw.shape),
                     cull_backface=True)
+    if baked.has_normal_maps:
+        # primary hits get prepareShadingData's normal map; bounces keep
+        # the simple path
+        sd = apply_normal_mapping(baked, hit, sd)
     valid = hit.hit
     vmask = valid[..., None]
     dist = torch.sqrt(torch.sum((sd.pos_w - cam_pos) ** 2, -1))
     env = (eval_env_bilinear if env_bilinear else eval_env_nearest)(
-        baked.data.env_map, direction)
+        baked.env_map, direction)
 
     zero = torch.zeros_like(dist)
     one = torch.ones_like(dist)

@@ -32,6 +32,8 @@ splat.  Prints one JSON object:
   frame), once per repeat; with `--bmfr` the BMFR pass is one of them.
 
 `--out` also writes the JSON to a file, `--trace` the Chrome trace.
+`profile_renderer` does the same for any `Renderer` (chip_smoke.py's
+phase 6 profiles its alpha, env-map and normal-map frames with it).
 """
 from __future__ import annotations
 
@@ -130,10 +132,6 @@ SCENES = {"cornell": cornell_box, "pink_room": lambda: pink_room(asset_dir=""),
 def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
             megakernel: str = "auto", scene: str = "cornell",
             defer_textures: bool = False, bmfr: bool = False) -> dict:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     if not torch.cuda.is_available():
         raise RuntimeError("frame_profile needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,6 +144,18 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
     r = Renderer(baked, RenderConfig(width=WIDTH, height=HEIGHT, bmfr=bmfr_cfg,
                                      bdpt=BDPTConfig(max_depth=DEPTH, megakernel=megakernel,
                                                      defer_textures=defer_textures)))
+    return {"scene": scene, "megakernel": megakernel, "defer_textures": defer_textures,
+            "bmfr": bmfr, **profile_renderer(r, frames, repeats, trace)}
+
+
+def profile_renderer(r: Renderer, frames: int = 5, repeats: int = 2,
+                     trace: str | None = None) -> dict:
+    """The measurements of `profile` (all its keys but the options) for the
+    renderer `r` on a CUDA device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
     plain_ms, _ = _timed(lambda: r.render(frames))
     # before the profiler: CUPTI slows every launch after it has traced
@@ -164,13 +174,9 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
                          timeout=60).stdout.strip()
     return {
         "device": smi,
-        "scene": scene,
-        "triangles": baked.n_tris,
-        "megakernel": megakernel,
-        "defer_textures": defer_textures,
-        "bmfr": bmfr,
-        "path": "megakernel" if megakernel != "off" and supports_megakernel(r.baked, r.cfg)
-                else "wavefront",
+        "triangles": r.baked.n_tris,
+        "path": "megakernel" if (r.cfg.bdpt.megakernel != "off"
+                                 and supports_megakernel(r.baked, r.cfg)) else "wavefront",
         "frames": frames,
         "ms_per_frame_host": plain_ms / frames,
         "ms_per_frame_host_profiled": host_ms / frames,

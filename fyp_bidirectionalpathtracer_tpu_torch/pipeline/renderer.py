@@ -13,10 +13,14 @@ its gate, as the kernel K1 on a CUDA device and as its plain version on
 CPU tensors (JAX's interpret-mode megakernel plays that role on the CPU);
 a base-colour-textured scene with `defer_textures=True` is in the gate and
 runs K1's textured variant and the deferred-texture replay.  megakernel
-'off', and a scene the gate refuses (other textures, deferral off, or
+'off', and a scene the gate refuses (other textures, normal maps,
+deferral off, alpha-tested materials, an env map larger than 1x1, or
 above 2048 triangles), run the per-bounce wavefront (JAX `renderer.py:
 91-117`): `ray_traced_gbuffer`, then `bdpt_pass`, every trace through the
-dense K4 intersectors or, above 2048 triangles, the BVH kernels.
+dense K4 intersectors or, above 2048 triangles, the BVH kernels, in the
+alpha restarts of `ops/alpha.py` where the scene has alpha-tested
+materials.  `Renderer.display` tone-maps with any of the 7 operators of
+`ops/tonemap.py`.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..accel.frame import render_frame_megakernel, supports_megakernel
+from ..ops import tonemap as tonemap_mod
 from ..ops.shading import make_shaded_tracer
 from ..passes.accumulate import AccumState, accumulate, camera_moved
 from ..passes.bdpt import bdpt_pass
@@ -36,7 +41,6 @@ from ..utils.config import RenderConfig
 
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
-_TONEMAP_ITEM = "ROADMAP Queue 1 item 12 (tone-map operators)"
 
 
 @dataclass
@@ -117,8 +121,7 @@ class Renderer:
         return out
 
     def display(self, channel: str = "PipelineOutput"):
-        """Tone-mapped image; the port has the reference's default 'clamp'."""
-        if self.cfg.tone_map_operator != "clamp":
-            raise NotImplementedError(
-                f"tone map {self.cfg.tone_map_operator!r}; see {_TONEMAP_ITEM}")
-        return torch.clamp(self.channels[channel][..., :3], 0.0, 1.0)
+        """Tone-mapped image (the SimpleToneMappingPass analogue), by the
+        configured operator."""
+        op = tonemap_mod.OPERATOR_NAMES[self.cfg.tone_map_operator]
+        return tonemap_mod.tone_map(self.channels[channel][..., :3], op)

@@ -1,8 +1,8 @@
 """Host scene container and bake.
 
 Port of `Scene.from_built(...).bake()` in `fyp_bidirectionalpathtracer_tpu/
-scene/scene.py` (`:60`, `:145`) for scenes with textured or constant
-materials and a constant 1x1 env map.  Triangles are permuted by the same
+scene/scene.py` (`:60`, `:145`): textured, normal-mapped, alpha-tested or
+constant materials, and any env map.  Triangles are permuted by the same
 `accel/bvh.build_bvh` call (`scene.py:179-182`), so triangle ids match the
 JAX bake; the texture atlas, its wrap-packed and combined u8 tables and the
 material constants (texture means baked in) are built as JAX builds them
@@ -11,9 +11,7 @@ material constants (texture means baked in) are built as JAX builds them
 The bake runs on the host in float32.  What the kernels and the texture
 taps read is moved to the device named at bake time, the card unless the
 caller names another: the [T_pad, 48] triangle pack, the [L, 13] light
-rows, the BVH node table and the atlas.  The bake raises on what the
-port's wavefront does not render yet: alpha-tested materials, normal maps
-and env maps larger than 1x1, each naming its ROADMAP item.
+rows, the BVH node table, the atlas and the env map.
 """
 from __future__ import annotations
 
@@ -29,7 +27,7 @@ from ..accel.intersect import MAX_DENSE_TRIS
 from ..accel.traverse import make_intersector
 from ..accel.tri_pack import TriSoA, bake_triangles, pack_shaded_tris_lane
 from ..models.procedural import BuiltScene, MaterialDesc
-from ..ops.alpha import has_alpha_materials
+from ..ops.alpha import has_alpha_materials, wrap_intersector
 from . import camera as camera_mod
 from .lights import light_rows, make_light_array
 from .types import (
@@ -44,22 +42,12 @@ from .types import (
     on_device,
 )
 
-_ENV_ITEM = "ROADMAP Queue 1 item 10b (lat-long and light-probe env maps)"
-_ALPHA_ITEM = "ROADMAP Queue 1 item 10b (alpha-tested materials)"
-_NORMAL_MAP_ITEM = "ROADMAP Queue 1 item 10b (normal maps)"
-
-
 def _resample_image(img: np.ndarray, res: int) -> np.ndarray:
     """Nearest-resample [h,w,4] -> [res,res,4] (host, numpy)."""
     h, w = img.shape[:2]
     ys = (np.arange(res) * h // res).clip(0, h - 1)
     xs = (np.arange(res) * w // res).clip(0, w - 1)
     return img[ys][:, xs].astype(np.float32)
-
-
-def _check_env(env_map) -> None:
-    if env_map is not None and tuple(np.shape(env_map)[:2]) != (1, 1):
-        raise NotImplementedError(f"env map of shape {np.shape(env_map)}; see {_ENV_ITEM}")
 
 
 def _texture_atlas(images, sizes, bc_tex, sp_tex, em_tex, nm_tex, m_count) -> TextureAtlas:
@@ -121,7 +109,7 @@ class Scene:
     materials: list = field(default_factory=list)     # list[MaterialDesc]
     lights: list = field(default_factory=list)        # list[dict]
     camera: CameraData | None = None
-    env_map: np.ndarray | None = None                 # [1,1,4] or None
+    env_map: np.ndarray | None = None                 # [h,w,4] or None
     lighting_scale: float = 1.0
     name: str = "scene"
 
@@ -160,11 +148,6 @@ class Scene:
         if self.camera is None or not self.lights:
             self.apply_default_fixups()
         mats = self.materials or [MaterialDesc()]
-        for md in mats:
-            if getattr(md, "normal_map_image", None) is not None:
-                raise NotImplementedError(
-                    f"normal-mapped material {md.name!r}; see {_NORMAL_MAP_ITEM}")
-        _check_env(self.env_map)
 
         # ---- geometry: all meshes flattened into one soup ----
         pos, nrm, uv, idx, mat = [], [], [], [], []
@@ -222,6 +205,7 @@ class Scene:
             bc_tex[i] = add_image(md.base_color_image)
             sp_tex[i] = add_image(md.specular_image)
             em_tex[i] = add_image(md.emissive_image)
+            nm_tex[i] = add_image(getattr(md, "normal_map_image", None))
         # a textured kind's constant carries the texture's mean: the
         # direct taps never read it (ops/shading._tap_kinds selects the
         # texel), the mean-albedo bounce decodes do (bounce_tex_mean)
@@ -276,6 +260,13 @@ class BakedScene:
     bvh_pairs: torch.Tensor | None
     bw_rows: torch.Tensor | None
     atlas: TextureAtlas        # data.textures on device
+    env_map: torch.Tensor      # data.env_map [h, w, 4] on device
+    # can a hit fail the alpha test (ops/alpha.has_alpha_materials)?  The
+    # intersector and the shaded tracer then restart past such hits
+    has_alpha: bool = False
+    # does a material carry a normal map?  The G-buffer then perturbs its
+    # primary hits' normals (ops/shading.apply_normal_mapping)
+    has_normal_maps: bool = False
     # base-colour-only texturing: JAX's deferred-texture megakernel takes
     # such a scene (`_tex_defer_ok`)
     tex_defer_ok: bool = False
@@ -286,11 +277,8 @@ class BakedScene:
 
     @classmethod
     def build(cls, data: SceneData, tris: TriSoA, device) -> "BakedScene":
-        """The device tables of a bake; raises on alpha-tested materials
-        (their restart loops are not ported) and, above MAX_DENSE_TRIS
+        """The device tables of a bake; raises, above MAX_DENSE_TRIS
         triangles, on a BVH deeper than the BVH kernels' stack."""
-        if has_alpha_materials(data.materials, data.textures):
-            raise NotImplementedError(f"alpha-tested materials; see {_ALPHA_ITEM}")
         tri_pack = pack_shaded_tris_lane(tris, data.materials).to(device)
         rows, pairs = (pair_tables(data.bvh, tri_pack)
                        if int(tris.v0.shape[0]) > MAX_DENSE_TRIS else (None, None))
@@ -300,6 +288,9 @@ class BakedScene:
             bvh_nodes=pack_bvh_nodes(data.bvh).to(device),
             bvh_pairs=pairs, bw_rows=rows,
             atlas=on_device(data.textures, device),
+            env_map=data.env_map.to(device),
+            has_alpha=has_alpha_materials(data.materials, data.textures),
+            has_normal_maps=bool((data.materials.normal_tex >= 0).any()),
             tex_defer_ok=_tex_defer_ok(data.materials),
         )
 
@@ -316,9 +307,11 @@ class BakedScene:
 
     def intersector(self):
         """The wavefront's `intersect` closure (accel/traverse.py) over this
-        bake's pack and BVH tables."""
-        return make_intersector(self.tri_pack, self.n_tris, self.bvh_pairs, self.bw_rows,
-                                plain=self.plain)
+        bake's pack and BVH tables, in the alpha restarts when the scene
+        has alpha-tested materials (JAX `scene.py:389-397`)."""
+        intersect = make_intersector(self.tri_pack, self.n_tris, self.bvh_pairs, self.bw_rows,
+                                     plain=self.plain)
+        return wrap_intersector(self, intersect) if self.has_alpha else intersect
 
 
 # --------------------------------------------------- parameters carried across
@@ -357,7 +350,6 @@ def baked_scene_from_arrays(arrays: dict, device="cuda") -> BakedScene:
     names another."""
     device = cuda.resolve_device(device)
     env = np.asarray(arrays["env_map"], np.float32)
-    _check_env(env)
 
     def build(cls, prefix):
         kw = {}
@@ -367,8 +359,6 @@ def baked_scene_from_arrays(arrays: dict, device="cuda") -> BakedScene:
         return cls(**kw)
 
     groups = {group: build(cls, group) for group, cls in _GROUPS}
-    if (groups["materials"].normal_tex >= 0).any():
-        raise NotImplementedError(f"normal-mapped materials; see {_NORMAL_MAP_ITEM}")
     atlas = {name: np.array(arrays[f"textures.{name}"])
              for name in _ATLAS_ARRAYS if f"textures.{name}" in arrays}
     if "combined" in atlas:

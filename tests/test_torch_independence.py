@@ -4,8 +4,9 @@ in its source (a static check of every import statement) nor at run time
 the card lacks, renders the Cornell box through both paths and with the
 BMFR denoiser on, pink_room with
 its procedural textures and the textured room through the deferred-texture
-megakernel with both splat kernels' plain versions, and runs the fused
-subpath builder)."""
+megakernel with both splat kernels' plain versions, the alpha panel scene
+(the restarts), an env-mapped normal-mapped Cornell box with a tone map
+and the probe-lit pass, and runs the fused subpath builder)."""
 import ast
 import os
 import subprocess
@@ -98,6 +99,26 @@ verts, final = build_subpath(baked.tri_pack, baked.n_tris, torch.full((n, 3), 0.
                              1e-3, 2, 0, False)
 assert len(verts) == 2 and bool(verts[0]["hit"].any()) and final["seed"].shape == (n,)
 print("subpath", "ok")
+import numpy as np
+from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import alpha_panel_scene
+from fyp_bidirectionalpathtracer_tpu_torch.ops.lightprobe import LightProbe
+from fyp_bidirectionalpathtracer_tpu_torch.passes.extras import probe_lit_pass
+panel = Scene.from_built(alpha_panel_scene(), aspect=1.0).bake(device="cpu")
+out = Renderer(panel, RenderConfig(width=16, height=16)).render_frame()
+assert panel.has_alpha and bool(out.isfinite().all())
+print("alpha", "ok")
+built = cornell_box()
+built.materials[0].normal_map_image = np.tile(np.float32([0.6, 0.5, 1.0, 1.0]), (8, 8, 1))
+env_scene = Scene.from_built(built, aspect=1.0)
+env_scene.env_map = np.random.RandomState(0).uniform(0, 1, (16, 32, 4)).astype(np.float32)
+lit = env_scene.bake(device="cpu")
+r = Renderer(lit, RenderConfig(width=16, height=16, tone_map_operator="aces"))
+r.render_frame()
+assert lit.has_normal_maps and bool(r.display().isfinite().all())
+probe = LightProbe(lit.env_map, diff_samples=16, spec_samples=8, diff_size=4, spec_size=4,
+                   spec_mips=2)
+assert bool(probe_lit_pass(lit, lit.intersector(), r.channels, probe).isfinite().all())
+print("env", "ok")
 assert not [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
 """
 
@@ -109,4 +130,5 @@ def test_port_renders_with_jax_imports_refused():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["on", "ok", "off", "ok", "bmfr", "ok", "pink_room", "ok",
-                                   "textured", "ok", "subpath", "ok"], proc.stdout
+                                   "textured", "ok", "subpath", "ok", "alpha", "ok",
+                                   "env", "ok"], proc.stdout

@@ -1,7 +1,9 @@
 """The port's scene bake, triangle pack and parameter carry against the JAX
 package on the CPU, the port's own copies of the JAX package's numpy-only
 modules, the device defaults, plus the scope gate and what the slice
-refuses."""
+refuses;
+the scenes and options earlier slices refused (normal maps, alpha-tested
+materials, lat-long env maps, tone maps) bake or render and match JAX."""
 import dataclasses
 
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 from fyp_bidirectionalpathtracer_tpu.accel import bvh as jbvh
 from fyp_bidirectionalpathtracer_tpu.accel.pallas_lane import pack_shaded_tris_lane
 from fyp_bidirectionalpathtracer_tpu.models import procedural as jprocedural
+from fyp_bidirectionalpathtracer_tpu.ops import tonemap as jtonemap
 from fyp_bidirectionalpathtracer_tpu.passes.accumulate import AccumState as JAccumState
 from fyp_bidirectionalpathtracer_tpu.scene.scene import Scene as JScene
 from fyp_bidirectionalpathtracer_tpu.utils import config as jconfig
@@ -122,31 +125,57 @@ def test_accum_state_carry():
     assert int(ps.count) == 3 and ps.count.dtype == torch.int32
 
 
-def _textured():
-    """A normal-map texture: the port taps base, specular and emissive
-    textures, not normal maps yet."""
-    b = cornell_box()
-    b.materials[0] = MaterialDesc("tex", normal_map_image=np.ones((4, 4, 4), np.float32))
+def _textured(mod):
+    """A normal-map texture on material 0."""
+    b = mod.cornell_box()
+    b.materials[0] = mod.MaterialDesc("tex", normal_map_image=np.ones((4, 4, 4), np.float32))
     return b
 
 
-def _alpha():
-    b = cornell_box()
-    b.materials[0] = MaterialDesc("cutout", base_color=(0.5, 0.5, 0.5, 0.1))
+def _alpha(mod):
+    """A constant alpha of 0.1 under the 0.5 threshold on material 0."""
+    b = mod.cornell_box()
+    b.materials[0] = mod.MaterialDesc("cutout", base_color=(0.5, 0.5, 0.5, 0.1))
     return b
+
+
+def _assert_bake_equals_jax(pb, jb):
+    want, got = jax_scene_arrays(jb), baked_scene_arrays(pb)
+    assert set(want) == set(got)
+    for key, w in want.items():
+        if key.startswith("camera."):
+            np.testing.assert_allclose(got[key], w, rtol=1e-6, atol=1e-6, err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], w, err_msg=key)
+    assert (pb.has_alpha, pb.has_normal_maps, pb.tex_defer_ok) == (
+        jb.has_alpha, jb.has_normal_maps, jb.tex_defer_ok)
 
 
 @pytest.mark.parametrize("make", [_textured, _alpha], ids=["texture", "alpha"])
 def test_bake_refuses_out_of_scope_scenes(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scene.from_built(make()).bake(device="cpu")
+    """The scenes earlier slices refused (a normal map, an alpha-tested
+    material) bake as JAX bakes them, flags included, and the megakernel
+    gate sends them to the wavefront."""
+    pb = Scene.from_built(make(procedural)).bake(device="cpu")
+    _assert_bake_equals_jax(pb, JScene.from_built(make(jprocedural)).bake())
+    assert pb.has_alpha or pb.has_normal_maps
+    cfg = RenderConfig(width=8, height=8, bdpt=BDPTConfig(defer_textures=True))
+    assert not supports_megakernel(pb, cfg)
 
 
 def test_env_map_refused():
-    s = Scene.from_built(cornell_box())
-    s.env_map = np.ones((8, 16, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.bake(device="cpu")
+    """An 8x16 env map (refused by earlier slices) bakes as JAX bakes it, on
+    the bake's device, and keeps the scene off the megakernel."""
+    env = np.random.RandomState(0).uniform(0, 1, (8, 16, 4)).astype(np.float32)
+    scenes = []
+    for mod, cls in ((procedural, Scene), (jprocedural, JScene)):
+        s = cls.from_built(mod.cornell_box())
+        s.env_map = env
+        scenes.append(s)
+    pb = scenes[0].bake(device="cpu")
+    _assert_bake_equals_jax(pb, scenes[1].bake())
+    np.testing.assert_array_equal(pb.env_map.numpy(), env)
+    assert not supports_megakernel(pb, RenderConfig(width=8, height=8))
 
 
 def _base_textured():
@@ -167,8 +196,16 @@ def _base_textured():
 def test_pipeline_refuses_unported_options(cfg, built):
     """defer-textures: the deferred-texture megakernel runs, and its splat
     in the timing-attribution mode `tiled_sortonly` raises and names the
-    ROADMAP's 'not ported' list rather than returning zeros."""
+    ROADMAP's 'not ported' list rather than returning zeros.  tonemap (a
+    refusal of earlier slices): the frame renders and `display` applies
+    the ACES operator as JAX's `tone_map` does, within atol 1e-6."""
     r = Renderer(Scene.from_built(built(), aspect=1.0).bake(device="cpu"), cfg)
+    if cfg.tone_map_operator != "clamp":
+        r.render_frame()
+        out = r.channels["PipelineOutput"][..., :3].numpy()
+        want = jtonemap.tone_map(out, jtonemap.OPERATOR_NAMES[cfg.tone_map_operator])
+        np.testing.assert_allclose(r.display().numpy(), np.asarray(want), atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.render_frame()
         r.display()

@@ -132,11 +132,12 @@ def test_textured_bake_equals_jax(both_bakes):
     assert (pa.combined is None) == (ja.combined is None) != (pa.packed is None)
     assert pb.tex_defer_ok == jb.tex_defer_ok
     assert not jb.has_alpha and not jb.has_normal_maps
+    assert (pb.has_alpha, pb.has_normal_maps) == (jb.has_alpha, jb.has_normal_maps)
 
 
 def test_has_alpha_materials_matches_jax():
     """The bake-time alpha check on constant and textured alpha; the bake
-    refuses what it finds (the restart loops are ROADMAP item 10b)."""
+    sets `has_alpha` from it, as JAX's does."""
     built = jprocedural.alpha_panel_scene()
     jb = JScene.from_built(built).bake()
     assert jb.has_alpha
@@ -145,8 +146,7 @@ def test_has_alpha_materials_matches_jax():
         data = JScene.from_built(b).bake().data
         assert not jalpha.has_alpha_materials(data.materials, data.textures)
         assert not alpha.has_alpha_materials(data.materials, data.textures)
-    with pytest.raises(NotImplementedError, match="alpha"):
-        Scene.from_built(procedural.alpha_panel_scene()).bake(device="cpu")
+    assert Scene.from_built(procedural.alpha_panel_scene()).bake(device="cpu").has_alpha
 
 
 # ------------------------------------------------------------- the taps
