@@ -91,11 +91,10 @@ import io
 import json
 import os
 import re
-import struct
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 from dataclasses import replace
 from functools import partial
 
@@ -106,7 +105,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
 RAYS_PER_PIXEL = 16      # bench.py's accounting at depth 3
 LIVE_FRAC = 0.15         # est-2 live share on the Cornell frame
-GOLDEN = os.path.join(REPO, "tests", "golden", "cornell_bdpt_8f_64.png")
 MIN_PSNR = 38.0          # the JAX package's golden bar
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -119,10 +117,6 @@ MIN_T = 1e-3                 # BDPTConfig.min_t
 # the widening's 2 abs, 2 mul, 2 add; 3 compares
 SLAB_FLOPS = 31
 PINK_SAMPLE = 14             # every 14th ray of a 1280x720 batch: 65,829 rays
-GOLDEN_PINK = os.path.join(REPO, "tests", "golden", "pink_room_fallback_2f_64x40.png")
-GOLDEN_BMFR = os.path.join(REPO, "tests", "golden", "cornell_bmfr_6f_64.png")
-GOLDEN_ENV = os.path.join(REPO, "tests", "golden", "env_open_4f_64.png")
-GOLDEN_PROBE_LIT = os.path.join(REPO, "tests", "golden", "cornell_probe_lit_64.png")
 
 
 def log(*a):
@@ -201,55 +195,6 @@ def pair_flops(isect, tris, o, d, tmin, tmax, cull: bool, closest: bool) -> int:
         total += (s1 * int(visited.sum()) + s2 * int(reached.sum())
                   + s3 * int((reached & (t > lo) & (t < limit)).sum()))
     return total
-
-
-def read_png_rgb8(path: str) -> np.ndarray:
-    """Minimal reader for 8-bit RGB, non-interlaced PNG -> float32 [H,W,3]
-    in [0,1] (what utils.image.read_png returns for the goldens)."""
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr = 8, b"", None
-    while pos < len(data):
-        n, typ = struct.unpack(">I", data[pos:pos + 4])[0], data[pos + 4:pos + 8]
-        if typ == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", data[pos + 8:pos + 21])
-        elif typ == b"IDAT":
-            idat += data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype != 2 or interlace:
-        raise ValueError(f"{path}: only 8-bit RGB non-interlaced PNGs are read")
-    raw, stride = zlib.decompress(idat), w * 3
-    out = np.zeros((h, stride), np.int64)
-    prev = np.zeros(stride, np.int64)
-    for y in range(h):
-        f = raw[y * (stride + 1)]
-        cur = np.frombuffer(raw, np.uint8, stride, y * (stride + 1) + 1).astype(np.int64)
-        for x in range(stride):
-            a = cur[x - 3] if x >= 3 else 0
-            b = prev[x]
-            c = prev[x - 3] if x >= 3 else 0
-            if f == 1:
-                cur[x] += a
-            elif f == 2:
-                cur[x] += b
-            elif f == 3:
-                cur[x] += (a + b) // 2
-            elif f == 4:
-                p = a + b - c
-                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                cur[x] += a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-            cur[x] &= 0xFF
-        out[y], prev = cur, cur
-    return out.reshape(h, w, 3).astype(np.float32) / 255.0
-
-
-def psnr_u8(img: np.ndarray, golden: np.ndarray) -> float:
-    """utils.testing.golden_compare's metric: 8-bit quantise, then PSNR."""
-    got = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8).astype(np.float32) / 255.0
-    mse = float(np.mean((got.astype(np.float64) - golden.astype(np.float64)) ** 2))
-    return float("inf") if mse <= 0 else 10.0 * np.log10(1.0 / mse)
 
 
 def image_stats(a, b, frac_max=0.02, mad_max=5e-3, dmean_max=2e-3):
@@ -439,11 +384,13 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
     from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr as bmfr_mod
     from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
+    from fyp_bidirectionalpathtracer_tpu_torch.passes import extras
     from fyp_bidirectionalpathtracer_tpu_torch.passes.extras import probe_lit_pass
     from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import (
         pixel_jitter_for_frame,
         ray_traced_gbuffer,
     )
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline import app
     from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import (
         BDPT_FRAME_INIT,
         GBUF_FRAME_INIT,
@@ -451,7 +398,10 @@ def main() -> int:
         render_frame_fn,
     )
     from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
-    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile import profile_renderer
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile import (
+        profile_calls,
+        profile_renderer,
+    )
     from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
     from fyp_bidirectionalpathtracer_tpu_torch.scene.types import on_device
     from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
@@ -460,6 +410,8 @@ def main() -> int:
         GBufferConfig,
         RenderConfig,
     )
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.image import psnr, read_png, to_u8, write_png
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.testing import GOLDEN_DIR
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1659,6 +1611,161 @@ def main() -> int:
         f"{pass_launches}; tone-mapped {shown}")
     del probe, build, lit, ch
 
+    # ---- phase 8: the app's entry point and the output passes ----------------
+    # before phase 5e's profiler, as phase 6; the app's printed lines are kept
+    # out of this script's output
+    p8 = {"device": smi, "size": f"{WIDTH}x{HEIGHT}"}
+    app_scene = ["--scene", "cornell", "--width", str(WIDTH), "--height", str(HEIGHT)]
+
+    def run_app(argv):
+        """app.main on the card with the counts set to 0 just before it:
+        (results, launches)."""
+        cuda.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = app.main(app_scene + argv, device=dev)
+        torch.cuda.synchronize()
+        return res, {k: v for k, v in cuda.LAUNCHES.items() if v}
+
+    def same_file(a, b):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    with tempfile.TemporaryDirectory() as tmp8:
+        # 8a: 16 Cornell frames (the megakernel path), profiled, with the
+        # SampleTest tasks; the kernels are built, so load_time is the bake
+        # and the first frame
+        res_a, launches_a = run_app([
+            "--frames", "16", "--ssframes", "8", "--profile", "--loadtime",
+            "--perfframes", "2:15", "--memframes", "1:15", "--outputdir", f"{tmp8}/a",
+            "--checkpoint", f"{tmp8}/a/state"])
+        if launches_a != {"frame": 16, "compact": 16, "splat_tile": 16}:
+            raise AssertionError(f"the app's 16 Cornell frames launched {launches_a}")
+        out_a = read_png(res_a["output"])
+        if not (out_a.shape == (HEIGHT, WIDTH, 3) and 0.0 < out_a.mean() < 1.0
+                and len(res_a["screenshots"]) == 1):
+            raise AssertionError("the app's Cornell image or screenshot is off")
+        # the same 16 frames through Renderer, driven directly
+        direct = Renderer(Scene.from_built(cornell_box()).bake(max_lights=16, device=dev),
+                          RenderConfig(width=WIDTH, height=HEIGHT))
+        direct.render(16)
+        write_png(f"{tmp8}/direct.png", direct.display())
+        with np.load(f"{tmp8}/a/state.npz") as z:
+            accum_a = z["accum_last"]
+        if not (np.array_equal(accum_a.view(np.int32),
+                               direct.state.accum.last_frame.cpu().numpy().view(np.int32))
+                and same_file(res_a["output"], f"{tmp8}/direct.png")):
+            raise AssertionError("the app's accumulator or PNG differs from Renderer's")
+        p8["8a app"] = {
+            "frames": 16, "launches": launches_a, "sec_per_frame": res_a["sec_per_frame"],
+            "load_time_s": res_a["load_time"], "frame_times_s": res_a["frame_times"],
+            "perf_ranges": res_a["perf_ranges"], "memory_ranges": res_a["memory_ranges"],
+            "profile_ms": res_a["profile"], "equals_renderer": True}
+        log(f"8a app.main cornell {WIDTH}x{HEIGHT}, 16 frames, --profile: sec_per_frame "
+            f"{res_a['sec_per_frame']:.6f} s (host clock with a sync, render_frame_profiled), "
+            f"load_time {res_a['load_time']:.3f} s (warm kernel cache), launches {launches_a}; "
+            f"profile {json.dumps(res_a['profile'])}; accumulator and PNG equal Renderer's")
+
+        # 8b: 8 frames and a checkpoint, then a new process's worth of state
+        # (a new Renderer) resumed up to 16 frames: 8a's accumulator and PNG
+        run_app(["--frames", "8", "--checkpoint", f"{tmp8}/b/state",
+                 "--outputdir", f"{tmp8}/b"])
+        res_b, launches_b = run_app(["--frames", "16", "--checkpoint", f"{tmp8}/b/state",
+                                     "--resume", "--outputdir", f"{tmp8}/b"])
+        with np.load(f"{tmp8}/b/state.npz") as z:
+            accum_b = z["accum_last"]
+        resumed = (np.array_equal(accum_a.view(np.int32), accum_b.view(np.int32))
+                   and same_file(res_a["output"], res_b["output"]))
+        if not (resumed and len(res_b["frame_times"]) == 8
+                and launches_b == {"frame": 8, "compact": 8, "splat_tile": 8}):
+            raise AssertionError("the resumed run differs from the unbroken one")
+        p8["8b resume"] = {"frames": "8 + 8 resumed", "launches_resumed": launches_b,
+                           "bit_equal_to_8a": resumed, "sec_per_frame": res_b["sec_per_frame"]}
+        log(f"8b checkpoint after 8 frames, resumed to 16: accumulator and PNG bit-equal to "
+            f"8a's unbroken run; launches of the resumed run {launches_b}")
+
+        # 8d: --probe with a seeded 1024x512 lat-long PNG (the env map sends
+        # Cornell to the wavefront)
+        env = latlong_probe(512, 1024, seed=8)
+        env_png = f"{tmp8}/env.png"
+        write_png(env_png, env)
+        if not np.array_equal(read_png(env_png), to_u8(env).astype(np.float32) / 255.0):
+            raise AssertionError("the env map PNG does not read back")
+        res_d, launches_d = run_app(["--frames", "6", "--envmap", env_png, "--probe",
+                                     "--outputdir", f"{tmp8}/d"])
+        # 6 wavefront frames (6 shaded, 3 any-hit, 1 K2, 1 K3 each; the app's
+        # sec_per_frame is the mean of the last 5), then probe_lit_pass's one
+        # shadow batch a light
+        want_d = {"shaded": 36, "occluded": 19, "compact": 6, "splat_tile": 6}
+        lit = read_png(res_d["probe_lit"])
+        if launches_d != want_d or not (lit.shape == (HEIGHT, WIDTH, 3) and lit.mean() > 0):
+            raise AssertionError(f"the --probe route launched {launches_d} or its image is off")
+        p8["8d probe"] = {"env": "1024x512 lat-long PNG", "frames": 6, "launches": launches_d,
+                          "sec_per_frame": res_d["sec_per_frame"],
+                          "probe_lit_mean": float(lit.mean())}
+        log(f"8d --envmap (1024x512 PNG) --probe: sec_per_frame {res_d['sec_per_frame']:.6f} s, "
+            f"launches {launches_d}, probe_lit.png mean {lit.mean():.4f}")
+
+    # 8c: the output passes at 1280x720 on the G-buffer of frame 0, against a
+    # plain=True bake: the whole image bit for bit on Cornell (dense tier); on
+    # pink_room (BVH tier) every batch the pass hands the kernels is held on
+    # every 4th lane against the plain version, bit for bit
+    def checked(kernel_isect, plain_isect, step, tally):
+        def lanes(x, width=1):
+            return x if not isinstance(x, torch.Tensor) or x.dim() == 0 else pick(x, step, width)
+
+        def intersect(o, d, t_min, t_max=None, closest=True, cull_backface=False, **kw):
+            hit = kernel_isect(o, d, t_min, t_max, closest, cull_backface)
+            ref = plain_isect(lanes(o, 3), lanes(d, 3), lanes(t_min), lanes(t_max), closest,
+                              cull_backface)
+            tally.append(all(torch.equal(bits(pick(getattr(hit, f), step, 1)),
+                                         bits(getattr(ref, f)))
+                             for f in ("t", "tri", "bary_u", "bary_v")))
+            return hit
+        return intersect
+
+    p8_calls = {}  # profiled after every timing, with phase 6's frames
+
+    def extras_run(bk, label, step):
+        ch = ray_traced_gbuffer(bk, make_shaded_tracer(bk), WIDTH, HEIGHT, GBUF_FRAME_INIT,
+                                jitter)
+        plain_isect = replace(bk, plain=True).intersector()
+        count = int(bk.data.lights.count)
+        occ, clo = (("occluded", "closest") if bk.n_tris <= isect.MAX_DENSE_TRIS
+                    else ("bvh_occluded", "bvh_closest"))
+        out = {}
+        for name, fn, kw, want in (
+                ("ao", extras.ambient_occlusion_pass, {"num_rays": 32}, {occ: 32}),
+                ("lambertian_shadows", extras.lambertian_shadows_pass, {}, {occ: count}),
+                ("diffuse_gi", extras.diffuse_gi_pass, {}, {occ: 2, clo: 1})):
+            call = partial(fn, bk, bk.intersector(), ch, 7, **kw)
+            cuda.reset_launch_counts()
+            img = call()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+            ms = time_ms(call, 5)
+            if step == 1:
+                same = torch.equal(bits(img), bits(fn(bk, plain_isect, ch, 7, **kw)))
+                held = "the whole image against the plain chain"
+            else:
+                tally = []
+                again = fn(bk, checked(bk.intersector(), plain_isect, step, tally), ch, 7, **kw)
+                same = bool(tally) and all(tally) and torch.equal(bits(again), bits(img))
+                held = f"{len(tally)} batches on every {step}th lane against the plain version"
+            finite = bool(torch.isfinite(img).all())
+            if launches != want or not same or not finite or img.shape != (HEIGHT, WIDTH, 4):
+                raise AssertionError(f"8c {name} on {label}: launches {launches} (want {want}), "
+                                     f"bit-equal {same}, finite {finite}")
+            out[name] = {"ms": ms, "launches_per_call": launches, "bit_equal": same,
+                         "held": held, "mean": float(img[..., :3].mean())}
+            p8_calls[(label, name)] = (out[name], call)
+            log(f"8c {name} on {label} ({bk.n_tris} tris) {WIDTH}x{HEIGHT}: {ms:.4f} ms a call "
+                f"(CUDA events), launches a call {launches}; bit-equal ({held})")
+        return out
+
+    p8["8c passes"] = {"cornell (dense)": extras_run(scene("cornell", WIDTH, HEIGHT),
+                                                     "Cornell", 1),
+                       "pink_room (BVH)": extras_run(pink_main, "pink_room", 4)}
+
     # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
     # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
     # is phase 5's megakernel run
@@ -1777,6 +1884,25 @@ def main() -> int:
             f"kernels {ours} (sum {run['port_kernels_ms_sum']:.4f} ms); torch's longest "
             f"{torch_top}")
 
+    # phase 8c's passes profiled the same way: busy and idle against the
+    # unprofiled CUDA-event ms a call, device operations, ms by kernel
+    for (label, name), (run, call) in p8_calls.items():
+        _, busy, ops, by_kernel, _ = profile_calls(call, 3)
+        ours = {k.split("(")[0]: v for k, v in by_kernel.items() if "bdpt::" in k}
+        torch_ms = {}
+        for k, v in by_kernel.items():
+            if "bdpt::" not in k:
+                key = re.sub(r"^void ", "", k.split("<")[0])
+                torch_ms[key] = torch_ms.get(key, 0.0) + v
+        run.update(device_busy_ms=busy, device_idle_share=1.0 - busy / run["ms"],
+                   device_operations=ops, port_kernels_ms=ours,
+                   port_kernels_ms_sum=sum(ours.values()),
+                   torch_kernels_ms=dict(sorted(torch_ms.items(), key=lambda kv: -kv[1])[:6]))
+        log(f"8c {name} on {label} profile: busy {busy:.4f} ms of {run['ms']:.4f} ms a call "
+            f"(idle {run['device_idle_share']:.3f}), {ops:.0f} device operations; the port's "
+            f"kernels {ours} (sum {run['port_kernels_ms_sum']:.4f} ms); torch's longest "
+            f"{run['torch_kernels_ms']}")
+
     launches = {"frame": mk_launches["frame"], "compact": mk_launches["compact"],
                 "splat_tile": mk_launches["splat_tile"], "shaded": wf_launches["shaded"],
                 "occluded": wf_launches["occluded"],
@@ -1811,16 +1937,23 @@ def main() -> int:
                              **{k: v for k, v in bvh_stats["pink_room"][name].items()})
 
     # ---- phase 7: goldens ---------------------------------------------------
-    golden = read_png_rgb8(GOLDEN)
+    # utils/testing.golden_compare's metric (8-bit PSNR against
+    # tests/golden/<name>.png), read here without its UPDATE_GOLDEN rewrite:
+    # a missing golden raises, and each must reach the JAX package's bar
+    def golden_psnr(name, img, bar=MIN_PSNR):
+        golden = read_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
+        value = psnr(to_u8(img).astype(np.float32) / 255.0, golden)
+        if bar is not None and not value >= bar:
+            raise AssertionError(f"golden {name}: PSNR {value:.2f} dB < {bar} dB")
+        return value
+
     for mk in ("auto", "off"):
         small = Renderer(scene("cornell", 64, 64),
                          RenderConfig(width=64, height=64, bdpt=BDPTConfig(megakernel=mk)))
         small.render(8)
-        value = psnr_u8(small.display().cpu().numpy(), golden)
+        value = golden_psnr("cornell_bdpt_8f_64", small.display())
         log(f"golden cornell_bdpt_8f_64 (megakernel {mk}): PSNR {value:.2f} dB "
             f"(>= {MIN_PSNR})")
-        if not value >= MIN_PSNR:
-            raise AssertionError(f"golden image mismatch (megakernel {mk})")
 
     # the BMFR golden (tests/test_golden.py's case: regression on, the
     # reference's half-screen default)
@@ -1828,25 +1961,21 @@ def main() -> int:
                      RenderConfig(width=64, height=64,
                                   bmfr=BMFRConfig(enabled=True, regression=True)))
     small.render(6)
-    value = psnr_u8(small.display().cpu().numpy(), read_png_rgb8(GOLDEN_BMFR))
+    value = golden_psnr("cornell_bmfr_6f_64", small.display())
     log(f"golden cornell_bmfr_6f_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
-    if not value >= MIN_PSNR:
-        raise AssertionError("BMFR golden image mismatch")
 
     # the pink_room golden: with exact taps at every vertex (what JAX's CPU
     # path renders) at the JAX package's bar; the default config's
-    # mean-albedo bounce decodes beside it
-    golden = read_png_rgb8(GOLDEN_PINK)
+    # mean-albedo bounce decodes beside it, with no bar
     small = pink(3, 64, 40)
     for mean in (False, True):
         r = Renderer(small, RenderConfig(width=64, height=40,
                                          bdpt=BDPTConfig(bounce_tex_mean=mean)))
         r.render(2)
-        value = psnr_u8(r.display().cpu().numpy(), golden)
+        value = golden_psnr("pink_room_fallback_2f_64x40", r.display(),
+                            None if mean else MIN_PSNR)
         log(f"golden pink_room_fallback_2f_64x40 (bounce_tex_mean={mean}): PSNR {value:.2f} dB"
             + ("" if mean else f" (>= {MIN_PSNR})"))
-        if not mean and not value >= MIN_PSNR:
-            raise AssertionError("pink_room golden image mismatch")
 
     # the env-map golden (tests/test_envmap.py's open scene, 64x64, 4 frames)
     # and the probe-lit one (tests/test_lightprobe.py: the Cornell G-buffer,
@@ -1854,21 +1983,16 @@ def main() -> int:
     small = open_scene(procedural, Scene, latlong_probe_gradient(), 1.0).bake(device=dev)
     r = Renderer(small, RenderConfig(width=64, height=64))
     r.render(4)
-    value = psnr_u8(r.display().cpu().numpy(), read_png_rgb8(GOLDEN_ENV))
+    value = golden_psnr("env_open_4f_64", r.display())
     log(f"golden env_open_4f_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
-    if not value >= MIN_PSNR:
-        raise AssertionError("env-map golden image mismatch")
     small = scene("cornell", 64, 64)
     gb = ray_traced_gbuffer(small, make_shaded_tracer(small), 64, 64, GBUF_FRAME_INIT,
                             pixel_jitter_for_frame(GBUF_FRAME_INIT))
     small_probe = lightprobe.LightProbe(small.env_map, diff_samples=256, spec_samples=64,
                                         diff_size=16, spec_size=32, spec_mips=4)
     lit = probe_lit_pass(small, small.intersector(), gb, small_probe)
-    value = psnr_u8(tonemap.tone_map(lit[..., :3], tonemap.CLAMP).cpu().numpy(),
-                    read_png_rgb8(GOLDEN_PROBE_LIT))
+    value = golden_psnr("cornell_probe_lit_64", tonemap.tone_map(lit[..., :3], tonemap.CLAMP))
     log(f"golden cornell_probe_lit_64: PSNR {value:.2f} dB (>= {MIN_PSNR})")
-    if not value >= MIN_PSNR:
-        raise AssertionError("probe-lit golden image mismatch")
 
     pkg = "fyp_bidirectionalpathtracer_tpu_torch/csrc/"
     cl = "fyp_bidirectionalpathtracer_tpu/accel/pallas_cluster.py"
@@ -1896,6 +2020,7 @@ def main() -> int:
         kernels[name]["phase6_launches_per_frame"] = {
             label: run["launches_per_frame"].get(name, 0) for label, run in p6["runs"].items()}
     log(json.dumps({"phase6": p6}))
+    log(json.dumps({"phase8": p8}))
     log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],

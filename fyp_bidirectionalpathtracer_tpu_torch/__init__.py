@@ -2,7 +2,8 @@
 
 A second package beside the JAX/Pallas renderer in
 `fyp_bidirectionalpathtracer_tpu/`, which stays the reference it is held
-against.  It covers scenes with a constant env map on two paths: the
+against.  It covers the JAX package's single-device scenes (constant or
+lat-long env maps, textures, normal maps, alpha) on two paths: the
 whole-frame megakernel (untextured, at most 2048 triangles) and the
 per-bounce wavefront (textured materials, any triangle count: the dense
 intersectors up to 2048 triangles, a BVH walk above), each with the
@@ -12,7 +13,9 @@ estimator-2 splat reduction, temporal accumulation and the BMFR denoiser
 Layer map (JAX counterpart in parentheses):
   core/      TEA/LCG RNG, vector helpers, samplers     (core/)
   models/    procedural scenes, pink_room (copies)      (models/)
-  utils/     render configuration (a copy)              (utils/config.py)
+  utils/     render configuration (a copy), image I/O   (utils/)
+             without PIL, golden harness, checkpoint,
+             profiler, video writer
   scene/     scene bake, camera, lights, types          (scene/)
   accel/     triangle pack, BVH build (a copy), frame   (accel/)
              megakernel K1, dense intersectors K4a-K4e,
@@ -20,8 +23,10 @@ Layer map (JAX counterpart in parentheses):
   ops/       splat K2 + K3, BRDF and materials,         (ops/)
              shading decode, texture taps
   passes/    G-buffer, BDPT wavefront, accumulation,    (passes/)
-             BMFR (plain torch, as JAX's is plain jnp)
-  pipeline/  render_frame_fn and Renderer, profiler     (pipeline/)
+             BMFR (plain torch, as JAX's is plain jnp),
+             the output passes (AO, Lambertian, GI, probe)
+  pipeline/  render_frame_fn and Renderer, the CLI       (pipeline/)
+             (`python -m ...pipeline.app`), frame profile
   csrc/      the hand-written CUDA C++ kernels, built by `cuda.py`
 
 Every kernel has a plain PyTorch version in the same module.  A wrapper

@@ -10,7 +10,9 @@ Every sampler returns the advanced seed; `faithful_rng` (passes/bdpt.py)
 discards it to reproduce the reference's by-value seed.
 
 The light table is the [L, 13] `scene.lights.light_rows` on the device plus
-the light count, where the JAX functions take a LightArray.
+the light count, where the JAX functions take a LightArray; the NEE
+functions (`lambertian_direct`, `ggx_direct`, `eval_direct`) take the
+`shadow_fn(origin, direction, t_min, t_max) -> visible` of JAX's.
 """
 from __future__ import annotations
 
@@ -139,7 +141,22 @@ def nee_shade(vis, l, intensity, n, v, dif, spec, rough, light_count: int,
     return lambertian_direct_shade(vis, l, intensity, n, dif, light_count)
 
 
+def ggx_direct(seed, shadow_fn, light_rows, light_count: int, min_t, pos, n, v, dif, spec,
+               rough):
+    """ggxDirect: one-light NEE with xN compensation (MaterialUtils:149-184).
+    `shadow_fn(origin, direction, t_min, t_max)` is True where visible."""
+    seed, l, intensity, dist = nee_pick(seed, light_rows, light_count, pos)
+    vis = shadow_fn(pos, l, min_t, dist)
+    return seed, ggx_direct_shade(vis, l, intensity, n, v, dif, spec, rough, light_count)
+
+
 # --------------------------------------------------------------- Lambertian
+def eval_lambertian_brdf(dif):
+    """evalLambertianBRDF returns the albedo (MaterialUtils.hlsli:309-314;
+    the reference omits the 1/pi here, kept for parity)."""
+    return dif
+
+
 def eval_lambertian_pdf(n, l):
     return saturate(dot(n, l) * M_1_PI)
 
@@ -150,13 +167,18 @@ def sample_lambertian_brdf(seed, n, dif):
     return seed, dif, l, pdf, torch.zeros(pdf.shape, dtype=torch.bool, device=pdf.device)
 
 
+def lambertian_direct(seed, shadow_fn, light_rows, light_count: int, min_t, pos, n, dif):
+    """lambertianDirect (MaterialUtils.hlsli:288-307)."""
+    seed, l, intensity, dist = nee_pick(seed, light_rows, light_count, pos)
+    vis = shadow_fn(pos, l, min_t, dist)
+    return seed, lambertian_direct_shade(vis, l, intensity, n, dif, light_count)
+
+
 # ----------------------------------------------------------------- dispatch
 def eval_brdf(v, l, n, no_normal_n, dif, spec, rough, is_specular, mat_model: int):
-    """evalBRDF; the Lambertian BRDF is the albedo (the reference omits
-    1/pi, MaterialUtils.hlsli:309-314)."""
     if mat_model == GGX:
         return eval_ggx_brdf(v, l, n, no_normal_n, dif, spec, rough, is_specular)
-    return dif
+    return eval_lambertian_brdf(dif)
 
 
 def eval_pdf(v, l, n, no_normal_n, dif, spec, rough, is_specular, mat_model: int):
@@ -169,3 +191,11 @@ def sample_brdf(seed, n, no_normal_n, v, dif, spec, rough, mat_model: int):
     if mat_model == GGX:
         return sample_ggx_brdf(seed, n, no_normal_n, v, dif, spec, rough)
     return sample_lambertian_brdf(seed, n, dif)
+
+
+def eval_direct(seed, shadow_fn, light_rows, light_count: int, min_t, pos, n, v, dif, spec,
+                rough, mat_model: int):
+    if mat_model == GGX:
+        return ggx_direct(seed, shadow_fn, light_rows, light_count, min_t, pos, n, v, dif, spec,
+                          rough)
+    return lambertian_direct(seed, shadow_fn, light_rows, light_count, min_t, pos, n, dif)

@@ -33,7 +33,8 @@ splat.  Prints one JSON object:
 
 `--out` also writes the JSON to a file, `--trace` the Chrome trace.
 `profile_renderer` does the same for any `Renderer` (chip_smoke.py's
-phase 6 profiles its alpha, env-map and normal-map frames with it).
+phase 6 profiles its alpha, env-map and normal-map frames with it), and
+`profile_calls` for any function (phase 8c's output passes).
 """
 from __future__ import annotations
 
@@ -148,25 +149,35 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
             "bmfr": bmfr, **profile_renderer(r, frames, repeats, trace)}
 
 
-def profile_renderer(r: Renderer, frames: int = 5, repeats: int = 2,
-                     trace: str | None = None) -> dict:
-    """The measurements of `profile` (all its keys but the options) for the
-    renderer `r` on a CUDA device."""
+def profile_calls(fn, calls: int):
+    """`calls` calls of `fn` on a CUDA device under torch.profiler: (host
+    ms a call with a device sync before and after, device busy ms a call
+    (the union of the CUDA kernels' intervals), device operations a call,
+    device ms a call by kernel name, the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        host_ms, _ = _timed(lambda: [fn() for _ in range(calls)])
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / calls
+    return (host_ms / calls, busy, len(kernels) / calls,
+            dict(sorted(by_name.items(), key=lambda kv: -kv[1])), prof)
+
+
+def profile_renderer(r: Renderer, frames: int = 5, repeats: int = 2,
+                     trace: str | None = None) -> dict:
+    """The measurements of `profile` (all its keys but the options) for the
+    renderer `r` on a CUDA device."""
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
     plain_ms, _ = _timed(lambda: r.render(frames))
     # before the profiler: CUPTI slows every launch after it has traced
     stages = [stage_times(r) for _ in range(repeats)]
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        host_ms, _ = _timed(lambda: r.render(frames))
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = defaultdict(float)
-    for e in kernels:
-        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / frames
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / frames
+    host_ms, busy, launches, by_name, prof = profile_calls(r.render_frame, frames)
     if trace:
         prof.export_chrome_trace(trace)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,11 +190,11 @@ def profile_renderer(r: Renderer, frames: int = 5, repeats: int = 2,
                                  and supports_megakernel(r.baked, r.cfg)) else "wavefront",
         "frames": frames,
         "ms_per_frame_host": plain_ms / frames,
-        "ms_per_frame_host_profiled": host_ms / frames,
+        "ms_per_frame_host_profiled": host_ms,
         "device_busy_ms_per_frame": busy,
         "device_idle_share": 1.0 - busy / (plain_ms / frames),
-        "kernel_launches_per_frame": len(kernels) / frames,
-        "kernels_ms_per_frame": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+        "kernel_launches_per_frame": launches,
+        "kernels_ms_per_frame": by_name,
         "stages_ms": stages,
     }
 

@@ -20,12 +20,16 @@ above 2048 triangles), run the per-bounce wavefront (JAX `renderer.py:
 dense K4 intersectors or, above 2048 triangles, the BVH kernels, in the
 alpha restarts of `ops/alpha.py` where the scene has alpha-tested
 materials.  `Renderer.display` tone-maps with any of the 7 operators of
-`ops/tonemap.py`.
+`ops/tonemap.py`.  `Renderer.render_frame_profiled` is the same frame
+with each pass timed by a `utils/profiler.Profiler` event;
+`set_camera_pose` moves the camera (the checkpoint's resume calls it);
+object and camera animation (`Renderer.animate`) is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from ..accel.frame import render_frame_megakernel, supports_megakernel
@@ -38,9 +42,11 @@ from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
 from ..scene.camera import begin_frame, derive_camera
 from ..scene.scene import BakedScene
 from ..utils.config import RenderConfig
+from ..utils.profiler import Profiler
 
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
+_NO_PROFILE = Profiler(enabled=False)
 
 
 @dataclass
@@ -50,38 +56,59 @@ class RenderState:
     accum: AccumState
     bmfr: BMFRState
     frame_index: int = 0
+    time: float = 0.0
 
 
 def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
                     gbuf_frame: int, bdpt_frame: int, reset: bool,
-                    cfg: RenderConfig):
+                    cfg: RenderConfig, prof: Profiler | None = None):
     """One full frame.  Returns (channels, accum, bmfr_state).  A bake with
-    `plain=True` runs every kernel's plain version on its device."""
+    `plain=True` runs every kernel's plain version on its device.
+
+    `prof`, an enabled `utils/profiler.Profiler`, times the frame a pass at
+    a time (the RenderingPipeline ProfilerEvent-per-pass analogue,
+    RenderingPipeline.cpp:666-682): `frame`, then `megakernel` or `gbuffer`
+    + `bdpt`, then `accumulate` and `bmfr`, each waiting for its outputs on
+    the device before its end time.  The waits are its only cost: the work
+    and its order are the same with or without it."""
+    prof = _NO_PROFILE if prof is None else prof
     scene = baked.with_camera(camera)
     jitter = pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
-    if cfg.bdpt.megakernel != "off" and supports_megakernel(scene, cfg):
-        channels, frame_img = render_frame_megakernel(
-            scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
-            gbuf_frame=gbuf_frame)
-    else:
-        gcfg = cfg.gbuffer
-        intersect = scene.intersector()
-        trace = make_shaded_tracer(scene, sort_divergent=cfg.bdpt.sort_bounces,
-                                   bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
-        lens_radius = (gcfg.focal_length_gui / (2.0 * gcfg.f_stop)
-                       if gcfg.use_thin_lens else 0.0)
-        channels = ray_traced_gbuffer(
-            scene, trace, cfg.width, cfg.height, gbuf_frame, jitter,
-            use_thin_lens=gcfg.use_thin_lens, lens_radius=lens_radius,
-            focal_len=gcfg.focal_length_gui, env_bilinear=gcfg.env_bilinear)
-        frame_img = bdpt_pass(scene, intersect, channels, bdpt_frame, jitter, cfg.bdpt,
-                              trace=trace)
-        channels["BDPT"] = frame_img
-    accum, accum_img = accumulate(accum, frame_img,
-                                  cfg.accumulate.max_accum_count, reset=reset)
-    channels["Accumulated"] = accum_img
-    bmfr_state, denoised = bmfr_pass(bmfr_state, channels, camera, cfg.bmfr)
-    channels["PipelineOutput"] = denoised
+    with prof.event("frame") as frame_h:
+        if cfg.bdpt.megakernel != "off" and supports_megakernel(scene, cfg):
+            with prof.event("megakernel") as h:
+                channels, frame_img = render_frame_megakernel(
+                    scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
+                    gbuf_frame=gbuf_frame)
+                h[0] = frame_img
+        else:
+            gcfg = cfg.gbuffer
+            intersect = scene.intersector()
+            trace = make_shaded_tracer(scene, sort_divergent=cfg.bdpt.sort_bounces,
+                                       bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
+            lens_radius = (gcfg.focal_length_gui / (2.0 * gcfg.f_stop)
+                           if gcfg.use_thin_lens else 0.0)
+            with prof.event("gbuffer") as h:
+                channels = ray_traced_gbuffer(
+                    scene, trace, cfg.width, cfg.height, gbuf_frame, jitter,
+                    use_thin_lens=gcfg.use_thin_lens, lens_radius=lens_radius,
+                    focal_len=gcfg.focal_length_gui, env_bilinear=gcfg.env_bilinear)
+                h[0] = channels
+            with prof.event("bdpt") as h:
+                frame_img = bdpt_pass(scene, intersect, channels, bdpt_frame, jitter, cfg.bdpt,
+                                      trace=trace)
+                h[0] = frame_img
+            channels["BDPT"] = frame_img
+        with prof.event("accumulate") as h:
+            accum, accum_img = accumulate(accum, frame_img,
+                                          cfg.accumulate.max_accum_count, reset=reset)
+            h[0] = accum_img
+        channels["Accumulated"] = accum_img
+        with prof.event("bmfr") as h:
+            bmfr_state, denoised = bmfr_pass(bmfr_state, channels, camera, cfg.bmfr)
+            h[0] = denoised
+        channels["PipelineOutput"] = denoised
+        frame_h[0] = denoised
     return channels, accum, bmfr_state
 
 
@@ -101,18 +128,30 @@ class Renderer:
         self._prev_view_proj = self.camera.view_proj
         self.channels: dict = {}
 
-    def render_frame(self):
+    # -- camera control ------------------------------------------------
+    def set_camera_pose(self, pos, target, up=(0, 1, 0)):
+        """Move the camera (host float32 tensors, as CameraData keeps them)
+        and roll prevViewProj; the next frame resets the accumulation."""
+        self.camera = begin_frame(replace(
+            self.camera, pos_w=_host_f32(pos), target=_host_f32(target), up=_host_f32(up)))
+
+    # -- frame loop ------------------------------------------------------
+    def render_frame(self, prof: Profiler | None = None):
         reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
         i = self.state.frame_index
         self.channels, self.state.accum, self.state.bmfr = render_frame_fn(
             self.baked, self.camera, self.state.accum, self.state.bmfr,
             (GBUF_FRAME_INIT + i) & 0xFFFFFFFF, (BDPT_FRAME_INIT + i) & 0xFFFFFFFF,
-            reset, self.cfg)
+            reset, self.cfg, prof=prof)
         self.state.frame_index += 1
         self._prev_view_proj = self.camera.view_proj
         # roll prevViewProj for the next frame's reprojection
         self.camera = begin_frame(self.camera)
         return self.channels["PipelineOutput"]
+
+    def render_frame_profiled(self, prof: Profiler):
+        """`render_frame` with a Profiler event a pass (`render_frame_fn`)."""
+        return self.render_frame(prof)
 
     def render(self, n_frames: int):
         out = None
@@ -125,3 +164,21 @@ class Renderer:
         configured operator."""
         op = tonemap_mod.OPERATOR_NAMES[self.cfg.tone_map_operator]
         return tonemap_mod.tone_map(self.channels[channel][..., :3], op)
+
+
+def _host_f32(x) -> torch.Tensor:
+    """A float32 CPU tensor of a sequence, array or tensor (copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device="cpu", dtype=torch.float32).clone()
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def make_cornell_renderer(size: int = 256, device="cuda", **cfg_kw) -> Renderer:
+    """Convenience: a size x size Cornell-box renderer (BASELINE config 1),
+    on the card unless `device` names another."""
+    from ..models.procedural import cornell_box
+    from ..scene.scene import Scene
+
+    cfg = RenderConfig(width=size, height=size, **cfg_kw)
+    baked = Scene.from_built(cornell_box(), aspect=1.0).bake(device=device)
+    return Renderer(baked, cfg)

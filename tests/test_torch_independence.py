@@ -6,7 +6,10 @@ BMFR denoiser on, pink_room with
 its procedural textures and the textured room through the deferred-texture
 megakernel with both splat kernels' plain versions, the alpha panel scene
 (the restarts), an env-mapped normal-mapped Cornell box with a tone map
-and the probe-lit pass, and runs the fused subpath builder)."""
+and the probe-lit pass, runs the fused subpath builder, imports every
+module of the entry point (app, image I/O, golden harness, checkpoint,
+profiler, video) and runs the CLI at 16x16 with a PNG env map, --probe,
+--profile and --checkpoint, and the output passes and a GIF)."""
 import ast
 import os
 import subprocess
@@ -119,6 +122,26 @@ probe = LightProbe(lit.env_map, diff_samples=16, spec_samples=8, diff_size=4, sp
                    spec_mips=2)
 assert bool(probe_lit_pass(lit, lit.intersector(), r.channels, probe).isfinite().all())
 print("env", "ok")
+import contextlib
+import io
+import tempfile
+from fyp_bidirectionalpathtracer_tpu_torch.passes import extras
+from fyp_bidirectionalpathtracer_tpu_torch.pipeline import app
+from fyp_bidirectionalpathtracer_tpu_torch.utils import checkpoint, image, profiler, testing, video
+out = tempfile.mkdtemp()
+image.write_png(out + "/env.png", np.random.RandomState(1).uniform(0, 1, (8, 16, 3)))
+with contextlib.redirect_stdout(io.StringIO()):
+    res = app.main(["--width", "16", "--height", "16", "--frames", "2", "--envmap",
+                    out + "/env.png", "--probe", "--profile", "--checkpoint", out + "/ck",
+                    "--outputdir", out], device="cpu")
+assert image.read_png(res["probe_lit"]).shape == (16, 16, 3)
+for name in ("ambient_occlusion_pass", "lambertian_shadows_pass", "diffuse_gi_pass"):
+    img = getattr(extras, name)(lit, lit.intersector(), r.channels, 0)
+    assert bool(img.isfinite().all()), name
+rec = video.VideoRecorder()
+rec.add_frame(r.display())
+assert rec.save(out + "/clip.gif").endswith(".gif")
+print("app", "ok")
 assert not [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
 """
 
@@ -131,4 +154,4 @@ def test_port_renders_with_jax_imports_refused():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["on", "ok", "off", "ok", "bmfr", "ok", "pink_room", "ok",
                                    "textured", "ok", "subpath", "ok", "alpha", "ok",
-                                   "env", "ok"], proc.stdout
+                                   "env", "ok", "app", "ok"], proc.stdout
