@@ -82,7 +82,26 @@ card's name and power limit, the line before that lists the kernels with
 their launch counts, errors, times and bounds, and the line before that
 is the BMFR phase's {"bmfr": {...}}: ms/frame on and off, the stage times
 and device operations by solver, the card-vs-CPU errors and the
-regression's bound.  Before it comes {"phase6": {...}}.
+regression's bound.  Before it come {"phase6": {...}}, {"phase8": {...}}
+and {"phase9": {...}}.
+
+Phase 9 drives scene I/O and animation at 1280x720, every file written
+by the port's own writers into a temporary folder: 9a, an .fscene whose
+model file is missing (the Cornell stand-in) with a looping camera path,
+through `app.main --animate`, 16 frames (16 launches each of K1, K2 and
+K3), equal to Renderer + animate and resumed from a checkpoint at frame 8
+bit for bit; 9b, the animated flagship, pink_room's stand-in from an
+.fscene with the reference's lights and camera, a camera path inside the
+room, a ball (ball.obj) on an object path and a point light on a light
+path, 8 frames through Renderer.animate with a re-bake each frame (its
+host ms beside each frame's CUDA-event ms), only the ball's triangles and
+the lamp's row changing between frames, and the BVH kernels held on every
+4th lane of every batch of the first and the last frame against their
+plain versions; 9c, the alpha panel room as OBJ + MTL with an RGBA PNG
+cutout map_Kd and a PNG map_bump, through `--scene x.obj`: the dense
+kernels bit-equal under the alpha restarts; 9d, Cornell's geometry
+through save_fbx and an .fscene, then `--export-scene` and the exported
+file, each frame against the built-in Cornell box's.
 """
 from __future__ import annotations
 
@@ -91,10 +110,12 @@ import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from dataclasses import replace
 from functools import partial
 
@@ -117,6 +138,7 @@ MIN_T = 1e-3                 # BDPTConfig.min_t
 # the widening's 2 abs, 2 mul, 2 add; 3 compares
 SLAB_FLOPS = 31
 PINK_SAMPLE = 14             # every 14th ray of a 1280x720 batch: 65,829 rays
+PACK_ID_COL = 44             # the material id's column of the triangle pack (accel/tri_pack)
 
 
 def log(*a):
@@ -354,6 +376,105 @@ def normal_mapped_cornell(procedural):
     tilt[..., 0], tilt[..., 1], tilt[..., 2:] = 0.75, 0.5, 1.0
     built.materials[0].normal_map_image = tilt
     return built
+
+
+def write_png_rgba(path: str, rgba: np.ndarray) -> None:
+    """An 8-bit RGBA PNG (colour type 6, filter 0) of float [H, W, 4] in
+    [0, 1]: the cutout map of phase 9c, which `utils/image.write_png`
+    (RGB or grey) cannot write."""
+    u8 = np.clip(np.rint(np.asarray(rgba, np.float32) * 255.0), 0, 255).astype(np.uint8)
+    h, w = u8.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n")
+        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)))
+        fh.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        fh.write(chunk(b"IEND", b""))
+
+
+def write_json(path: str, doc: dict) -> str:
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    return path
+
+
+def cornell_fscene_doc(model_file: str, camera_path: bool) -> dict:
+    """Phase 9a's and 9d's .fscene: the Cornell box's light and camera
+    (`models/procedural.cornell_box`), one model file (missing: the
+    loader's cornell_box() stand-in), and a looping camera path of 4
+    keyframes swinging around the box."""
+    doc = {"version": 2, "active_camera": "cam",
+           "models": [{"file": model_file, "instances": [{"name": "box"}]}],
+           "lights": [{"name": "key", "type": "point_light", "pos": [0.5, 0.93, 0.5],
+                       "intensity": [18.0, 18.0, 18.0]}],
+           "cameras": [{"name": "cam", "pos": [0.5, 0.5, -1.35], "target": [0.5, 0.5, 0.5],
+                        "up": [0.0, 1.0, 0.0], "focal_length": 21.0, "aspect_ratio": 1.0}]}
+    if camera_path:
+        doc["paths"] = [{"name": "swing", "loop": True, "frames": [
+            {"time": t, "pos": [0.5 + x, 0.5 + y, -1.35], "target": [0.5, 0.5, 0.5],
+             "up": [0.0, 1.0, 0.0]}
+            for t, x, y in ((0.0, 0.0, 0.0), (0.08, 0.12, 0.03), (0.16, -0.1, 0.06),
+                            (0.3, 0.0, 0.0))]}]
+    return doc
+
+
+def pink_fscene_doc(room) -> dict:
+    """Phase 9b's .fscene: a missing pink_room.fbx (the loader's stand-in
+    room), a ball from ball.obj (instance `ball`, radius 0.18), the
+    reference's lights and camera (`room`: models/pink_room.pink_room with
+    the .fscene's lights), a looping camera path inside the room (x in
+    [-5, 0]), an object path carrying the ball over the coffee table and a
+    light path moving the second point light `lamp2`."""
+    kinds = {"directional": "dir_light", "dir": "dir_light", "point": "point_light"}
+    lights = []
+    for k, light in enumerate(room.lights):
+        entry = {"name": ("sun", "lamp1", "lamp2")[k], "type": kinds[light["type"]],
+                 "intensity": list(light["intensity"])}
+        if "dir" in light:
+            entry["direction"] = list(light["dir"])
+        if "pos" in light:
+            entry["pos"] = list(light["pos"])
+        lights.append(entry)
+    cam = room.camera
+    p0, tgt = np.asarray(cam["pos"]), np.asarray(cam["target"])
+
+    def key(t, dp, dt=(0.0, 0.0, 0.0)):
+        return {"time": t, "pos": (p0 + dp).tolist(), "target": (tgt + dt).tolist(),
+                "up": list(cam["up"])}
+
+    lamp = np.asarray(room.lights[2]["pos"])
+    return {
+        "version": 2, "active_camera": "cam",
+        "models": [{"file": "pink_room.fbx", "name": "room"},
+                   {"file": "ball.obj", "instances": [{"name": "ball",
+                                                       "scaling": [0.18, 0.18, 0.18]}]}],
+        "lights": lights,
+        "cameras": [{"name": "cam", "pos": list(cam["pos"]), "target": list(cam["target"]),
+                     "up": list(cam["up"]), "focal_length": cam["focal_length"],
+                     "aspect_ratio": cam["aspect"]}],
+        "paths": [
+            {"name": "walk", "loop": True, "frames": [
+                key(0.0, (0.0, 0.0, 0.0)), key(0.05, (0.25, 0.05, 0.1), (0.1, 0.0, 0.0)),
+                key(0.1, (-0.2, 0.1, 0.15), (-0.1, 0.05, 0.0)), key(0.2, (0.0, 0.0, 0.0))]},
+            {"name": "ball", "loop": True,
+             "attached_objects": [{"type": "model_instance", "name": "ball"}],
+             "frames": [{"time": 0.0, "pos": [-2.5, 0.9, -1.5], "target": [-2.5, 0.9, -2.5]},
+                        {"time": 0.1, "pos": [-2.2, 1.05, -1.3], "target": [-1.9, 1.0, -2.2]},
+                        {"time": 0.2, "pos": [-2.6, 0.95, -1.7], "target": [-2.6, 0.95, -2.7]}]},
+            {"name": "lamp", "loop": True,
+             "attached_objects": [{"type": "light", "name": "lamp2"}],
+             "frames": [{"time": 0.0, "pos": lamp.tolist(), "target": (lamp - [0, 1, 0]).tolist()},
+                        {"time": 0.1, "pos": (lamp + [-0.3, 0.12, 0.2]).tolist(),
+                         "target": (lamp + [-0.3, -0.88, 0.2]).tolist()},
+                        {"time": 0.2, "pos": (lamp + [0.1, -0.08, -0.15]).tolist(),
+                         "target": (lamp + [0.1, -1.08, -0.15]).tolist()}]},
+        ],
+    }
 
 
 def main() -> int:
@@ -1766,6 +1887,256 @@ def main() -> int:
                                                      "Cornell", 1),
                        "pink_room (BVH)": extras_run(pink_main, "pink_room", 4)}
 
+    # ---- phase 9: scene I/O and animation ------------------------------------
+    # before phase 5e's profiler, as phases 6 and 8; every file the phase
+    # reads is written by the port's own writers into a temporary folder
+    from fyp_bidirectionalpathtracer_tpu_torch.models.fbx import save_fbx
+    from fyp_bidirectionalpathtracer_tpu_torch.models.obj import save_obj
+    from fyp_bidirectionalpathtracer_tpu_torch.passes.bdpt import bdpt_pass
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.fscene import load_fscene
+
+    p9 = {"device": smi, "size": f"{WIDTH}x{HEIGHT}"}
+    t9 = time.perf_counter()
+    dt9 = 1.0 / 60.0
+    cfg9 = RenderConfig(width=WIDTH, height=HEIGHT)
+    mk_want = {"frame": 1, "compact": 1, "splat_tile": 1}
+
+    def state_of(prefix):
+        with np.load(prefix + ".npz") as z:
+            accum = z["accum_last"]
+        with open(prefix + ".json") as fh:
+            return accum, json.load(fh)
+
+    def lanes(x, step, width=1):
+        return x if not isinstance(x, torch.Tensor) or x.dim() == 0 else pick(x, step, width)
+
+    def checked_trace(kernel_trace, plain_trace, step, tally):
+        """The frame's tracer, its hits held on every step-th lane against
+        the plain version's, bit for bit (`tally`)."""
+        def trace(o, d, t_min, view, cull_backface=False, coherent=True, lean=False):
+            hit, sd = kernel_trace(o, d, t_min, view, cull_backface, coherent, lean)
+            v = (lanes(view, step, 3)
+                 if isinstance(view, torch.Tensor) and view.shape == o.shape else view)
+            ref, _ = plain_trace(lanes(o, step, 3), lanes(d, step, 3), lanes(t_min, step), v,
+                                 cull_backface, coherent, lean)
+            tally.append(all(torch.equal(bits(pick(getattr(hit, f), step, 1)),
+                                         bits(getattr(ref, f)))
+                             for f in ("t", "tri", "bary_u", "bary_v")))
+            return hit, sd
+        return trace
+
+    with tempfile.TemporaryDirectory() as tmp9:
+        # 9a: an animated Cornell .fscene (its model file missing: the
+        # cornell_box() stand-in) through app.main, 16 frames, the camera
+        # path moving every frame; against Renderer + animate over the same
+        # file, and resumed from a checkpoint at frame 8
+        f9a = write_json(f"{tmp9}/cornell.fscene", cornell_fscene_doc("cornell_box.fbx", True))
+        anim = ["--scene", f9a, "--animate"]
+        res_a, launches_a = run_app(anim + ["--frames", "16", "--outputdir", f"{tmp9}/a",
+                                            "--checkpoint", f"{tmp9}/a/state"])
+        if launches_a != {k: 16 * v for k, v in mk_want.items()}:
+            raise AssertionError(f"9a: the animated Cornell frames launched {launches_a}")
+        direct = Renderer(load_fscene(f9a).bake(max_lights=16, device=dev), cfg9)
+        poses = []
+        for _ in range(16):
+            direct.animate(dt9)
+            poses.append(direct.camera.pos_w.clone())
+            direct.render_frame()
+        write_png(f"{tmp9}/a_direct.png", direct.display())
+        accum_a, meta_a = state_of(f"{tmp9}/a/state")
+        equal_a = (np.array_equal(accum_a.view(np.int32),
+                                  direct.state.accum.last_frame.cpu().numpy().view(np.int32))
+                   and same_file(res_a["output"], f"{tmp9}/a_direct.png")
+                   and meta_a["time"] == direct.state.time)
+        moved = all(not torch.equal(a, b) for a, b in zip(poses, poses[1:]))
+        if not (equal_a and moved and int(direct.state.accum.count) == 1):
+            raise AssertionError("9a: the app's animated frames differ from Renderer's, or the "
+                                 "camera did not move every frame")
+        run_app(anim + ["--frames", "8", "--checkpoint", f"{tmp9}/b/state",
+                        "--outputdir", f"{tmp9}/b"])
+        res_b, launches_b = run_app(anim + ["--frames", "16", "--checkpoint", f"{tmp9}/b/state",
+                                            "--resume", "--outputdir", f"{tmp9}/b"])
+        accum_b, meta_b = state_of(f"{tmp9}/b/state")
+        resumed = (np.array_equal(accum_a.view(np.int32), accum_b.view(np.int32))
+                   and same_file(res_a["output"], res_b["output"]) and meta_a == meta_b)
+        if not (resumed and launches_b == {k: 8 * v for k, v in mk_want.items()}):
+            raise AssertionError(f"9a: the resumed animated run differs from the unbroken one "
+                                 f"(launches {launches_b})")
+        p9["9a animated cornell"] = {
+            "frames": 16, "launches": launches_a, "sec_per_frame": res_a["sec_per_frame"],
+            "frame_times_s": res_a["frame_times"], "time": meta_a["time"],
+            "equals_renderer": True, "resumed_at_8_bit_equal": True,
+            "launches_resumed": launches_b}
+        log(f"9a app.main animated Cornell .fscene {WIDTH}x{HEIGHT}, 16 frames: sec_per_frame "
+            f"{res_a['sec_per_frame']:.6f} s (host clock with a sync), launches {launches_a}; "
+            f"accumulator and PNG equal Renderer + animate; resumed at 8 bit-equal, time "
+            f"{meta_a['time']}")
+
+        # 9b: the animated flagship: pink_room's stand-in with a ball on an
+        # object path and a lamp on a light path, a re-bake every frame
+        room_ref = pink_room(asset_dir="")
+        save_obj(f"{tmp9}/ball.obj", [icosphere((0.0, 0.0, 0.0), 1.0, 0, subdivisions=2)],
+                 [procedural.MaterialDesc("ball", base_color=(0.9, 0.3, 0.2, 1.0),
+                                          specular=(0.3, 0.3, 0.3, 0.8))])
+        f9b = write_json(f"{tmp9}/pink_room.fscene", pink_fscene_doc(room_ref))
+        t_load = time.perf_counter()
+        r9 = Renderer(load_fscene(f9b).bake(max_lights=16, device=dev), cfg9)
+        load_ms = (time.perf_counter() - t_load) * 1e3
+        host9 = r9.baked.host
+        is_ball = torch.from_numpy(np.concatenate(
+            [np.full(len(m.positions), m.name == "ball") for m in host9.meshes]))
+        lamp_row = [light.get("name") for light in host9.lights].index("lamp2")
+        n_b = 8
+        rebake_ms, frame_ms, geoms, light_tabs, kept = [], [], [], [], {}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        cuda.reset_launch_counts()
+        for i in range(n_b):
+            torch.cuda.synchronize()
+            t_re = time.perf_counter()
+            r9.animate(dt9)
+            torch.cuda.synchronize()
+            rebake_ms.append((time.perf_counter() - t_re) * 1e3)
+            scene_i, index_i = r9.baked.with_camera(r9.camera), r9.state.frame_index
+            start.record()
+            r9.render_frame()
+            end.record()
+            torch.cuda.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            geoms.append(r9.baked.data.geometry.positions.clone())
+            light_tabs.append(r9.baked.light_rows.cpu())
+            if i in (0, n_b - 1):
+                kept[i] = (scene_i, index_i, r9.channels["BDPT"].clone())
+        launches_9b = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        want_9b = {"bvh_shaded": 6 * n_b, "bvh_occluded": 3 * n_b, "compact": n_b,
+                   "splat_tile": n_b}
+        lamp_mask = torch.arange(light_tabs[0].shape[0]) == lamp_row
+        motion = all(not torch.equal(a[is_ball], b[is_ball]) and torch.equal(a[~is_ball],
+                                                                             b[~is_ball])
+                     and not torch.equal(la[lamp_mask], lb[lamp_mask])
+                     and torch.equal(la[~lamp_mask], lb[~lamp_mask])
+                     for a, b, la, lb in zip(geoms, geoms[1:], light_tabs, light_tabs[1:]))
+        out9 = r9.channels["PipelineOutput"]
+        if not (launches_9b == want_9b and motion and bool(torch.isfinite(out9).all())
+                and r9.baked.n_tris > isect.MAX_DENSE_TRIS):
+            raise AssertionError(f"9b: launches {launches_9b} (want {want_9b}), the ball and "
+                                 f"lamp2 alone moving every frame {motion}")
+        # the BVH kernels on every 4th lane of every batch of the first and
+        # the last frame, against their plain versions, bit for bit; the
+        # checked frame is the rendered one, bit for bit
+        held = {}
+        for i, (scene_i, index_i, bdpt_i) in kept.items():
+            tally = []
+            plain_i = replace(scene_i, plain=True)
+            mean = cfg9.bdpt.bounce_tex_mean
+            trace = checked_trace(make_shaded_tracer(scene_i, bounce_tex_mean=mean),
+                                  make_shaded_tracer(plain_i, bounce_tex_mean=mean), 4, tally)
+            intersect = checked(scene_i.intersector(), plain_i.intersector(), 4, tally)
+            bdpt_frame = (BDPT_FRAME_INIT + index_i) & 0xFFFFFFFF
+            jit = pixel_jitter_for_frame(bdpt_frame, cfg9.gbuffer.jitter_mode)
+            ch = ray_traced_gbuffer(scene_i, trace, WIDTH, HEIGHT,
+                                    (GBUF_FRAME_INIT + index_i) & 0xFFFFFFFF, jit,
+                                    focal_len=cfg9.gbuffer.focal_length_gui,
+                                    env_bilinear=cfg9.gbuffer.env_bilinear)
+            img = bdpt_pass(scene_i, intersect, ch, bdpt_frame, jit, cfg9.bdpt, trace=trace)
+            torch.cuda.synchronize()
+            same = torch.equal(bits(img), bits(bdpt_i))
+            if not (tally and all(tally) and same):
+                raise AssertionError(f"9b frame {i}: a BVH kernel differs from its plain "
+                                     f"version ({tally}) or the checked frame from the "
+                                     f"rendered one ({same})")
+            held[f"frame {i}"] = {"batches": len(tally), "bit_equal": True}
+        p9["9b animated pink_room"] = {
+            "tris": r9.baked.n_tris, "frames": n_b, "launches": launches_9b,
+            "load_and_bake_ms": load_ms, "rebake_host_ms": rebake_ms,
+            "frame_ms": frame_ms, "rebake_share": sum(rebake_ms) / (sum(rebake_ms)
+                                                                    + sum(frame_ms)),
+            "bvh_kernels_vs_plain_every_4th_lane": held, "ball_and_lamp_alone_move": True}
+        log(f"9b animated pink_room .fscene ({r9.baked.n_tris} tris) {WIDTH}x{HEIGHT}, {n_b} "
+            f"frames: re-bake (host clock with a sync) ms {[round(x, 2) for x in rebake_ms]}, "
+            f"frame (CUDA events) ms {[round(x, 3) for x in frame_ms]}, re-bake share "
+            f"{p9['9b animated pink_room']['rebake_share']:.3f}; launches {launches_9b}; the ball "
+            f"and lamp2 alone move every frame; BVH kernels bit-equal to the plain versions on "
+            f"every 4th lane of {held}")
+        del r9, kept, scene_i, plain_i, geoms
+
+        # 9c: OBJ + MTL, the alpha panel room with an RGBA PNG cutout map_Kd
+        # and a PNG map_bump, through --scene x.obj: the wavefront's alpha
+        # restarts on the dense kernels
+        panel = procedural.alpha_panel_scene()
+        save_obj(f"{tmp9}/panel.obj", panel.meshes, panel.materials)
+        write_png_rgba(f"{tmp9}/cutout.png", panel.materials[1].base_color_image)
+        tilt = np.zeros((8, 8, 3), np.float32)
+        tilt[..., 0], tilt[..., 1], tilt[..., 2] = 0.75, 0.5, 1.0
+        write_png(f"{tmp9}/bump.png", tilt)
+        mtl = open(f"{tmp9}/panel.mtl").read()
+        mtl = mtl.replace("newmtl panel\n", "newmtl panel\nmap_Kd cutout.png\n")
+        mtl = mtl.replace("newmtl white\n", "newmtl white\nmap_bump bump.png\n")
+        open(f"{tmp9}/panel.mtl", "w").write(mtl)
+        res_c, launches_c = run_app(["--scene", f"{tmp9}/panel.obj", "--frames", "2",
+                                     "--outputdir", f"{tmp9}/c"])
+        bk9c = app.load_scene(f"{tmp9}/panel.obj").bake(max_lights=16, device=dev)
+        out_c = read_png(res_c["output"])
+        if not (bk9c.has_alpha and bk9c.has_normal_maps and set(launches_c) <= {
+                "shaded", "closest", "occluded", "compact", "splat_tile"}
+                and launches_c.get("shaded", 0) > 0 and launches_c.get("closest", 0) > 0
+                and out_c.shape == (HEIGHT, WIDTH, 3)):
+            raise AssertionError(f"9c: the OBJ scene's bake or launches are off ({launches_c})")
+        restarts_c = alpha_restarts(bk9c, "9c OBJ panel", 1)
+        p9["9c obj alpha + normal map"] = {
+            "tris": bk9c.n_tris, "frames": 2, "launches": launches_c,
+            "sec_per_frame": res_c["sec_per_frame"], "frame_times_s": res_c["frame_times"],
+            "alpha_restarts": restarts_c}
+        log(f"9c app.main --scene panel.obj (RGBA cutout map_Kd, map_bump) {WIDTH}x{HEIGHT}, 2 "
+            f"frames: sec_per_frame {res_c['sec_per_frame']:.6f} s (host clock with a sync), "
+            f"launches {launches_c}; the dense kernels bit-equal under the alpha restarts")
+        del bk9c
+
+        # 9d: Cornell's geometry through save_fbx and an .fscene, 1 frame,
+        # exported with --export-scene and rendered again; each frame against
+        # the built-in Cornell box's: bit for bit where the baked rows are
+        # bit-equal, else within the same-path bounds (image_stats's
+        # defaults): save_obj's 6 decimals move a vertex by up to 5e-7,
+        # which can flip a hit at an edge
+        src = Renderer(Scene.from_built(cornell_box()).bake(max_lights=16, device=dev), cfg9)
+        src.render_frame()
+        src_accum = src.state.accum.last_frame
+        cb = cornell_box()
+        save_fbx(f"{tmp9}/cornell.fbx", cb.meshes, cb.materials, version=7500)
+        f9d = write_json(f"{tmp9}/cornell_fbx.fscene", cornell_fscene_doc("cornell.fbx", False))
+        exported = f"{tmp9}/export/cornell.fscene"
+        runs_d = {}
+        for label, argv in (("fbx", ["--scene", f9d, "--export-scene", exported]),
+                            ("exported", ["--scene", exported])):
+            res, launches = run_app(argv + ["--frames", "1", "--outputdir", f"{tmp9}/d_{label}",
+                                            "--checkpoint", f"{tmp9}/d_{label}/state"])
+            bk = app.load_scene(argv[1]).bake(max_lights=16, device=dev)
+            # the pack's rows but their last column, the material id: the
+            # loaders put a default material first, so the ids shift by one
+            # and index equal constants (the rows carry the constants)
+            rows_equal = (bk.tri_pack.shape == src.baked.tri_pack.shape
+                          and torch.equal(bits(bk.tri_pack[:, :PACK_ID_COL]),
+                                          bits(src.baked.tri_pack[:, :PACK_ID_COL]))
+                          and torch.equal(bits(bk.light_rows), bits(src.baked.light_rows)))
+            accum, _ = state_of(f"{tmp9}/d_{label}/state")
+            accum = torch.from_numpy(accum).to(dev)
+            identical = bool(torch.equal(bits(accum), bits(src_accum)))
+            frac, mad, dmean, close = image_stats(accum, src_accum)
+            runs_d[label] = {"launches": launches, "tris": bk.n_tris, "rows_bit_equal": rows_equal,
+                             "frame_bit_equal": identical, "frac_over_1e-3": frac,
+                             "mean_abs_d": mad, "mean_radiance_d": dmean}
+            if launches != mk_want or (rows_equal and not identical) or not close:
+                raise AssertionError(f"9d {label}: {runs_d[label]}")
+            log(f"9d {label} Cornell {WIDTH}x{HEIGHT}, 1 frame: launches {launches}; baked rows "
+                f"(but the material id) bit-equal to the built-in Cornell box's {rows_equal}, "
+                f"frame bit-equal "
+                f"{identical} (frac>1e-3 {frac:.4f} <= 0.02, mean|d| {mad:.2e} < 5e-3, mean "
+                f"radiance d {dmean:.2e} < 2e-3)")
+            del bk
+        p9["9d fbx and export"] = runs_d
+        del src
+    p9["phase_s"] = time.perf_counter() - t9
+    log(f"phase 9: {p9['phase_s']:.1f} s")
+
     # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
     # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
     # is phase 5's megakernel run
@@ -2021,6 +2392,7 @@ def main() -> int:
             label: run["launches_per_frame"].get(name, 0) for label, run in p6["runs"].items()}
     log(json.dumps({"phase6": p6}))
     log(json.dumps({"phase8": p8}))
+    log(json.dumps({"phase9": p9}))
     log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],

@@ -13,10 +13,13 @@ the same flags:
 
 It renders on the card (`main(device="cpu")` runs every kernel's plain
 version on the CPU) and writes screenshots, the final image and a JSON
-results file like the reference's test harness.  Not ported yet, and
-refused with `NotImplementedError`: `.fscene` and `.obj` scenes,
-`--animate` and `--export-scene` (ROADMAP item 12c), and `--shard N`
-with N > 0 (ROADMAP item 13).
+results file like the reference's test harness.  `--scene` also takes an
+`.fscene` or `.obj` file (`scene/fscene.load_fscene`, `models/obj.
+load_obj`); `--animate` advances the scene's camera and object paths by
+`--fixedtimedelta` before each frame (`Renderer.animate`); `--export-scene`
+writes the loaded scene as an `.fscene` (`scene/fscene.save_fscene`).
+Not ported yet, and refused with `NotImplementedError`: `--shard N` with
+N > 0 (ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="H100 BDPT renderer (the PyTorch / CUDA port)")
     p.add_argument("--scene", default="cornell",
                    help="'cornell', 'many-lights', 'textured', 'alpha-panel',"
-                        " 'pink-room' (.fscene/.obj paths: ROADMAP item 12c)")
+                        " 'pink-room', or a .fscene / .obj path")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--frames", type=int, default=32, help="frames to accumulate")
@@ -59,8 +62,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "probe-lit render of the final G-buffer "
                         "(probe_lit.png)")
     p.add_argument("--animate", action="store_true",
-                   help="advance the scene camera path each frame "
-                        "(ROADMAP item 12c)")
+                   help="advance the scene camera path each frame")
     p.add_argument("--fixedtimedelta", type=float, default=1.0 / 60.0,
                    help="animation time step (SampleTest -fixedtimedelta)")
     p.add_argument("--ssframes", default="",
@@ -102,12 +104,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "range -> pass/fail verdict")
     p.add_argument("--export-scene", default="",
                    help="write the loaded scene to this .fscene path "
-                        "(SceneExporter analogue; ROADMAP item 12c)")
+                        "(SceneExporter analogue)")
     return p
 
 
 def load_scene(name: str):
-    """A procedural scene by name, as a host `Scene` to bake."""
+    """A procedural scene by name, or an .fscene or .obj file, as a host
+    `Scene` to bake."""
     from ..models.procedural import (
         alpha_panel_scene,
         cornell_box,
@@ -128,9 +131,17 @@ def load_scene(name: str):
         from ..models.pink_room import pink_room
 
         return Scene.from_built(pink_room())
-    if name.endswith((".fscene", ".obj")):
-        raise NotImplementedError(
-            f"{name}: .fscene and .obj scenes are not ported yet (ROADMAP item 12c)")
+    if name.endswith(".fscene"):
+        from ..scene.fscene import load_fscene
+
+        return load_fscene(name)
+    if name.endswith(".obj"):
+        from ..models.obj import load_obj
+
+        meshes, mats = load_obj(name)
+        sc = Scene(meshes=meshes, materials=mats)
+        sc.apply_default_fixups()
+        return sc
     raise ValueError(f"unknown scene {name!r}")
 
 
@@ -162,12 +173,6 @@ def _rss_mb() -> float:
 
 def _refuse_unported(args) -> None:
     """Raise on the flags whose modules are not ported yet."""
-    if args.animate:
-        raise NotImplementedError("--animate: camera and object paths come from .fscene "
-                                  "files, not ported yet (ROADMAP item 12c)")
-    if args.export_scene:
-        raise NotImplementedError("--export-scene: the .fscene writer is not ported yet "
-                                  "(ROADMAP item 12c)")
     if args.shard:
         raise NotImplementedError(f"--shard {args.shard}: row sharding over devices is not "
                                   f"ported yet (ROADMAP item 13)")
@@ -213,6 +218,12 @@ def main(argv=None, device="cuda") -> dict:
         from ..utils.image import read_image
 
         scene.env_map = read_image(args.envmap)
+        scene.env_map_file = args.envmap
+    if args.export_scene:
+        from ..scene.fscene import save_fscene
+
+        scene.apply_default_fixups()
+        save_fscene(scene, args.export_scene)
     max_lights = max(16, len(scene.lights))
     baked = scene.bake(max_lights=max_lights, device=device)
     renderer = Renderer(baked, cfg)
@@ -234,6 +245,8 @@ def main(argv=None, device="cuda") -> dict:
 
     start = renderer.state.frame_index
     for f in range(start, n_frames):
+        if args.animate:
+            renderer.animate(args.fixedtimedelta)
         t0 = time.perf_counter()
         if args.profile:
             out = renderer.render_frame_profiled(prof)

@@ -23,7 +23,9 @@ materials.  `Renderer.display` tone-maps with any of the 7 operators of
 `ops/tonemap.py`.  `Renderer.render_frame_profiled` is the same frame
 with each pass timed by a `utils/profiler.Profiler` event;
 `set_camera_pose` moves the camera (the checkpoint's resume calls it);
-object and camera animation (`Renderer.animate`) is not ported yet.
+`Renderer.animate` advances the bake's camera and object paths (JAX
+`renderer.py:183-205`) and bakes the host scene again on the renderer's
+device whenever an object path posed a mesh or a light.
 """
 from __future__ import annotations
 
@@ -134,6 +136,33 @@ class Renderer:
         and roll prevViewProj; the next frame resets the accumulation."""
         self.camera = begin_frame(replace(
             self.camera, pos_w=_host_f32(pos), target=_host_f32(target), up=_host_f32(up)))
+
+    def animate(self, dt: float):
+        """Advance the active camera path and any object paths (Scene::update,
+        Scene.cpp:106-125): `state.time` grows by dt * camera_speed, the
+        first camera path poses the camera, and when the host scene posed a
+        mesh or a light (`Scene.update_objects`) it is baked again on this
+        renderer's device with the same light capacity, the camera kept.
+        As in JAX, the accumulation resets on a camera move only
+        (`camera_moved` compares view_proj): an object path alone keeps
+        accumulating."""
+        host = self.baked.host
+        advanced = False
+        if host.camera_paths:
+            self.state.time += dt * host.camera_speed
+            advanced = True
+            pos, tgt, up = host.camera_paths[0].sample(self.state.time)
+            self.set_camera_pose(pos, tgt, up)
+        if host.object_paths:
+            if not advanced:
+                self.state.time += dt * host.camera_speed
+            if host.update_objects(self.state.time):
+                # geometry moved: bake again (the DXR BLAS-refit analogue);
+                # the old bake's tables are dropped with it
+                self.baked = replace(
+                    host.bake(max_lights=int(self.baked.data.lights.pos_w.shape[0]),
+                              device=self.baked.device),
+                    plain=self.baked.plain)
 
     # -- frame loop ------------------------------------------------------
     def render_frame(self, prof: Profiler | None = None):

@@ -28,6 +28,7 @@ from ..accel.traverse import make_intersector
 from ..accel.tri_pack import TriSoA, bake_triangles, pack_shaded_tris_lane
 from ..models.procedural import BuiltScene, MaterialDesc
 from ..ops.alpha import has_alpha_materials, wrap_intersector
+from . import animation as animation_mod
 from . import camera as camera_mod
 from .lights import light_rows, make_light_array
 from .types import (
@@ -110,7 +111,13 @@ class Scene:
     lights: list = field(default_factory=list)        # list[dict]
     camera: CameraData | None = None
     env_map: np.ndarray | None = None                 # [h,w,4] or None
+    env_map_file: str | None = None                   # source path (fscene round trip)
+    camera_paths: list = field(default_factory=list)  # list[animation.Path]
+    # paths whose attached_objects name model instances or lights
+    # (SceneImporter.cpp:776 kAttachedObjects; Scene::update animates them)
+    object_paths: list = field(default_factory=list)
     lighting_scale: float = 1.0
+    camera_speed: float = 1.0
     name: str = "scene"
 
     @classmethod
@@ -130,8 +137,7 @@ class Scene:
             self.lights.append({"type": "dir", "dir": (0.13, 0.27, 0.9),
                                 "intensity": (0.9, 0.9, 0.9)})
         if self.camera is None:
-            pos = np.concatenate([m.positions for m in self.meshes])
-            lo, hi = pos.min(axis=0), pos.max(axis=0)
+            lo, hi = self.bounds()
             center = (lo + hi) * 0.5
             radius = float(np.linalg.norm(hi - lo)) * 0.5
             eye = center + np.asarray([0.0, 0.0, -2.0]) * max(radius, 1e-3)
@@ -139,6 +145,56 @@ class Scene:
                 pos=tuple(eye), target=tuple(center),
                 near_z=max(0.1, 0.1 * radius), far_z=max(1000.0, 10.0 * radius))
         return self
+
+    def update_objects(self, time: float) -> bool:
+        """Scene::update for the attachments other than the camera
+        (Scene.cpp:106-125): pose every path-attached model instance and
+        light at `time`.
+
+        Model instances move rigidly (animation.rigid_transform_at) from
+        their rest geometry, captured on first touch as `mesh._rest`; a
+        light takes the path's position and its direction toward the
+        target.  Returns True when it posed a mesh or a light, which it does
+        at every call while such a path is attached (the caller bakes
+        again: the DXR BLAS-refit analogue)."""
+        changed = False
+        for path in self.object_paths:
+            r, t = animation_mod.rigid_transform_at(path, time)
+            for kind, name in path.attached:
+                if kind == "camera":
+                    continue
+                if kind == "light":
+                    for entry in self.lights:
+                        if entry.get("name") == name:
+                            pos, target, up = path.sample(time)
+                            d = target - pos
+                            n = np.linalg.norm(d)
+                            entry["pos"] = tuple(pos)
+                            if n > 1e-12:
+                                entry["dir"] = tuple(d / n)
+                            changed = True
+                    continue
+                for mesh in self.meshes:
+                    if mesh.name != name:
+                        continue
+                    rest = getattr(mesh, "_rest", None)
+                    if rest is None:
+                        rest = (mesh.positions.copy(), mesh.normals.copy())
+                        mesh._rest = rest
+                    mesh.positions = rest[0] @ r.T + t
+                    mesh.normals = rest[1] @ r.T
+                    changed = True
+        return changed
+
+    def bounds(self):
+        if not self.meshes:
+            return np.zeros(3, np.float32), np.ones(3, np.float32)
+        lo = np.min([m.positions.min(axis=0) for m in self.meshes], axis=0)
+        hi = np.max([m.positions.max(axis=0) for m in self.meshes], axis=0)
+        return lo.astype(np.float32), hi.astype(np.float32)
+
+    def n_triangles(self) -> int:
+        return int(sum(len(m.indices) for m in self.meshes))
 
     def bake(self, atlas_res: int = 256, max_lights: int | None = None,
              leaf_size: int = 4, device="cuda") -> "BakedScene":
@@ -159,14 +215,14 @@ class Scene:
             idx.append(np.asarray(m.indices, np.int64) + voff)
             mat.append(np.full(len(m.indices), m.material, np.int32))
             voff += len(m.positions)
-        positions = np.concatenate(pos)
-        indices = np.concatenate(idx)
+        positions = np.concatenate(pos) if pos else np.zeros((0, 3), np.float32)
+        indices = np.concatenate(idx) if idx else np.zeros((0, 3), np.int64)
         geometry = GeometryArrays(
             positions=torch.from_numpy(positions),
-            normals=torch.from_numpy(np.concatenate(nrm)),
-            uvs=torch.from_numpy(np.concatenate(uv)),
+            normals=torch.from_numpy(np.concatenate(nrm) if nrm else np.zeros((0, 3), np.float32)),
+            uvs=torch.from_numpy(np.concatenate(uv) if uv else np.zeros((0, 2), np.float32)),
             indices=torch.from_numpy(indices.astype(np.int32)),
-            material_id=torch.from_numpy(np.concatenate(mat)),
+            material_id=torch.from_numpy(np.concatenate(mat) if mat else np.zeros(0, np.int32)),
         )
         tree = bvh_mod.build_bvh(positions, indices, leaf_size=leaf_size)
         bvh = BVHArrays(**{k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()})
@@ -238,7 +294,7 @@ class Scene:
                else torch.zeros((1, 1, 4), dtype=torch.float32))
         data = SceneData(geometry=geometry, bvh=bvh, materials=materials, textures=atlas,
                          lights=lights, camera=self.camera, env_map=env)
-        return BakedScene.build(data, tris, device)
+        return replace(BakedScene.build(data, tris, device), host=self)
 
 
 @dataclass(frozen=True)
@@ -274,6 +330,9 @@ class BakedScene:
     # device (`replace(baked, plain=True)`): the chain the kernels are held
     # against on the card
     plain: bool = False
+    # the host Scene this bake came from (Scene.bake sets it; None for a
+    # bake from arrays): the paths and geometry Renderer.animate bakes again
+    host: "Scene | None" = field(default=None, repr=False, compare=False)
 
     @classmethod
     def build(cls, data: SceneData, tris: TriSoA, device) -> "BakedScene":

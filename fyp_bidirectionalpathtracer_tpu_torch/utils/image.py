@@ -9,8 +9,11 @@ PNGs are written and read with `zlib` and `struct` alone (no PIL):
 `write_png` writes 8-bit RGB (or grey for a 2-D image) with filter 0;
 `read_png` returns what `Image.open(path).convert("RGB")` does for grey,
 grey + alpha, RGB, RGBA and palette PNGs of 8 bits a sample, under all
-five row filters, and raises on other bit depths and on interlaced
-files.  `read_image` reads `.hdr` and `.png` only.
+five row filters, and `read_png_rgba` what `convert("RGBA")` does (the
+tRNS chunk applied to grey, RGB and palette images); both raise
+ValueError on other bit depths and on interlaced files, the reason that
+`png_refusal` gives from the header alone.
+`read_image` reads `.hdr` and `.png` only.
 """
 from __future__ import annotations
 
@@ -105,14 +108,36 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """PNG -> float32 [H, W, 3] in [0, 1]: PIL's `convert("RGB")` of it
-    (grey replicated, alpha dropped, palette looked up)."""
+def _refusal(path: str, hdr) -> str | None:
+    """Why a PNG with this IHDR is not read although PIL reads it
+    (interlaced, or other than 8 bits a sample), or None."""
+    _, _, depth, ctype, _, _, interlace = hdr
+    if interlace:
+        return f"{path}: interlaced PNGs are not read"
+    if ctype in _CHANNELS and depth != 8:
+        return f"{path}: {depth}-bit PNGs are not read (8 bits a sample only)"
+    return None
+
+
+def png_refusal(path: str) -> str | None:
+    """The reason `read_png` / `read_png_rgba` refuse a well-formed PNG
+    that PIL reads, from its IHDR chunk alone; None where they read it or
+    where the file is not a well-formed PNG (which they report as such)."""
+    with open(path, "rb") as fh:
+        head = fh.read(29)
+    if len(head) < 29 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
+        return None
+    return _refusal(path, struct.unpack(">IIBBBBB", head[16:29]))
+
+
+def _decode_png(path: str):
+    """(samples [H, W, channels] uint8, colour type, palette [n, 3] or None,
+    the tRNS chunk's bytes or None) of an 8-bit, non-interlaced PNG."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr, palette = 8, [], None, None
+    pos, idat, hdr, palette, trns = 8, [], None, None, None
     while pos + 8 <= len(data):
         n = struct.unpack(">I", data[pos:pos + 4])[0]
         kind, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
@@ -120,6 +145,8 @@ def read_png(path: str) -> np.ndarray:
             hdr = struct.unpack(">IIBBBBB", payload[:13])
         elif kind == b"PLTE":
             palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = payload
         elif kind == b"IDAT":
             idat.append(payload)
         elif kind == b"IEND":
@@ -127,27 +154,62 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + n
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNGs are not read")
+    w, h, _, ctype, _, _, _ = hdr
+    reason = _refusal(path, hdr)
+    if reason is not None:
+        raise ValueError(reason)
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: unknown PNG colour type {ctype}")
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNGs are not read (8 bits a sample only)")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     channels = _CHANNELS[ctype]
     rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * channels, channels)
-    pix = rows.reshape(h, w, channels)
+    return rows.reshape(h, w, channels), ctype, palette, trns
+
+
+def _rgb(pix: np.ndarray, ctype: int, palette) -> np.ndarray:
+    """[H, W, 3] uint8: grey replicated, palette looked up (entries past
+    the PLTE chunk black), alpha dropped."""
     if ctype == 3:
-        if palette is None:
-            raise ValueError(f"{path}: palette PNG without a PLTE chunk")
         table = np.zeros((256, 3), np.uint8)
         table[:len(palette)] = palette[:256]
-        rgb = table[pix[..., 0]]
-    elif ctype in (0, 4):
-        rgb = np.repeat(pix[..., :1], 3, axis=-1)
+        return table[pix[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(pix[..., :1], 3, axis=-1)
+    return pix[..., :3]
+
+
+def read_png(path: str) -> np.ndarray:
+    """PNG -> float32 [H, W, 3] in [0, 1]: PIL's `convert("RGB")` of it
+    (grey replicated, alpha dropped, palette looked up)."""
+    pix, ctype, palette, _ = _decode_png(path)
+    return np.ascontiguousarray(_rgb(pix, ctype, palette)).astype(np.float32) / 255.0
+
+
+def read_png_rgba(path: str) -> np.ndarray:
+    """PNG -> float32 [H, W, 4] in [0, 1]: PIL's `convert("RGBA")` of it.
+    Alpha is the file's for grey + alpha and RGBA; for a palette image the
+    tRNS chunk's entry of each index (255 past its end); for grey and RGB
+    0 where the sample equals the tRNS chunk's 16-bit value(s), else 255."""
+    pix, ctype, palette, trns = _decode_png(path)
+    rgb = _rgb(pix, ctype, palette)
+    if ctype in (4, 6):
+        alpha = pix[..., -1]
+    elif trns is None:
+        alpha = np.full(pix.shape[:2], 255, np.uint8)
+    elif ctype == 3:
+        table = np.full(256, 255, np.uint8)
+        entries = np.frombuffer(trns, np.uint8)[:256]
+        table[:len(entries)] = entries
+        alpha = table[pix[..., 0]]
     else:
-        rgb = pix[..., :3]
-    return np.ascontiguousarray(rgb).astype(np.float32) / 255.0
+        key = np.asarray(struct.unpack(f">{len(trns) // 2}H", trns[:len(trns) // 2 * 2]),
+                         np.int64)
+        if key.size != pix.shape[-1]:
+            raise ValueError(f"{path}: a tRNS chunk of {len(trns)} bytes for colour type {ctype}")
+        alpha = np.where((pix.astype(np.int64) == key).all(-1), 0, 255).astype(np.uint8)
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    return np.ascontiguousarray(rgba).astype(np.float32) / 255.0
 
 
 def mse(a, b) -> float:

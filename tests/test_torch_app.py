@@ -5,7 +5,11 @@ where the two share a format: the checkpoint written by either package
 resumes in the other with every field bit for bit (no JAX render: the JAX
 Renderer's state is filled with seeded arrays), and the CLI parser has
 JAX's options, defaults and choices.  test_extras.py's profiler, profiled
-frame, CLI and SampleTest cases run on the port at 16x16 or 24x24."""
+frame, CLI and SampleTest cases run on the port at 16x16 or 24x24, and
+the CLI's .fscene, .obj, --animate (with --checkpoint / --resume) and
+--export-scene routes at 16x16 against Renderer on the same scene."""
+import contextlib
+import io
 import json
 import os
 from dataclasses import replace
@@ -281,6 +285,32 @@ def test_parser_matches_jax():
     assert app._rss_mb() > 0
 
 
+def _write_scene_files(folder) -> dict:
+    """A Cornell .fscene with a camera path (tests/test_torch_animation.py)
+    and Cornell's geometry as an OBJ (save_obj)."""
+    from fyp_bidirectionalpathtracer_tpu_torch.models.obj import save_obj
+    from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
+    from test_torch_animation import cornell_fscene
+
+    built = cornell_box()
+    save_obj(os.path.join(folder, "mesh.obj"), built.meshes, built.materials)
+    return {"fscene": cornell_fscene(folder), "obj": os.path.join(folder, "mesh.obj")}
+
+
+def _direct_png(tmp_path, scene, frames, animate=False) -> bytes:
+    """The PNG of `frames` frames through Renderer on app.load_scene's
+    scene, as the CLI renders it (max_lights 16, the default config)."""
+    r = Renderer(app.load_scene(scene).bake(max_lights=16, device="cpu"),
+                 RenderConfig(width=16, height=16))
+    for _ in range(frames):
+        if animate:
+            r.animate(1.0 / 60.0)
+        r.render_frame()
+    path = str(tmp_path / "direct.png")
+    write_png(path, r.display())
+    return open(path, "rb").read()
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--scene", "room.fscene"], "12c"),
     (["--scene", "mesh.obj"], "12c"),
@@ -289,10 +319,73 @@ def test_parser_matches_jax():
     (["--shard", "2"], "13"),
 ], ids=["fscene", "obj", "animate", "export-scene", "shard"])
 def test_unported_flags_raise(tmp_path, flags, item):
-    argv = SMALL + ["--frames", "1", "--outputdir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        app.main(argv + flags, device="cpu")
-    assert not os.path.exists(tmp_path / "results.json")
+    """The flags of ROADMAP item 12c run at 16x16 and their output equals
+    Renderer's on the same scene: an .fscene scene, an .obj scene,
+    --animate over an .fscene's camera path (2 frames), --export-scene
+    (the exported file loads to the same triangles and renders the same
+    image).  --shard N (item 13) still raises NotImplementedError, before
+    any output."""
+    argv = SMALL + ["--frames", "2", "--outputdir", str(tmp_path / "out")]
+    if item == "13":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            app.main(argv + flags, device="cpu")
+        assert not os.path.exists(tmp_path / "out" / "results.json")
+        return
+    files = _write_scene_files(str(tmp_path))
+    exported = str(tmp_path / "export" / "out.fscene")
+    if flags[0] == "--scene":
+        scene = files["fscene" if flags[1].endswith(".fscene") else "obj"]
+        argv += ["--scene", scene]
+    elif flags[0] == "--animate":
+        argv += ["--scene", files["fscene"], "--animate"]
+    else:
+        argv += ["--export-scene", exported]
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = app.main(argv, device="cpu")
+    assert len(res["frame_times"]) == 2 and read_png(res["output"]).shape == (16, 16, 3)
+    got = open(res["output"], "rb").read()
+    if flags[0] == "--scene":
+        assert got == _direct_png(tmp_path, scene, 2)
+    elif flags[0] == "--animate":
+        assert got == _direct_png(tmp_path, files["fscene"], 2, animate=True)
+        assert got != _direct_png(tmp_path, files["fscene"], 2)  # the camera moved
+    else:
+        assert got == _direct_png(tmp_path, "cornell", 2)
+        assert os.path.exists(str(tmp_path / "export" / "out.obj"))
+        assert app.load_scene(exported).n_triangles() == app.load_scene("cornell").n_triangles()
+        with contextlib.redirect_stdout(io.StringIO()):
+            again = app.main(["--scene", exported] + SMALL[2:] + [
+                "--frames", "2", "--outputdir", str(tmp_path / "again")], device="cpu")
+        assert read_png(again["output"]).shape == (16, 16, 3)
+
+
+def test_cli_animate_resume_continues_bit_for_bit(tmp_path):
+    """--animate over camera and object paths (a re-bake every frame):
+    --checkpoint after 2 frames, then --resume to 4, restores `time` and
+    poses the objects as the unbroken run did: the final PNG and state
+    equal an unbroken 4-frame run's."""
+    from test_torch_animation import cornell_fscene
+
+    scene = cornell_fscene(str(tmp_path), camera_path=True, object_path=True)
+    base = ["--scene", scene] + SMALL[2:] + ["--animate", "--fixedtimedelta", "0.03"]
+    ck, whole = str(tmp_path / "ck"), str(tmp_path / "whole")
+    with contextlib.redirect_stdout(io.StringIO()):
+        app.main(base + ["--frames", "2", "--checkpoint", ck, "--outputdir",
+                         str(tmp_path / "a")], device="cpu")
+        with open(ck + ".json") as fh:
+            assert json.load(fh)["time"] == 0.06
+        res = app.main(base + ["--frames", "4", "--checkpoint", ck, "--resume",
+                               "--outputdir", str(tmp_path / "a")], device="cpu")
+        ref = app.main(base + ["--frames", "4", "--checkpoint", whole,
+                               "--outputdir", str(tmp_path / "b")], device="cpu")
+    assert len(res["frame_times"]) == 2
+    with open(res["output"], "rb") as a, open(ref["output"], "rb") as b:
+        assert a.read() == b.read()
+    with np.load(ck + ".npz") as a, np.load(whole + ".npz") as b:
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with open(ck + ".json") as a, open(whole + ".json") as b:
+        assert json.load(a) == json.load(b)
 
 
 def test_main_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):

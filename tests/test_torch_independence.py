@@ -9,7 +9,9 @@ megakernel with both splat kernels' plain versions, the alpha panel scene
 and the probe-lit pass, runs the fused subpath builder, imports every
 module of the entry point (app, image I/O, golden harness, checkpoint,
 profiler, video) and runs the CLI at 16x16 with a PNG env map, --probe,
---profile and --checkpoint, and the output passes and a GIF)."""
+--profile and --checkpoint, and the output passes and a GIF, and the scene
+I/O and animation modules: an .obj with a PNG texture, an .fbx, an
+.fscene animated and exported, a camera controller and skinning)."""
 import ast
 import os
 import subprocess
@@ -142,6 +144,38 @@ rec = video.VideoRecorder()
 rec.add_frame(r.display())
 assert rec.save(out + "/clip.gif").endswith(".gif")
 print("app", "ok")
+from fyp_bidirectionalpathtracer_tpu_torch.models import fbx, obj
+from fyp_bidirectionalpathtracer_tpu_torch.ops.skinning import bone_matrices, skin_vertices
+from fyp_bidirectionalpathtracer_tpu_torch.scene import animation, controllers, fscene
+tex = np.random.RandomState(2).uniform(0, 1, (8, 8, 3))
+image.write_png(out + "/tex.png", tex)
+with open(out + "/quad.mtl", "w") as fh:
+    fh.write("newmtl m\\nKd 0.5 0.5 0.5\\nmap_Kd tex.png\\n")
+with open(out + "/quad.obj", "w") as fh:
+    fh.write("mtllib quad.mtl\\nv 0 0 0\\nv 1 0 0\\nv 1 1 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\n"
+             "vt 1 1\\nvt 0 1\\nusemtl m\\nf 1/1 2/2 3/3 4/4\\n")
+meshes, mats = obj.load_obj(out + "/quad.obj")
+assert mats[1].base_color_image.shape == (8, 8, 4) and len(meshes[0].indices) == 2
+fbx.save_fbx(out + "/quad.fbx", meshes, mats, version=7500)
+assert len(fbx.load_fbx(out + "/quad.fbx")[0]) == 1
+import json
+frames = [dict(time=0.0, pos=[0.5, 0.5, 2.0], target=[0.5, 0.5, 0.0]),
+          dict(time=1.0, pos=[0.6, 0.5, 2.0], target=[0.5, 0.5, 0.0])]
+attached = [dict(type="camera"), dict(type="model_instance", name="q")]
+with open(out + "/s.fscene", "w") as fh:
+    json.dump(dict(version=2, models=[dict(file="quad.obj", instances=[dict(name="q")]),
+                                      dict(file="quad.fbx")],
+                   paths=[dict(loop=True, attached_objects=attached, frames=frames)]), fh)
+anim = Renderer(fscene.load_fscene(out + "/s.fscene").bake(device="cpu"),
+                RenderConfig(width=16, height=16))
+anim.animate(0.25)
+assert bool(anim.render_frame().isfinite().all()) and anim.state.time == 0.25
+fscene.save_fscene(anim.baked.host, out + "/export/s.fscene")
+cam, _ = controllers.OrbitCameraController().update(anim.camera)
+pos, _ = skin_vertices(torch.zeros(4, 3), torch.ones(4, 3), torch.zeros(4, 1, dtype=torch.int32),
+                       torch.ones(4, 1), bone_matrices(torch.eye(3)[None], torch.ones(1, 3)))
+assert bool((pos == 1).all()) and animation.Path().duration == 0.0
+print("io", "ok")
 assert not [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
 """
 
@@ -154,4 +188,4 @@ def test_port_renders_with_jax_imports_refused():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["on", "ok", "off", "ok", "bmfr", "ok", "pink_room", "ok",
                                    "textured", "ok", "subpath", "ok", "alpha", "ok",
-                                   "env", "ok", "app", "ok"], proc.stdout
+                                   "env", "ok", "app", "ok", "io", "ok"], proc.stdout
