@@ -102,6 +102,25 @@ cutout map_Kd and a PNG map_bump, through `--scene x.obj`: the dense
 kernels bit-equal under the alpha restarts; 9d, Cornell's geometry
 through save_fbx and an .fscene, then `--export-scene` and the exported
 file, each frame against the built-in Cornell box's.
+
+Phase 10 (before phase 5e's profiler, as phases 6, 8 and 9) drives row
+sharding (`parallel/sharding.py`) at 1280x720: 10a, K1 over 2 and 4 row
+shards (pix0, n_sub), Cornell and the deferred textured room, every
+column bit for bit against the whole-image launch; 10b / 10c, two ranks
+on this card (gloo, as NCCL refuses two ranks on one device) through
+`Renderer(mesh=)`: the megakernel route on Cornell (4 frames) and the
+deferred textured room (2), the wavefront on Cornell and pink_room (2
+each, the BVH kernels on pink_room), and BMFR on over Cornell with the
+camera moved a few pixels a frame (3), each against the single-device
+frames (G-buffer bit for bit, PipelineOutput within 2e-5, each rank's
+launches a frame asserted), ms a frame by CUDA events on each rank and
+the host clock, and the splat image's all-reduce alone (14.7 MB of f32
+rgba); 10d, `app.main --shard 2`, 4 frames and a checkpoint resumed to 8,
+the PNG written and the accumulator against 8 single-device frames.  The
+ranks share the card, so their times show the collectives' overhead, not
+scaling.  Its numbers are the line {"phase10": ...}, after
+{"phase9": ...}; the kernels line gives each kernel's launches a rank in
+each sharded run (`sharded_launches_per_rank`).
 """
 from __future__ import annotations
 
@@ -475,6 +494,111 @@ def pink_fscene_doc(room) -> dict:
                          "target": (lamp + [0.1, -1.08, -0.15]).tolist()}]},
         ],
     }
+
+
+# ---- phase 10's runs: row sharding over ranks sharing the card ----------
+# (label, scene, BDPTConfig keywords, BMFR on, frames, camera moved); the
+# single-device references render the same runs
+P10_RUNS = (
+    ("10b megakernel Cornell", "cornell", {}, False, 4, False),
+    ("10b megakernel textured room (deferred)", "textured", {"defer_textures": True}, False, 2,
+     False),
+    ("10c wavefront Cornell", "cornell", {"megakernel": "off"}, False, 2, False),
+    ("10c wavefront pink_room", "pink_room", {}, False, 2, False),
+    ("10c BMFR on Cornell (camera moved)", "cornell", {}, True, 3, True),
+)
+P10_GBUF = ("WorldPosition", "WorldNormal", "MaterialDiffuse", "MaterialSpecRough",
+            "MaterialExtraParams", "Emissive")
+P10_ALL_REDUCES = 10
+
+
+def p10_renderer(run, device, mesh=None):
+    """Renderer of one of P10_RUNS at WIDTH x HEIGHT, depth DEPTH (on
+    `mesh`, this rank's rows)."""
+    from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
+    from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box, textured_room
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
+        BDPTConfig,
+        BMFRConfig,
+        RenderConfig,
+    )
+
+    _, name, bdpt_kw, bmfr, _, _ = run
+    built = {"cornell": cornell_box, "textured": textured_room,
+             "pink_room": lambda: pink_room(asset_dir="", subdivisions=3)}[name]()
+    baked = Scene.from_built(built, aspect=WIDTH / HEIGHT).bake(max_lights=16, device=device)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bdpt=BDPTConfig(max_depth=DEPTH, **bdpt_kw),
+                       bmfr=BMFRConfig(enabled=bmfr, regression=bmfr, half_screen_debug=False))
+    return Renderer(baked, cfg, mesh=mesh)
+
+
+def p10_frames(run, renderer):
+    """Render a run's frames, the camera moved a few pixels a frame where
+    the run says (BMFR's reprojection crosses the shard boundary, within
+    its 64-row margin): [(channels, CUDA-event ms, host ms)] a frame."""
+    moved = run[5]
+    p0, t0, u0 = (renderer.camera.pos_w.clone(), renderer.camera.target.clone(),
+                  renderer.camera.up.clone())
+    out = []
+    for i in range(run[4]):
+        if moved and i:
+            renderer.set_camera_pose(p0 + torch.tensor([0.004 * i, 0.003 * i, 0.0]), t0, u0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start.record()
+        renderer.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        out.append((dict(renderer.channels), start.elapsed_time(end),
+                    (time.perf_counter() - t_host) * 1e3))
+    return out
+
+
+def p10_digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def p10_rank(rank, mesh):
+    """Phase 10 on one rank: every run of P10_RUNS on this rank's rows (the
+    G-buffer channels' digests, PipelineOutput's rows, ms a frame, the
+    launches of the run), then the frame's collective alone: the sum of a
+    full-size f32 rgba splat image over the ranks, timed."""
+    from fyp_bidirectionalpathtracer_tpu_torch import cuda
+
+    out = {"device": str(mesh.device), "backend": mesh.backend, "runs": {}}
+    for run in P10_RUNS:
+        renderer = p10_renderer(run, mesh.device, mesh)
+        cuda.reset_launch_counts()
+        frames = p10_frames(run, renderer)
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        out["runs"][run[0]] = {
+            "gbuf": [{k: p10_digest(ch[k]) for k in P10_GBUF} for ch, _, _ in frames],
+            "output": [ch["PipelineOutput"].cpu() for ch, _, _ in frames],
+            "finite": all(bool(torch.isfinite(ch["PipelineOutput"]).all()) for ch, _, _ in frames),
+            "ms": [ms for _, ms, _ in frames], "host_ms": [h for _, _, h in frames],
+            "launches": launches, "count": int(renderer.state.accum.count),
+            "rows": list(mesh.row_range(HEIGHT))}
+        del renderer, frames
+    splat = torch.zeros(WIDTH * HEIGHT * 4, dtype=torch.float32, device=mesh.device)
+    for _ in range(2):
+        mesh.all_reduce(splat)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    start.record()
+    for _ in range(P10_ALL_REDUCES):
+        mesh.all_reduce(splat)
+    end.record()
+    torch.cuda.synchronize()
+    out["all_reduce"] = {"bytes": splat.numel() * 4,
+                         "ms": start.elapsed_time(end) / P10_ALL_REDUCES,
+                         "host_ms": (time.perf_counter() - t_host) * 1e3 / P10_ALL_REDUCES}
+    return out
 
 
 def main() -> int:
@@ -2137,6 +2261,155 @@ def main() -> int:
     p9["phase_s"] = time.perf_counter() - t9
     log(f"phase 9: {p9['phase_s']:.1f} s")
 
+    # ---- phase 10: row sharding (parallel/sharding.py) -----------------------
+    # before phase 5e's profiler, as phases 6, 8 and 9.  10a: K1 over 2 and 4
+    # row shards (pix0, n_sub) against the whole-image launch, bit for bit,
+    # both variants, one process.  10b / 10c: 2 ranks on this card (gloo:
+    # NCCL refuses two ranks on one device) through Renderer(mesh=) on the
+    # megakernel, wavefront and BMFR-on routes against the single-device
+    # frames.  10d: app.main --shard 2 and a resume.  The two ranks share
+    # the card, so their times measure the collectives' overhead, not
+    # scaling.
+    from fyp_bidirectionalpathtracer_tpu_torch.parallel import sharding
+
+    p10 = {"device": smi, "size": f"{WIDTH}x{HEIGHT}", "ranks": 2,
+           "note": "both ranks share one card; times show overhead, not scaling"}
+    t10 = time.perf_counter()
+    k1_shards = {}
+    for label, bk, cfg10, packed in (
+            ("Cornell", cornell, cfg_for(WIDTH, HEIGHT), True),
+            ("textured room (deferred)", tex_main,
+             cfg_for(WIDTH, HEIGHT, defer_textures=True), False)):
+        args = frame_mod.frame_args(bk, WIDTH, HEIGHT, BDPT_FRAME_INIT, jitter, cfg10,
+                                    gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=packed)
+        whole = frame_mod.frame_kernel(args, bk.light_rows, bk.tri_pack, bk.bvh_nodes)
+        for n in (2, 4):
+            sub = HEIGHT // n * WIDTH
+            parts = [frame_mod.frame_kernel(replace(args, pix0=r * sub, sub_pixels=sub),
+                                            bk.light_rows, bk.tri_pack, bk.bvh_nodes)
+                     for r in range(n)]
+            torch.cuda.synchronize()
+            same = {k: torch.equal(bits(torch.cat([getattr(q, k) for q in parts], -1)), bits(v))
+                    for k, v in vars(whole).items() if v is not None}
+            k1_shards[f"{label}, {n} shards"] = same
+            if not all(same.values()):
+                raise AssertionError(f"10a K1 over {n} shards of {label} differs: {same}")
+            log(f"10a K1 {label} {WIDTH}x{HEIGHT} over {n} row shards (pix0, n_sub): every "
+                f"column bit-equal to the whole-image launch {sorted(same)}")
+        del whole, parts
+    p10["10a K1 shards bit-equal"] = k1_shards
+
+    # 10b / 10c: the single-device references, then the ranks
+    refs = {}
+    for run in P10_RUNS:
+        frames = p10_frames(run, p10_renderer(run, dev))
+        refs[run[0]] = [({k: ch[k] for k in P10_GBUF + ("PipelineOutput",)}, ms, host)
+                        for ch, ms, host in frames]
+        del frames
+    t_launch = time.perf_counter()
+    ranks10 = sharding.launch(p10_rank, 2, device=dev)
+    launch_s = time.perf_counter() - t_launch
+    p10["launch"] = {"backend": ranks10[0]["backend"],
+                     "rank_devices": [r["device"] for r in ranks10], "wall_s": launch_s}
+    log(f"10b/10c launch of 2 ranks on {[r['device'] for r in ranks10]} over "
+        f"{ranks10[0]['backend']}: {launch_s:.1f} s wall (spawn, bakes, every run)")
+    want_launches = {
+        "10b megakernel Cornell": {"frame": 1, "compact": 1, "splat_tile": 1},
+        "10b megakernel textured room (deferred)": {"frame_textured": 1, "compact": 1,
+                                                    "splat_tile": 1},
+        "10c wavefront Cornell": {"shaded": 1 + (DEPTH - 1) + DEPTH, "occluded": 3,
+                                  "compact": 1, "splat_tile": 1},
+        "10c wavefront pink_room": {"bvh_shaded": 1 + (DEPTH - 1) + DEPTH, "bvh_occluded": 3,
+                                    "compact": 1, "splat_tile": 1},
+        "10c BMFR on Cornell (camera moved)": {"frame": 1, "compact": 1, "splat_tile": 1},
+    }
+    p10["runs"] = {}
+    for run in P10_RUNS:
+        label, n_fr = run[0], run[4]
+        per_rank = [r["runs"][label] for r in ranks10]
+        gbuf_equal, out_err = True, 0.0
+        for f, (ref_ch, _, _) in enumerate(refs[label]):
+            for rank_run in per_rank:
+                row0, sub_h = rank_run["rows"]
+                gbuf_equal &= all(rank_run["gbuf"][f][k] == p10_digest(ref_ch[k][row0:row0 + sub_h])
+                                  for k in P10_GBUF)
+                got = rank_run["output"][f].to(dev)
+                out_err = max(out_err, float((got - ref_ch["PipelineOutput"][
+                    row0:row0 + sub_h]).abs().max()))
+        launches = [rank_run["launches"] for rank_run in per_rank]
+        want = {k: v * n_fr for k, v in want_launches[label].items()}
+        counts = [rank_run["count"] for rank_run in per_rank]
+        ref_ms = [ms for _, ms, _ in refs[label]][1:]
+        ref_host = [h for _, _, h in refs[label]][1:]
+        rec = {"frames": n_fr, "launches_per_rank": launches, "gbuffer_bit_equal": gbuf_equal,
+               "pipeline_output_max_abs_err": out_err, "accum_counts": counts,
+               "rank0_ms_per_frame": sum(per_rank[0]["ms"][1:]) / (n_fr - 1),
+               "rank0_host_ms_per_frame": sum(per_rank[0]["host_ms"][1:]) / (n_fr - 1),
+               "rank1_ms_per_frame": sum(per_rank[1]["ms"][1:]) / (n_fr - 1),
+               "single_device_ms_per_frame": sum(ref_ms) / len(ref_ms),
+               "single_device_host_ms_per_frame": sum(ref_host) / len(ref_host),
+               "timed": "CUDA events and the host clock around each frame after the first, "
+                        "with a sync"}
+        p10["runs"][label] = rec
+        ok = (gbuf_equal and out_err <= 2e-5 and all(x == want for x in launches)
+              and all(rank_run["finite"] for rank_run in per_rank)
+              and len(set(counts)) == 1)
+        log(f"{label} {WIDTH}x{HEIGHT}, {n_fr} frames on 2 ranks: G-buffer bit-equal "
+            f"{gbuf_equal}, PipelineOutput max |d| {out_err:.3e} (<= 2e-5), launches a rank "
+            f"{launches[0]} (want {want}), accum counts {counts}; ms/frame rank 0 "
+            f"{rec['rank0_ms_per_frame']:.4f} (CUDA events; host {rec['rank0_host_ms_per_frame']:.4f})"
+            f", rank 1 {rec['rank1_ms_per_frame']:.4f}, single device "
+            f"{rec['single_device_ms_per_frame']:.4f} (host "
+            f"{rec['single_device_host_ms_per_frame']:.4f})")
+        if not ok:
+            raise AssertionError(f"{label}: the sharded frames differ from the single-device "
+                                 f"ones or launched the wrong kernels: {rec}")
+    ar = ranks10[0]["all_reduce"]
+    p10["splat all-reduce"] = {**ar, "rank1_ms": ranks10[1]["all_reduce"]["ms"],
+                               "what": f"f32 rgba {WIDTH}x{HEIGHT} summed over 2 ranks, gloo, "
+                                       f"{P10_ALL_REDUCES} calls"}
+    log(f"10b splat all-reduce: {ar['bytes']} bytes (f32 rgba {WIDTH}x{HEIGHT}), "
+        f"{ar['ms']:.4f} ms a call on rank 0 (CUDA events; host {ar['host_ms']:.4f} ms), "
+        f"gloo on one shared card")
+    del refs, ranks10
+
+    # 10d: app.main --shard 2 (rank 0 writes), 4 frames and a checkpoint,
+    # resumed to 8; the accumulator against 8 single-device frames
+    with tempfile.TemporaryDirectory() as tmp10:
+        t_app = time.perf_counter()
+        res_a, _ = run_app(["--shard", "2", "--frames", "4", "--checkpoint", f"{tmp10}/state",
+                            "--outputdir", f"{tmp10}/a"])
+        app_a_s = time.perf_counter() - t_app
+        res_b, _ = run_app(["--shard", "2", "--frames", "8", "--checkpoint", f"{tmp10}/state",
+                            "--resume", "--outputdir", f"{tmp10}/b"])
+        png = read_png(res_b["output"])
+        direct = Renderer(Scene.from_built(cornell_box()).bake(max_lights=16, device=dev),
+                          RenderConfig(width=WIDTH, height=HEIGHT))
+        direct.render(8)
+        with np.load(f"{tmp10}/state.npz") as z:
+            accum10, count10 = z["accum_last"], int(z["accum_count"])
+        err10 = float(np.abs(accum10 - direct.state.accum.last_frame.cpu().numpy()).max())
+        bit10 = bool(np.array_equal(accum10.view(np.int32),
+                                    direct.state.accum.last_frame.cpu().numpy().view(np.int32)))
+        if not (png.shape == (HEIGHT, WIDTH, 3) and 0.0 < png.mean() < 1.0 and count10 == 8
+                and len(res_b["frame_times"]) == 4 and err10 <= 2e-5
+                and os.path.exists(res_a["output"])):
+            raise AssertionError(f"10d app --shard 2: png {png.shape}, count {count10}, "
+                                 f"accumulator max |d| {err10}")
+        p10["10d app --shard 2"] = {
+            "frames": "4 + 4 resumed", "sec_per_frame_first": res_a["sec_per_frame"],
+            "sec_per_frame_resumed": res_b["sec_per_frame"], "first_run_wall_s": app_a_s,
+            "accum_max_abs_err_vs_single_device": err10, "accum_bit_equal": bit10,
+            "png_mean": float(png.mean())}
+        log(f"10d app.main --shard 2 Cornell {WIDTH}x{HEIGHT}: 4 frames + checkpoint "
+            f"({app_a_s:.1f} s wall, spawn included), resumed to 8 (sec_per_frame "
+            f"{res_b['sec_per_frame']:.6f} s, host clock, rank 0): PNG written (mean "
+            f"{png.mean():.4f}), accumulator max |d| {err10:.3e} against 8 single-device "
+            f"frames (bit-equal {bit10})")
+        del direct
+    p10["phase_s"] = time.perf_counter() - t10
+    log(f"phase 10: {p10['phase_s']:.1f} s")
+
     # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
     # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
     # is phase 5's megakernel run
@@ -2390,9 +2663,13 @@ def main() -> int:
     for name in kernels:
         kernels[name]["phase6_launches_per_frame"] = {
             label: run["launches_per_frame"].get(name, 0) for label, run in p6["runs"].items()}
+        # the row-sharded runs (phase 10b/10c): each rank's launches in its run
+        kernels[name]["sharded_launches_per_rank"] = {
+            label: run["launches_per_rank"][0].get(name, 0) for label, run in p10["runs"].items()}
     log(json.dumps({"phase6": p6}))
     log(json.dumps({"phase8": p8}))
     log(json.dumps({"phase9": p9}))
+    log(json.dumps({"phase10": p10}))
     log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],

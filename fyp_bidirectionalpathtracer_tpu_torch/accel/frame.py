@@ -109,10 +109,18 @@ class FrameArgs:
     use_thin_lens: bool
     splat_rgb8e: bool        # pack est-2 splats to rgb8e in the kernel
     textured: bool = False   # the deferred-texture variant
+    pix0: int = 0            # global index of the launch's first pixel
+    sub_pixels: int | None = None  # pixels from pix0 on (None: to the end)
 
     @property
     def n_pix(self) -> int:
         return self.width * self.height
+
+    @property
+    def n_sub(self) -> int:
+        """The pixels of the launch: a shard's rows (JAX `_frame_out`'s
+        `n_sub`), else the whole image; the outputs' row length."""
+        return self.n_pix - self.pix0 if self.sub_pixels is None else self.sub_pixels
 
     @property
     def n_splat_depths(self) -> int:
@@ -129,7 +137,8 @@ class FrameArgs:
 
 @dataclass(frozen=True)
 class FrameOut:
-    """Per-pixel kernel outputs, field-major ([rows, N], N = W*H).
+    """Per-pixel kernel outputs, field-major ([rows, N], N = the launch's
+    `n_sub` pixels, W*H unless a shard's).
 
     The textured variant writes no own-pixel result (`res` is None; the
     replay computes it) and its splat rows hold the raw shade (no 1/(i+2),
@@ -145,7 +154,7 @@ class FrameOut:
     res: torch.Tensor | None  # [4, N] own-pixel rgba
     gbuf: torch.Tensor       # [20, N] pos3 valid normal3 dist dif3 opacity
     #                          spec3 lrough ior emissive3
-    splat_pix: torch.Tensor  # [D, N] int32 splat target pixel, n_pix = dead
+    splat_pix: torch.Tensor  # [D, N] int32 global splat target pixel, W*H = dead
     splat_pay: torch.Tensor | None   # [D, N] int32 rgb8e payload
     splat_rgba: torch.Tensor | None  # [D, 4, N] float32 r, g, b, live
     vrec: torch.Tensor | None = None      # [14 D + 1, N] textured
@@ -520,10 +529,15 @@ def _f32(x) -> float:
 
 
 def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> FrameOut:
-    """The frame program vectorised over the W*H pixels (see module doc)."""
+    """The frame program vectorised over the launch's `n_sub` pixels from
+    `pix0` on (see module doc).  Outputs are [rows, n_sub]; the primary
+    rays, the RNG seeds and the splat targets use global pixel ids, and a
+    dead splat's pixel is W*H, so the shards of an image concatenate to
+    the whole-image call."""
     dev = tris.device
     w_, h_ = args.width, args.height
     n_pix = args.n_pix
+    n_sub = args.n_sub
     d_max = args.d_max
     mat_model = args.mat_model
     n_tris = args.n_tris
@@ -531,7 +545,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     f32 = np.float32
 
     def full(v):
-        return torch.full((n_pix,), v, dtype=torch.float32, device=dev)
+        return torch.full((n_sub,), v, dtype=torch.float32, device=dev)
 
     cam_pos = tuple(sc[_C_POS + k] for k in range(3))
     cam_u = tuple(sc[_C_U + k] for k in range(3))
@@ -544,7 +558,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     lcnt_f = sc[_C_LCNT]
     lcnt_i = args.light_count
 
-    lin = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    lin = torch.arange(n_sub, dtype=torch.int64, device=dev) + args.pix0
     x = (lin % w_).to(torch.float32)
     y = (lin // w_).to(torch.float32)
     zero_t = full(0.0)
@@ -591,7 +605,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
     seed = tea_init(lin, torch.full_like(lin, args.bdpt_frame))
 
     # ---------------- camera subpath ----------------
-    zeros_vert = _zeros_vertex(n_pix, dev)
+    zeros_vert = _zeros_vertex(n_sub, dev)
     cam_path = [zeros_vert] * (d_max + 1)
     cam_path[0] = dict(zeros_vert, pos=cam_tiles, n=tuple(full(c) for c in cam_n),
                        color=(ones, ones, ones), pdf=ones)
@@ -762,7 +776,7 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
 
     # --- estimator 2: light-tracing splats (BDPTMain:171-208) ---
     splat_pix, splat_pay, splat_rgba = [], [], []
-    take_cum = torch.ones((n_pix,), dtype=torch.bool, device=dev)
+    take_cum = torch.ones((n_sub,), dtype=torch.bool, device=dev)
     for i in range(args.n_splat_depths):
         take_cum = take_cum & (take[i + 1] > 0.5)
         last = light_path[i + 1]
@@ -827,13 +841,13 @@ def frame_plain(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor) -> Fr
         rec = [vtx[k] for path in (cam_path, light_path) for vtx in path[1:]
                for k in ("tu", "tv", "bslot", "is_spec", "bc0", "bc1", "bc2")]
         rec.append(torch.where(valid, tr["em_tex"], -ones))
-        tex = dict(vrec=torch.stack(rec), e1_parts=stack(e1_rows, (n_pix,), torch.float32),
-                   e3_parts=stack(e3_rows, (n_pix,), torch.float32))
+        tex = dict(vrec=torch.stack(rec), e1_parts=stack(e1_rows, (n_sub,), torch.float32),
+                   e3_parts=stack(e3_rows, (n_sub,), torch.float32))
     return FrameOut(
         res=res, gbuf=gbuf,
-        splat_pix=stack(splat_pix, (n_pix,), torch.int32),
-        splat_pay=stack(splat_pay, (n_pix,), torch.int32) if args.splat_rgb8e else None,
-        splat_rgba=None if args.splat_rgb8e else stack(splat_rgba, (4, n_pix), torch.float32),
+        splat_pix=stack(splat_pix, (n_sub,), torch.int32),
+        splat_pay=stack(splat_pay, (n_sub,), torch.int32) if args.splat_rgb8e else None,
+        splat_rgba=None if args.splat_rgb8e else stack(splat_rgba, (4, n_sub), torch.float32),
         **tex,
     )
 
@@ -881,7 +895,7 @@ def _mis_weights(cam_path, light_path, d_max, mis_power):
 
 # ----------------------------------------------------------------- K1 wrapper
 class _FrameParams(ctypes.Structure):
-    """Mirror of `FrameParams` in csrc/frame.cu."""
+    """Mirror of `FrameParams` in csrc/frame_program.cuh."""
 
     _fields_ = [
         ("scal", ctypes.c_float * NSCAL),
@@ -902,6 +916,8 @@ class _FrameParams(ctypes.Structure):
         ("splat_rgb8e", ctypes.c_int),
         ("min_t", ctypes.c_float),
         ("clamp_upper", ctypes.c_float),
+        ("pix0", ctypes.c_int),
+        ("n_sub", ctypes.c_int),
     ]
 
 
@@ -917,6 +933,8 @@ def _params(args: FrameArgs) -> _FrameParams:
     p.connection_weight = _WEIGHTS[args.connection_weight]
     p.min_t = args.min_t
     p.clamp_upper = args.clamp_upper
+    p.pix0 = args.pix0
+    p.n_sub = args.n_sub
     return p
 
 
@@ -934,6 +952,9 @@ def _check_args(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor):
         raise ValueError(f"d_max {args.d_max} outside [1, {MAX_DEPTH}]")
     if not 1 <= args.n_tris <= MAX_TRIS:
         raise ValueError(f"n_tris {args.n_tris} outside [1, {MAX_TRIS}]")
+    if not (0 <= args.pix0 and 1 <= args.n_sub and args.pix0 + args.n_sub <= args.n_pix):
+        raise ValueError(f"pixels [{args.pix0}, {args.pix0} + {args.n_sub}) outside the "
+                         f"{args.width}x{args.height} image")
     if len(args.scal) != NSCAL or args.connection_weight not in _WEIGHTS:
         raise ValueError("bad scal row or connection_weight")
     if args.textured and (args.splat_rgb8e or args.d_max > MAX_TEXTURED_DEPTH
@@ -955,7 +976,7 @@ def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor,
         check_nodes(nodes, lights.device)
     if tris.device.type == "cpu":
         return frame_plain(args, lights, tris)
-    n, d2 = args.n_pix, args.n_splat_depths
+    n, d2 = args.n_sub, args.n_splat_depths
     dev = tris.device
 
     def rows(r, dtype=torch.float32):
@@ -985,8 +1006,10 @@ def frame_kernel(args: FrameArgs, lights: torch.Tensor, tris: torch.Tensor,
 
 # ------------------------------------------------------- frame entry point
 def frame_args(baked, width: int, height: int, bdpt_frame: int, pixel_jitter,
-               cfg, gbuf_frame: int = 0, splat_rgb8e: bool = False) -> FrameArgs:
-    """Host-side argument packing of the JAX `_frame_out`."""
+               cfg, gbuf_frame: int = 0, splat_rgb8e: bool = False, pix0: int = 0,
+               sub_pixels: int | None = None) -> FrameArgs:
+    """Host-side argument packing of the JAX `_frame_out`; `pix0` and
+    `sub_pixels` select a shard's pixels (its `pixel_offset`, `n_sub`)."""
     cam = baked.data.camera
     gcfg = cfg.gbuffer
     bcfg = cfg.bdpt
@@ -1021,7 +1044,7 @@ def frame_args(baked, width: int, height: int, bdpt_frame: int, pixel_jitter,
         enable_e3=bcfg.enable_connections,
         connection_weight=bcfg.connection_weight,
         use_thin_lens=bool(gcfg.use_thin_lens), splat_rgb8e=splat_rgb8e,
-        textured=is_textured(baked),
+        textured=is_textured(baked), pix0=int(pix0), sub_pixels=sub_pixels,
     )
 
 
@@ -1107,11 +1130,20 @@ def textured_replay(out: FrameOut, bcfg, atlas):
 
 
 def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
-                            pixel_jitter, cfg, gbuf_frame=0):
+                            pixel_jitter, cfg, gbuf_frame=0, sub_height: int | None = None,
+                            pixel_offset: int | None = None, mesh=None):
     """Run K1, then the est-2 splat reduction; returns (channels, frame_img
-    [H, W, 4]) like the JAX `render_frame_megakernel` (single device).  A
-    textured scene runs K1's textured variant and `textured_replay`, whose
-    splats go to `scatter_add_rgba` (JAX `pallas_frame.py:1446-1527`).
+    [H, W, 4]) like the JAX `render_frame_megakernel`.  A textured scene
+    runs K1's textured variant and `textured_replay`, whose splats go to
+    `scatter_add_rgba` (JAX `pallas_frame.py:1446-1527`).
+
+    Row-sharded use (`parallel/sharding.py`): `sub_height` rows from the
+    global pixel `pixel_offset` on (a multiple of `width`), and `mesh`, the
+    row mesh.  K1 runs on the shard's pixels with global pixel ids; its
+    splats land on global pixels, K2, the sort and K3 reduce them into a
+    full W x H image, the mesh sums that image over its ranks (the frame's
+    one collective) and the shard keeps its rows.  The channels and the
+    frame are the shard's [sub_height, W, 4].
 
     A bake with `plain=True` runs the plain versions of the kernels on its
     device instead: the reference the kernels' whole frame is held against."""
@@ -1119,23 +1151,30 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
 
     bcfg = cfg.bdpt
     textured = is_textured(baked)
+    sub_h = height if sub_height is None else sub_height
+    pix0 = 0 if pixel_offset is None else int(pixel_offset)
+    if mesh is None and (sub_h, pix0) != (height, 0):
+        raise ValueError("a shard's rows (sub_height, pixel_offset) need the row mesh")
+    if pix0 % width:
+        raise ValueError(f"pixel_offset {pix0} does not start a row of {width} pixels")
     # pack the est-2 splats to rgb8e in the kernel for splat_mode
     # 'tiled_rgb8e', or 'auto' on a CUDA device (as 'auto' on the TPU)
     mode = bcfg.splat_mode
     packed = (not textured) and bcfg.enable_light_tracing and (
         mode == "tiled_rgb8e" or (mode == "auto" and baked.device.type == "cuda"))
     args = frame_args(baked, width, height, bdpt_frame, pixel_jitter, cfg,
-                      gbuf_frame=gbuf_frame, splat_rgb8e=packed)
+                      gbuf_frame=gbuf_frame, splat_rgb8e=packed, pix0=pix0,
+                      sub_pixels=sub_h * width)
     out = (frame_plain(args, baked.light_rows, baked.tri_pack) if baked.plain
            else frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes))
     n_pix = args.n_pix
 
     def img(rows):
-        return rows.T.reshape(height, width, rows.shape[0])
+        return rows.T.reshape(sub_h, width, rows.shape[0])
 
     if textured:
         res4, tex_splats, dif_ratio1, em3 = textured_replay(out, bcfg, baked.atlas)
-        result = res4.reshape(height, width, 4)
+        result = res4.reshape(sub_h, width, 4)
     else:
         result = img(out.res)
     if bcfg.enable_light_tracing:
@@ -1154,7 +1193,11 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
             splat_flat = splat_mod.scatter_add_rgba(
                 mode, out.splat_pix.reshape(-1), rgba[:, :3], rgba[:, 3], n_pix,
                 alpha_is_count=True, plain=baked.plain)
-        splat = splat_flat.reshape(height, width, 4)
+        if mesh is not None:
+            # every shard's light subpaths splat onto any pixel: sum the
+            # images over the ranks, keep this shard's rows
+            splat_flat = mesh.all_reduce(splat_flat)
+        splat = splat_flat[pix0:pix0 + sub_h * width].reshape(sub_h, width, 4)
         got_splat = (splat != 0.0).any(dim=-1, keepdim=True)
         frame_img = torch.where(got_splat, torch.clamp(result + splat, 0.0, 1.0),
                                 result)
@@ -1166,10 +1209,10 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
     if textured:
         # the kernel shaded with mean albedos; the G-buffer channels carry
         # the texel values (lightProbeGBuffer.rt.hlsl:110-116)
-        mat_dif = torch.cat([gbuf[..., 8:11] * dif_ratio1.reshape(height, width, 3),
+        mat_dif = torch.cat([gbuf[..., 8:11] * dif_ratio1.reshape(sub_h, width, 3),
                              gbuf[..., 11:12]], -1)
-        emis3 = em3.reshape(height, width, 3)
-    zeros3 = torch.zeros((height, width, 3), dtype=torch.float32, device=gbuf.device)
+        emis3 = em3.reshape(sub_h, width, 3)
+    zeros3 = torch.zeros((sub_h, width, 3), dtype=torch.float32, device=gbuf.device)
     channels = {
         "WorldPosition": gbuf[..., 0:4],
         "WorldNormal": gbuf[..., 4:8],

@@ -1,7 +1,9 @@
 // The launch of kernel K1 (frame.cu has the design): the kernel template,
 // which stages the triangle rows (and, for the walk, the node table) in
 // dynamic shared memory and runs frame_pixel, and its launch with the
-// shared-memory opt-in.  frame.cu and frame_small.cu instantiate the
+// shared-memory opt-in.  A launch covers the n_sub pixels from pix0 on (a
+// shard's rows; the whole image with pix0 = 0, n_sub = W * H), one thread
+// each.  frame.cu and frame_small.cu instantiate the
 // untextured program, frame_textured.cu the textured one.
 #pragma once
 
@@ -33,7 +35,7 @@ __global__ void __launch_bounds__(kFrameThreads, MinBlocks)
     for (int i = threadIdx.x; i < n_nodes * kNodeCols; i += blockDim.x) nodes_smem[i] = nodes[i];
   __syncthreads();
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lin >= p.width * p.height) return;
+  if (lin >= p.n_sub) return;
   frame_pixel<D, Textured>(p, lights, smem, nodes_smem, tris, lin, out);
 }
 
@@ -42,7 +44,7 @@ template <int D, bool Textured = false, int MinBlocks = 1>
 int launch_frame(const FrameParams& p, const float* lights, const float* tris,
                  const float* nodes, int n_nodes, const FrameOutPtrs& out,
                  cudaStream_t stream) {
-  const int n = p.width * p.height;
+  const int n = p.n_sub;
   const size_t smem = ((size_t)p.n_tris * kBwCols + (size_t)n_nodes * kNodeCols) * sizeof(float);
   auto kernel = frame_kernel<D, Textured, MinBlocks>;
   cudaError_t err =

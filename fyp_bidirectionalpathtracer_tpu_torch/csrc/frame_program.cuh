@@ -53,6 +53,8 @@ struct FrameParams {  // mirrored by accel/frame.py:_FrameParams
   int splat_rgb8e;
   float min_t;
   float clamp_upper;
+  int pix0;   // the global index of the launch's first pixel (a shard's rows)
+  int n_sub;  // the launch's pixels, pix0 .. pix0 + n_sub - 1: the outputs' row stride
 };
 
 // Closest hit and any hit of a ray query: the BVH walk when kWalk (the
@@ -464,9 +466,15 @@ template <int D, bool Textured>
 BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights,
                           const float* bw, const float* nodes, const float* __restrict__ tris,
                           int lin, const FrameOutPtrs& out) {
+  // lin: the pixel's column in the outputs, whose rows hold the launch's
+  // n_sub pixels; gpix: its index in the W x H image, which places its
+  // primary ray and seeds its RNG streams, so a shard draws the numbers of
+  // the whole-image launch
   const float* sc = p.scal;
   const int W = p.width, H = p.height;
-  const size_t N = (size_t)W * (size_t)H;
+  const size_t N = (size_t)p.n_sub;
+  const int gpix = p.pix0 + lin;
+  const int dead = W * H;  // the splat pixel of a dead splat (K2 drops it)
   const int n_e2 = p.enable_e2 ? D : 0;
   const int n_e1_rows = Textured && p.enable_e1 ? 6 * D : 0;
   V3 cam_pos = mk3(sc[C_POS], sc[C_POS + 1], sc[C_POS + 2]);
@@ -479,7 +487,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   V3 zero = mk3(0.0f, 0.0f, 0.0f);
 
   // ---------------- primary ray (G-buffer, lightProbeGBuffer.rt.hlsl) ----
-  float xf = (float)(lin % W), yf = (float)(lin / W);
+  float xf = (float)(gpix % W), yf = (float)(gpix / W);
   float ndc_x = (2.0f * xf / (float)W - 1.0f) + 2.0f * jx / (float)W;
   float ndc_y = (-2.0f * yf / (float)H + 1.0f) - 2.0f * jy / (float)H;
   float inv_wlen = 1.0f / sqrtf(cam_w.x * cam_w.x + cam_w.y * cam_w.y + cam_w.z * cam_w.z);
@@ -489,7 +497,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   V3 origin0 = cam_pos, prim_dir;
   if (p.use_thin_lens) {
     // lens origin from the G-buffer pass's own RNG stream
-    uint32_t gseed = tea16((uint32_t)lin, p.gbuf_frame);
+    uint32_t gseed = tea16((uint32_t)gpix, p.gbuf_frame);
     float u0 = next_rand(gseed);
     float u1 = next_rand(gseed);
     float theta = 2.0f * kPi * u0;
@@ -519,7 +527,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
     }
     for (int r = 0; r < 20; ++r) out.gbuf[r * N + lin] = gb[r];
     for (int i = 0; i < n_e2; ++i) {
-      out.splat_pix[i * N + lin] = (int)N;
+      out.splat_pix[i * N + lin] = dead;
       if (p.splat_rgb8e) {
         out.splat_pay[i * N + lin] = 0;
       } else {
@@ -534,7 +542,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
   float rough = lrough * lrough;
   // the camera vertex's view vector uses the pinhole even under thin lens
   V3 v0 = normed(sub3(cam_pos, world_pos));
-  uint32_t seed = tea16((uint32_t)lin, p.bdpt_frame);
+  uint32_t seed = tea16((uint32_t)gpix, p.bdpt_frame);
 
   // ---------------- camera subpath ----------------
   Vtx cam[D + 1];
@@ -749,7 +757,7 @@ BDPT_DEV void frame_pixel(const FrameParams& p, const float* __restrict__ lights
       if constexpr (!Textured)
         shade = nan_guard3(clip3(scale3(shade, 1.0f / (float)(i + 2)), p.clamp_upper));
     }
-    out.splat_pix[i * N + lin] = ok ? (int)ry * W + (int)rx : (int)N;
+    out.splat_pix[i * N + lin] = ok ? (int)ry * W + (int)rx : dead;
     if (!Textured && p.splat_rgb8e) {
       out.splat_pay[i * N + lin] = pack_rgb8e(shade.x, shade.y, shade.z);
     } else {

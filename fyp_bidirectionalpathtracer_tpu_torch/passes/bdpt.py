@@ -237,12 +237,17 @@ def _unstack(payload, k):
 
 
 def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: BDPTConfig,
-              trace=None):
+              trace=None, full_height: int | None = None, row0: int = 0, mesh=None):
     """The full BDPT estimator: the frame's radiance image [H, W, 4]
     (SimpleDiffuseGIRayGen, BDPTMain.rt.hlsl:42-234, from a cleared
     texture, BDPTPass.cpp:74).  A bake with `plain=True` splats with the
-    plain K2 and K3.  The JAX function's row-sharding arguments (`full_height`, `row0`,
-    `axis_name`) come with ROADMAP Queue 1 item 13."""
+    plain K2 and K3.
+
+    Row-sharded use (`parallel/sharding.py`): `channels` hold rows [row0,
+    row0 + H) of an image `full_height` rows high.  The RNG seeds and the
+    estimator-2 pixel projection use global pixel ids; the light-tracing
+    splat builds the full-height image, `mesh` sums it over its ranks (the
+    frame's one collective) and the shard keeps its rows."""
     if trace is None:
         trace = make_shaded_tracer(baked, sort_divergent=cfg.sort_bounces,
                                    bounce_tex_mean=cfg.bounce_tex_mean)
@@ -253,6 +258,7 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     dev = pos4.device
     height, width = pos4.shape[0], pos4.shape[1]
     shape = (height, width)
+    g_height = height if full_height is None else full_height
     cam_pos = cam.pos_w.to(dev)
     cam_n = normalize(cam.camera_w).to(dev)
 
@@ -264,7 +270,8 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     dif, spec = dif4[..., :3], spec4[..., :3]
     rough = spec4[..., 3] * spec4[..., 3]
     v = normalize(cam_pos - world_pos)
-    seed = rng.pixel_seeds(width, height, frame_count, device=dev)
+    seed = rng.pixel_seeds(width, g_height, frame_count, row0=row0, sub_height=height,
+                           device=dev)
 
     # ---------------- camera subpath ----------------
     d_max = cfg.max_depth
@@ -298,7 +305,8 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
         # the two chains' extension traces merge into one [2, H, W] trace a
         # depth (utils/config.BDPTConfig.parallel_subpaths)
         light_path, lpayload = light_start(rng.pixel_seeds(
-            width, height, (int(frame_count) ^ 0x9E3779B9) & 0xFFFFFFFF, device=dev))
+            width, g_height, (int(frame_count) ^ 0x9E3779B9) & 0xFFFFFFFF, row0=row0,
+            sub_height=height, device=dev))
         for depth in range(0, d_max):
             do_cam = 1 <= depth <= d_max - 1
             was_active_l = ~lpayload.terminated
@@ -374,8 +382,8 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
         dir_to_cam = to_cam / dis[..., None]
         take_cum = take_cum & take[i + 1]
         facing = dot(cam_n, dir_to_cam) < 0.0
-        ix, iy = project_dir_to_pixel(cam, dir_to_cam, (width, height), pixel_jitter)
-        in_range = (ix >= 0) & (ix < width) & (iy >= 0) & (iy < height)
+        ix, iy = project_dir_to_pixel(cam, dir_to_cam, (width, g_height), pixel_jitter)
+        in_range = (ix >= 0) & (ix < width) & (iy >= 0) & (iy < g_height)
         pre_ok = valid & take_cum & facing & in_range
         e2_geom.append((dir_to_cam, torch.where(pre_ok, dis, torch.zeros_like(dis))))
         e2_pre.append((ix, iy, pre_ok))
@@ -422,7 +430,7 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
 
     # --- estimator 2: light-tracing splats (deterministic scatter-add) ---
     e2_lin, e2_rgb, e2_a = [], [], []
-    n_pix = height * width
+    n_pix = g_height * width
     for i in range(n_e2):
         last = light_path[i + 1]
         dir_to_cam, dis = e2_geom[i]   # dis is 0 on pre-failed lanes (masked)
@@ -442,7 +450,12 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
         splat = splat_mod.scatter_add_rgba(
             cfg.splat_mode, torch.cat(e2_lin).to(torch.int32), torch.cat(e2_rgb),
             torch.cat(e2_a), n_pix, alpha_is_count=True, plain=baked.plain,
-        ).reshape(height, width, 4)
+        )
+        if mesh is not None:
+            # light subpaths of any shard splat onto any pixel: sum the
+            # full-height images over the ranks, keep this shard's rows
+            splat = mesh.all_reduce(splat)
+        splat = splat[row0 * width:(row0 + height) * width].reshape(height, width, 4)
     else:
         splat = torch.zeros((height, width, 4), dtype=torch.float32, device=dev)
     # background pixels wrote (env, 1) before any splat landed (BDPTMain:64)

@@ -1,4 +1,4 @@
-"""BMFR denoiser: Blockwise Multi-Order Feature Regression, on one device.
+"""BMFR denoiser: Blockwise Multi-Order Feature Regression.
 
 Port of `fyp_bidirectionalpathtracer_tpu/passes/bmfr.py`, the reference's
 3-stage DenoisePass (Passes/DenoisePass.cpp:148-279):
@@ -24,9 +24,14 @@ fit) is an elementwise multiply and sum in float32, never a matmul, so no
 TF32 setting reaches it.  No kernel is written by hand here: JAX's pass is
 plain `jnp` too.
 
-Not ported: the row-sharded mode (`_extend_rows`, `regression_sharded`,
-the `axis_name` arguments), ROADMAP Queue 1 item 13.  'auto' settings take
-JAX's choice off the TPU: solver 'qr', history pack 'f32'.
+Row-sharded mode (`bmfr_pass(mesh=)`, `parallel/sharding.py`): each rank
+holds its rows of the channels and the history.  The reprojection taps
+come from a history window of +-`shard_history_margin` rows exchanged with
+the neighbours (`_extend_rows`; taps reprojecting further are rejected
+like off-screen taps, as in JAX), and the regression recomputes the
+32x32 blocks that straddle a shard boundary from identical halo rows
+(`regression_sharded`).  'auto' settings take JAX's choice off the TPU:
+solver 'qr', history pack 'f32'.
 """
 from __future__ import annotations
 
@@ -106,6 +111,33 @@ def _symmetric(idx, size: int):
     return torch.where(m >= size, 2 * size - 1 - m, m)
 
 
+def _extend_rows(x, n_top: int, n_bot: int, mesh, mode: str):
+    """Rows [row0 - n_top, row0 + sub_h + n_bot) of the full image around
+    this rank's block `x` [sub_h, W, C] (JAX `_extend_rows`).  Rows outside
+    the image are the image reflected (mode 'symmetric', as `jnp.pad`) or
+    zero ('zero').  Halos that fit in one neighbour's rows come from the
+    neighbours (one exchange); past that (tiny shards) every rank gathers
+    the whole image."""
+    sub_h = x.shape[0]
+    full_h = sub_h * mesh.size
+    if 0 < n_top <= sub_h and 0 < n_bot <= sub_h:
+        above, below = mesh.exchange_rows(x[:n_bot], x[-n_top:])
+        edge = (lambda rows: rows.flip(0)) if mode == "symmetric" else torch.zeros_like
+        top = edge(x[:n_top]) if above is None else above
+        bot = edge(x[-n_bot:]) if below is None else below
+        return torch.cat([top, x, bot], 0)
+    if mode == "symmetric" and max(n_top, n_bot) > full_h:
+        raise ValueError(f"sharded BMFR needs image height >= halo ({max(n_top, n_bot)})")
+    full = mesh.gather_rows(x)
+    row0 = mesh.rank * sub_h
+    rows = torch.arange(row0 - n_top, row0 + sub_h + n_bot, device=x.device)
+    if mode == "symmetric":
+        return full[_symmetric(rows, full_h)]
+    inside = (rows >= 0) & (rows < full_h)
+    out = full[rows.clamp(0, full_h - 1)]
+    return torch.where(inside.reshape((-1,) + (1,) * (x.dim() - 1)), out, torch.zeros_like(out))
+
+
 @lru_cache(maxsize=None)
 def _offsets_table(device: torch.device) -> torch.Tensor:
     """BLOCK_OFFSETS on `device`, made once a device (a copy from the host
@@ -176,14 +208,22 @@ def _hash_random(a):
 
 # ------------------------------------------------------------- preprocess
 def preprocess(state: BMFRState, cur_pos, cur_norm, cur_noisy, prev_view_proj,
-               cfg, pack: str = "f32"):
+               cfg, pack: str = "f32", *, hist=None, hist_y0: int = 0,
+               full_h: int | None = None):
     """Temporal reprojection + first blend (preprocess.ps.hlsl).
 
     Returns (blended_noisy [H,W,4] with spp in alpha, accept_bits [H,W]
     int32, prev_pixel_f [H,W,2], filt_taps): filt_taps is the
     postprocess's [H,W,12] prev_filtered tap block when pack='bf16'
-    fetched it with the rest, else None."""
+    fetched it with the rest, else None.
+
+    Sharded use: `hist` is the history window [Hh, W, C] whose row 0 is
+    global row `hist_y0` ([pos3|norm3|noisy4], or its bf16 pack [Hh, W, 7]
+    int32 under pack='bf16'), and `full_h` the image's height; taps
+    landing outside the window are rejected like off-screen taps.  The
+    defaults are the whole history of one device."""
     h, w = cur_noisy.shape[0], cur_noisy.shape[1]
+    full_h = h if full_h is None else full_h
     wp = cur_pos[..., :3]
     nrm = cur_norm[..., :3]
     color = cur_noisy[..., :3]
@@ -201,20 +241,25 @@ def preprocess(state: BMFRState, cur_pos, cur_norm, cur_noisy, prev_view_proj,
     uvy = (1.0 - cy * inv_w) * 0.5
     in_screen = (uvx >= 0.0) & (uvx <= 1.0) & (uvy >= 0.0) & (uvy <= 1.0)
 
-    pixel_f = torch.stack([uvx * w, uvy * h], -1) - 0.5  # PIXEL_OFFSET
-    base = _tap_base(pixel_f, h, w)
+    pixel_f = torch.stack([uvx * w, uvy * full_h], -1) - 0.5  # PIXEL_OFFSET
+    base = _tap_base(pixel_f, full_h, w)
     weights = _bilinear_weights(pixel_f)
+    win_base = _window_base(base, hist_y0)
 
     filt_taps = None
     if pack == "bf16":
         # one 13-value fetch a tap, the postprocess's prev_filtered taps too
-        hist = torch.cat([state.prev_pos[..., :3], state.prev_norm[..., :3],
-                          state.prev_noisy, state.prev_filtered[..., :3]], -1)
-        taps, filt_taps = _unpack_hist_bf16(_gather_2x2(_pack_hist_bf16(hist), base))
+        if hist is None:
+            hist = _pack_hist_bf16(torch.cat(
+                [state.prev_pos[..., :3], state.prev_norm[..., :3], state.prev_noisy,
+                 state.prev_filtered[..., :3]], -1))
+        taps, filt_taps = _unpack_hist_bf16(_gather_2x2(hist, win_base))
     else:
-        hist = torch.cat([state.prev_pos[..., :3], state.prev_norm[..., :3],
-                          state.prev_noisy], -1)
-        taps = _gather_2x2(hist, base)  # [H, W, 40]
+        if hist is None:
+            hist = torch.cat([state.prev_pos[..., :3], state.prev_norm[..., :3],
+                              state.prev_noisy], -1)
+        taps = _gather_2x2(hist, win_base)  # [H, W, 40]
+    hist_h = hist.shape[0]
 
     prev_color = torch.zeros_like(color)
     sample_spp = torch.zeros((h, w), dtype=torch.float32, device=color.device)
@@ -223,7 +268,8 @@ def preprocess(state: BMFRState, cur_pos, cur_norm, cur_noisy, prev_view_proj,
     for i, (dx, dy) in enumerate(_TAP_OFFSETS):
         sx = base[..., 0] + dx
         sy = base[..., 1] + dy
-        valid = (sx >= 0) & (sx < w) & (sy >= 0) & (sy < h)
+        valid = ((sx >= 0) & (sx < w) & (sy >= 0) & (sy < full_h)
+                 & (sy >= hist_y0) & (sy < hist_y0 + hist_h))
         tap = taps[..., 10 * i:10 * (i + 1)]
         pos_ok = torch.sum((tap[..., 0:3] - wp) ** 2, -1) < cfg.position_limit_sq
         nrm_ok = torch.sum((tap[..., 3:6] - nrm) ** 2, -1) < cfg.normal_limit_sq
@@ -255,6 +301,14 @@ def preprocess(state: BMFRState, cur_pos, cur_norm, cur_noisy, prev_view_proj,
         # prev pixel are read for the left half only
         out = torch.where(_right_half(w, out.device), cur_noisy, out)
     return out, accept, pixel_f, filt_taps
+
+
+def _window_base(base, hist_y0: int):
+    """Tap base coords relative to a history window starting at global row
+    `hist_y0`."""
+    if hist_y0 == 0:
+        return base
+    return torch.stack([base[..., 0], base[..., 1] - hist_y0], -1)
 
 
 def _right_half(w: int, device):
@@ -520,16 +574,66 @@ def regression(cur_pos, cur_norm, albedo, noisy, frame_number, cfg):
     return torch.cat([new_rgb, noisy[..., 3:4]], -1)
 
 
+def regression_sharded(cur_pos, cur_norm, albedo, noisy, frame_number, cfg, mesh):
+    """`regression` on this rank's rows [sub_h, W] of the mesh's image
+    (JAX `regression_sharded`).  The rank fits every 32x32 block that
+    meets its rows; a block that straddles a shard boundary is fitted by
+    both neighbours from the same halo rows, and each writes back its own
+    rows.  The halo: 32 rows above, 32 n_loc - sub_h (32..63) below
+    (regressionCP.hlsl:28-58, DenoisePass.cpp:262-268)."""
+    sub_h, w = noisy.shape[0], noisy.shape[1]
+    n_blocks_x = (w + BLOCK_EDGE - 1) // BLOCK_EDGE + 1
+    if cfg.half_screen_debug:
+        n_blocks_x //= 2
+    # the block rows that can meet [row0, row0 + sub_h) at any frame offset
+    n_loc = (sub_h - 1) // BLOCK_EDGE + 2
+    n_bot = BLOCK_EDGE * n_loc - sub_h
+    row0 = mesh.rank * sub_h
+    dev = noisy.device
+    off = _offsets_table(dev).index_select(0, frame_number.reshape(1).to(torch.int64) % 16)[0]
+
+    tab = torch.cat([cur_pos[..., :3], cur_norm[..., :3], albedo[..., :3],
+                     noisy[..., :3]], -1)
+    ext = _extend_rows(tab, BLOCK_EDGE, n_bot, mesh, "symmetric")  # rows from row0 - 32
+    # the first block row meeting row0 starts at global row g0 (<= row0),
+    # row s of ext (in (0, 32])
+    g0 = off[1] + BLOCK_EDGE * torch.div(row0 - off[1], BLOCK_EDGE, rounding_mode="floor")
+    s = g0 - row0 + BLOCK_EDGE
+    local = torch.arange(BLOCK_EDGE, device=dev)
+    ys = torch.arange(n_loc, device=dev)[:, None] * BLOCK_EDGE + local + s
+    xs = _symmetric(torch.arange(n_blocks_x, device=dev)[:, None] * BLOCK_EDGE + local + off[0], w)
+    idx = ys[:, None, :, None] * w + xs[None, :, None, :]  # [by, bx, ly, lx]
+    rows = ext.reshape(-1, 12)[idx.reshape(n_loc * n_blocks_x, BLOCK_PIXELS)]
+    fitted = _fit_window(rows, frame_number, cfg).reshape(-1, 3)
+
+    # write-back of this rank's rows; every row lies in the window
+    wy = torch.arange(sub_h, device=dev)[:, None] + (row0 - g0)
+    wx = torch.arange(w, device=dev)[None, :] - off[0]
+    inside = (wx >= 0) & (wx < n_blocks_x * BLOCK_EDGE)
+    block = (wy // BLOCK_EDGE) * n_blocks_x + wx // BLOCK_EDGE
+    pix = (wy % BLOCK_EDGE) * BLOCK_EDGE + wx % BLOCK_EDGE
+    src = torch.where(inside, block * BLOCK_PIXELS + pix, 0)
+    new_rgb = torch.where(inside[..., None], fitted[src], noisy[..., :3])
+    return torch.cat([new_rgb, noisy[..., 3:4]], -1)
+
+
 # ------------------------------------------------------------ postprocess
-def postprocess(state: BMFRState, filtered, accept, prev_pixel_f, cfg, taps=None):
+def postprocess(state: BMFRState, filtered, accept, prev_pixel_f, cfg, taps=None, *,
+                hist=None, hist_y0: int = 0, full_h: int | None = None):
     """Second temporal accumulation (postprocess.ps.hlsl).  `taps` is the
-    [H,W,12] prev_filtered tap block when preprocess fetched it (bf16)."""
+    [H,W,12] prev_filtered tap block when preprocess fetched it (bf16).
+    Sharded use: `hist` is the prev_filtered window [Hh, W, 3] from global
+    row `hist_y0`, with preprocess's margin, so every accepted tap lies in
+    it; `full_h` the image's height."""
     h, w = filtered.shape[0], filtered.shape[1]
     color = filtered[..., :3]
     spp = filtered[..., 3]
     weights = _bilinear_weights(prev_pixel_f)
     if taps is None:
-        taps = _gather_2x2(state.prev_filtered[..., :3], _tap_base(prev_pixel_f, h, w))
+        if hist is None:
+            hist = state.prev_filtered[..., :3]
+        base = _tap_base(prev_pixel_f, h if full_h is None else full_h, w)
+        taps = _gather_2x2(hist, _window_base(base, hist_y0))
     prev_color = torch.zeros_like(color)
     total_weight = torch.zeros_like(spp)
     for i in range(len(_TAP_OFFSETS)):
@@ -551,12 +655,21 @@ def postprocess(state: BMFRState, filtered, accept, prev_pixel_f, cfg, taps=None
 
 
 # ------------------------------------------------------------- full pass
-def bmfr_pass(state: BMFRState, channels: dict, camera, cfg):
+def bmfr_pass(state: BMFRState, channels: dict, camera, cfg, *, mesh=None):
     """The denoise stage over the channel dict; returns (state, output).
 
     DenoisePass::execute's order: preprocess -> history blits
     (noisy/norm/pos) -> regression -> postprocess -> the filtered history.
-    Disabled (the reference's default): a plain blit of Accumulated."""
+    Disabled (the reference's default): a plain blit of Accumulated.
+
+    Sharded mode (`mesh` of more than one rank): the channels and the
+    history are this rank's rows of the mesh's image.  The
+    reprojection taps come from a +-`shard_history_margin`-row window of
+    history exchanged with the neighbours (JAX's rule: a tap reprojecting
+    further is rejected like an off-screen tap, so the result equals one
+    device's while motion between frames stays within the margin; the
+    bf16 pack is applied before the exchange), and the regression fits
+    the blocks of the rank's rows from exact 32-row halos."""
     cur_pos = channels["WorldPosition"]
     cur_norm = channels["WorldNormal"]
     albedo = channels["MaterialDiffuse"]
@@ -570,11 +683,25 @@ def bmfr_pass(state: BMFRState, channels: dict, camera, cfg):
     # 'auto' is 'f32', as in JAX off the TPU
     pack = ("bf16" if cfg.history_pack == "bf16" and cfg.preprocess and cfg.postprocess
             else "f32")
+    sharded = mesh is not None and mesh.size > 1
+    sub_h = noisy.shape[0]
+    full_h = sub_h * mesh.size if sharded else sub_h
+    margin = min(cfg.shard_history_margin, full_h)
+    hist_y0 = mesh.rank * sub_h - margin if sharded else 0
+
+    def window(x):  # the history rows the taps may reach
+        return _extend_rows(x, margin, margin, mesh, "zero")
 
     filt_taps = None
     if cfg.preprocess:
+        hist = None
+        if sharded:
+            cols = [state.prev_pos[..., :3], state.prev_norm[..., :3], state.prev_noisy]
+            hist = window(_pack_hist_bf16(torch.cat(cols + [state.prev_filtered[..., :3]], -1))
+                          if pack == "bf16" else torch.cat(cols, -1))
         noisy, accept, prev_pixel_f, filt_taps = preprocess(
-            state, cur_pos, cur_norm, noisy, camera.prev_view_proj, cfg, pack=pack)
+            state, cur_pos, cur_norm, noisy, camera.prev_view_proj, cfg, pack=pack,
+            hist=hist, hist_y0=hist_y0, full_h=full_h)
     else:
         # no reprojection: postprocess blends nothing (no accept bits)
         h, w, dev = noisy.shape[0], noisy.shape[1], noisy.device
@@ -588,10 +715,18 @@ def bmfr_pass(state: BMFRState, channels: dict, camera, cfg):
     state = replace(state, prev_noisy=noisy, prev_norm=cur_norm, prev_pos=cur_pos)
 
     if cfg.regression:
-        noisy = regression(cur_pos, cur_norm, albedo, noisy, state.frame_number, cfg)
+        if sharded:
+            noisy = regression_sharded(cur_pos, cur_norm, albedo, noisy, state.frame_number,
+                                       cfg, mesh)
+        else:
+            noisy = regression(cur_pos, cur_norm, albedo, noisy, state.frame_number, cfg)
 
     if cfg.postprocess:
-        out = postprocess(state, noisy, accept, prev_pixel_f, cfg, taps=filt_taps)
+        hist_f = None
+        if sharded and filt_taps is None:  # bf16 fetched the taps in preprocess
+            hist_f = window(state.prev_filtered[..., :3])
+        out = postprocess(state, noisy, accept, prev_pixel_f, cfg, taps=filt_taps,
+                          hist=hist_f, hist_y0=hist_y0, full_h=full_h)
         state = replace(state, prev_filtered=out)
     else:
         out = noisy

@@ -39,16 +39,21 @@ def pixel_jitter_for_frame(frame_count, mode: str = "msaa8") -> torch.Tensor:
 
 def ray_traced_gbuffer(baked, trace, width: int, height: int, frame_count, pixel_jitter,
                        use_thin_lens: bool = False, lens_radius=0.0, focal_len=1.0,
+                       row0: int = 0, sub_height: int | None = None,
                        env_bilinear: bool = False) -> dict:
     """The channel dict [H, W, 4] on the scene's device; `trace` from
-    `ops.shading.make_shaded_tracer`.  (The JAX function's row-sharding
-    arguments `row0` / `sub_height` come with ROADMAP Queue 1 item 13.)"""
+    `ops.shading.make_shaded_tracer`.  `row0` / `sub_height` render rows
+    [row0, row0 + sub_height) of the width x height image with global
+    pixel ids (the jittered NDC and the lens seeds): a row shard of
+    `parallel/sharding.py`, whose channels are [sub_height, W, 4]."""
     cam = baked.data.camera
     dev = baked.device
-    d_raw = camera_ray_dirs(cam, width, height, pixel_jitter, device=dev)
+    d_raw = camera_ray_dirs(cam, width, height, pixel_jitter, device=dev, row0=row0,
+                            sub_height=sub_height)
     cam_pos = cam.pos_w.to(dev)
     if use_thin_lens:
-        seeds = rng.pixel_seeds(width, height, frame_count, device=dev)
+        seeds = rng.pixel_seeds(width, height, frame_count, row0=row0, sub_height=sub_height,
+                                device=dev)
         focal_pt = cam_pos + focal_len * d_raw
         seeds, lx, ly = samplers.lens_sample(seeds, lens_radius)
         origin = (cam_pos + lx[..., None] * normalize(cam.camera_u).to(dev)

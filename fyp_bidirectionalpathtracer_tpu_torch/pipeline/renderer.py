@@ -26,10 +26,18 @@ with each pass timed by a `utils/profiler.Profiler` event;
 `Renderer.animate` advances the bake's camera and object paths (JAX
 `renderer.py:183-205`) and bakes the host scene again on the renderer's
 device whenever an object path posed a mesh or a light.
+
+`Renderer(baked, cfg, mesh=)` renders this rank's rows of a frame split
+by rows over the ranks of a `parallel/sharding.RowMesh` (JAX `renderer.py:
+134-166`): the megakernel step where the gate admits the scene, else the
+wavefront step, each with BMFR's halo mode when BMFR is on.  JAX sends a
+BMFR-on frame to an XLA-partitioned plain frame instead; the port has no
+partitioner and runs the per-shard kernels there too (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -63,9 +71,16 @@ class RenderState:
 
 def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
                     gbuf_frame: int, bdpt_frame: int, reset: bool,
-                    cfg: RenderConfig, prof: Profiler | None = None):
+                    cfg: RenderConfig, prof: Profiler | None = None, mesh=None,
+                    megakernel: bool | None = None):
     """One full frame.  Returns (channels, accum, bmfr_state).  A bake with
     `plain=True` runs every kernel's plain version on its device.
+
+    `mesh` (a `parallel/sharding.RowMesh`) renders this rank's rows: the
+    channels, `accum` and `bmfr_state` are the rank's rows of the frame.
+    `megakernel` forces the route (True: the frame megakernel, which the
+    gate must admit; False: the wavefront); None routes by the config and
+    the gate.
 
     `prof`, an enabled `utils/profiler.Profiler`, times the frame a pass at
     a time (the RenderingPipeline ProfilerEvent-per-pass analogue,
@@ -76,12 +91,19 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
     prof = _NO_PROFILE if prof is None else prof
     scene = baked.with_camera(camera)
     jitter = pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
+    row0, sub_h = (0, cfg.height) if mesh is None else mesh.row_range(cfg.height)
+    gate = supports_megakernel(scene, cfg)
+    if megakernel is None:
+        megakernel = cfg.bdpt.megakernel != "off" and gate
+    elif megakernel and not gate:
+        raise ValueError("the megakernel step needs a scene the megakernel gate admits")
     with prof.event("frame") as frame_h:
-        if cfg.bdpt.megakernel != "off" and supports_megakernel(scene, cfg):
+        if megakernel:
             with prof.event("megakernel") as h:
                 channels, frame_img = render_frame_megakernel(
                     scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
-                    gbuf_frame=gbuf_frame)
+                    gbuf_frame=gbuf_frame, sub_height=sub_h, pixel_offset=row0 * cfg.width,
+                    mesh=mesh)
                 h[0] = frame_img
         else:
             gcfg = cfg.gbuffer
@@ -94,11 +116,13 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
                 channels = ray_traced_gbuffer(
                     scene, trace, cfg.width, cfg.height, gbuf_frame, jitter,
                     use_thin_lens=gcfg.use_thin_lens, lens_radius=lens_radius,
-                    focal_len=gcfg.focal_length_gui, env_bilinear=gcfg.env_bilinear)
+                    focal_len=gcfg.focal_length_gui, row0=row0, sub_height=sub_h,
+                    env_bilinear=gcfg.env_bilinear)
                 h[0] = channels
             with prof.event("bdpt") as h:
                 frame_img = bdpt_pass(scene, intersect, channels, bdpt_frame, jitter, cfg.bdpt,
-                                      trace=trace)
+                                      trace=trace, full_height=cfg.height, row0=row0,
+                                      mesh=mesh)
                 h[0] = frame_img
             channels["BDPT"] = frame_img
         with prof.event("accumulate") as h:
@@ -107,7 +131,7 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
             h[0] = accum_img
         channels["Accumulated"] = accum_img
         with prof.event("bmfr") as h:
-            bmfr_state, denoised = bmfr_pass(bmfr_state, channels, camera, cfg.bmfr)
+            bmfr_state, denoised = bmfr_pass(bmfr_state, channels, camera, cfg.bmfr, mesh=mesh)
             h[0] = denoised
         channels["PipelineOutput"] = denoised
         frame_h[0] = denoised
@@ -115,18 +139,37 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
 
 
 class Renderer:
-    """Progressive renderer over a baked scene, on the scene's device."""
+    """Progressive renderer over a baked scene, on the scene's device.
 
-    def __init__(self, baked: BakedScene, config: RenderConfig):
+    With `mesh` (a `parallel/sharding.RowMesh`; the bake on the rank's
+    device), this rank's rows: the state, the channels and `render_frame`'s
+    result are the rank's [H / ranks, W, 4] rows, and `display` gathers the
+    whole image (a collective: every rank calls it)."""
+
+    def __init__(self, baked: BakedScene, config: RenderConfig, mesh=None):
         self.baked = baked
         self.cfg = config
+        self.mesh = mesh
         self.camera = derive_camera(replace(
             baked.data.camera,
             aspect=torch.tensor(config.width / config.height, dtype=torch.float32)))
         dev = baked.device
+        rows = config.height
+        if mesh is None:
+            self._step = partial(render_frame_fn, cfg=config)
+        else:
+            from ..parallel import sharding
+
+            rows = mesh.row_range(config.height)[1]
+            if config.bdpt.megakernel != "off" and supports_megakernel(baked, config):
+                # per-rank K1 + the splat image summed over the ranks
+                self._step = sharding.sharded_megakernel_step(config, mesh)
+            else:
+                # per-rank wavefront with the K4 / BVH kernels
+                self._step = sharding.sharded_wavefront_step(config, mesh)
         self.state = RenderState(
-            accum=AccumState.create(config.height, config.width, dev),
-            bmfr=BMFRState.create(config.height, config.width, dev))
+            accum=AccumState.create(rows, config.width, dev),
+            bmfr=BMFRState.create(rows, config.width, dev))
         self._prev_view_proj = self.camera.view_proj
         self.channels: dict = {}
 
@@ -168,10 +211,10 @@ class Renderer:
     def render_frame(self, prof: Profiler | None = None):
         reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
         i = self.state.frame_index
-        self.channels, self.state.accum, self.state.bmfr = render_frame_fn(
+        self.channels, self.state.accum, self.state.bmfr = self._step(
             self.baked, self.camera, self.state.accum, self.state.bmfr,
             (GBUF_FRAME_INIT + i) & 0xFFFFFFFF, (BDPT_FRAME_INIT + i) & 0xFFFFFFFF,
-            reset, self.cfg, prof=prof)
+            reset, prof=prof)
         self.state.frame_index += 1
         self._prev_view_proj = self.camera.view_proj
         # roll prevViewProj for the next frame's reprojection
@@ -190,9 +233,13 @@ class Renderer:
 
     def display(self, channel: str = "PipelineOutput"):
         """Tone-mapped image (the SimpleToneMappingPass analogue), by the
-        configured operator."""
+        configured operator; on a mesh, of the whole image gathered from
+        every rank's rows (some operators take the frame's mean)."""
         op = tonemap_mod.OPERATOR_NAMES[self.cfg.tone_map_operator]
-        return tonemap_mod.tone_map(self.channels[channel][..., :3], op)
+        img = self.channels[channel]
+        if self.mesh is not None:
+            img = self.mesh.gather_rows(img)
+        return tonemap_mod.tone_map(img[..., :3], op)
 
 
 def _host_f32(x) -> torch.Tensor:

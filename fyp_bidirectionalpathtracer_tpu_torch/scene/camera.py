@@ -120,15 +120,19 @@ def begin_frame(cam: CameraData, jitter=None) -> CameraData:
     return replace(cam, prev_view_proj=prev)
 
 
-def camera_ray_dirs(cam: CameraData, width: int, height: int, pixel_jitter, device=None):
+def camera_ray_dirs(cam: CameraData, width: int, height: int, pixel_jitter, device=None,
+                    row0: int = 0, sub_height: int | None = None):
     """Primary ray directions [H, W, 3] on `device` (default: the camera's),
     Falcor ray-gen convention (lightProbeGBuffer.rt.hlsl:122-125):
     ndc = (2, -2) * (index + jitter) / dim + (-1, 1),
-    dir = (ndc.x U + ndc.y V + W) / |W|, not normalized."""
+    dir = (ndc.x U + ndc.y V + W) / |W|, not normalized.  `row0` and
+    `sub_height` give rows [row0, row0 + sub_height) of the full image (a
+    row shard, `parallel/sharding.py`)."""
     dev = cam.camera_w.device if device is None else torch.device(device)
     jit = torch.as_tensor(pixel_jitter, dtype=torch.float32)
+    sub_h = height if sub_height is None else sub_height
     xs = (torch.arange(width, dtype=torch.float32) + jit[0]) / width
-    ys = (torch.arange(height, dtype=torch.float32) + jit[1]) / height
+    ys = (torch.arange(sub_h, dtype=torch.float32) + float(row0) + jit[1]) / height
     ndc_x = (2.0 * xs - 1.0).to(dev)
     ndc_y = (-2.0 * ys + 1.0).to(dev)
     u, v, w = (c.to(dev) for c in (cam.camera_u, cam.camera_v, cam.camera_w))

@@ -6,8 +6,9 @@ resumes in the other with every field bit for bit (no JAX render: the JAX
 Renderer's state is filled with seeded arrays), and the CLI parser has
 JAX's options, defaults and choices.  test_extras.py's profiler, profiled
 frame, CLI and SampleTest cases run on the port at 16x16 or 24x24, and
-the CLI's .fscene, .obj, --animate (with --checkpoint / --resume) and
---export-scene routes at 16x16 against Renderer on the same scene."""
+the CLI's .fscene, .obj, --animate (with --checkpoint / --resume),
+--export-scene and --shard 2 routes at 16x16 against Renderer on the same
+scene."""
 import contextlib
 import io
 import json
@@ -319,17 +320,22 @@ def _direct_png(tmp_path, scene, frames, animate=False) -> bytes:
     (["--shard", "2"], "13"),
 ], ids=["fscene", "obj", "animate", "export-scene", "shard"])
 def test_unported_flags_raise(tmp_path, flags, item):
-    """The flags of ROADMAP item 12c run at 16x16 and their output equals
-    Renderer's on the same scene: an .fscene scene, an .obj scene,
+    """The flags of ROADMAP items 12c and 13 run at 16x16 and their output
+    equals Renderer's on the same scene: an .fscene scene, an .obj scene,
     --animate over an .fscene's camera path (2 frames), --export-scene
     (the exported file loads to the same triangles and renders the same
-    image).  --shard N (item 13) still raises NotImplementedError, before
-    any output."""
+    image), and --shard 2 (two ranks on the CPU, rank 0 writing; the
+    frame's splat image is summed over the ranks, so the PNG is within one
+    8-bit step of Renderer's)."""
     argv = SMALL + ["--frames", "2", "--outputdir", str(tmp_path / "out")]
     if item == "13":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            app.main(argv + flags, device="cpu")
-        assert not os.path.exists(tmp_path / "out" / "results.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = app.main(argv + flags, device="cpu")
+        assert len(res["frame_times"]) == 2 and os.path.exists(tmp_path / "out" / "results.json")
+        got = read_png(res["output"])
+        _direct_png(tmp_path, "cornell", 2)
+        want = read_png(str(tmp_path / "direct.png"))
+        assert got.shape == (16, 16, 3) and np.abs(got - want).max() <= 1.0 / 255 + 1e-6
         return
     files = _write_scene_files(str(tmp_path))
     exported = str(tmp_path / "export" / "out.fscene")

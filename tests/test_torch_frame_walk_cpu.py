@@ -25,6 +25,11 @@ ctypes.  The tests hold:
     them on.  So every float row is held within rtol 1e-4, atol 1e-6, and
     the hits bit for bit: splat pixel ids, rgb8e payloads, the records'
     texture slots and lobes and the G-buffer's valid row;
+- the program over the rows of 2 and 3 shards (`FrameParams.pix0`,
+  `n_sub`: global pixel ids, outputs of the shard's pixels, the dead
+  splat W*H): each shard bit for bit against the plain version's shard
+  ("rounded"), and the shards side by side bit for bit against the
+  whole-image launch;
 - the walk (`bvh_closest_hit`, `bvh_occluded` over the 12-float rows)
   against the dense pair loops (`closest_hit<true>`, `occluded<true>`) on
   axis-aligned and grazing rays of both scenes: t, ids and occlusion bit for
@@ -82,7 +87,8 @@ static inline float __int_as_float(int i) { float x; memcpy(&x, &i, 4); return x
 #include "frame_program.cuh"
 using namespace bdpt;
 
-// frame_pixel<d, textured> on every pixel: d = 3 textured, 1..3 untextured
+// frame_pixel<d, textured> on every pixel of the launch (n_sub from pix0):
+// d = 3 textured, 1..3 untextured
 extern "C" void frame_pixels(const FrameParams* p, int d, int textured, int rn,
                              const float* lights, const float* bw, const float* nodes,
                              const float* tris, float* res, float* gbuf, int* splat_pix,
@@ -90,7 +96,7 @@ extern "C" void frame_pixels(const FrameParams* p, int d, int textured, int rn,
                              float* e3) {
   rounded = rn;
   const FrameOutPtrs out = {res, gbuf, splat_pix, splat_pay, splat_rgba, vrec, e1, e3};
-  for (int lin = 0; lin < p->width * p->height; ++lin) {
+  for (int lin = 0; lin < p->n_sub; ++lin) {
     if (textured)
       frame_pixel<3, true>(*p, lights, bw, nodes, tris, lin, out);
     else if (d == 1)
@@ -257,6 +263,34 @@ def test_untextured_program_matches_plain_at_low_depth(lib, scenes, d, monkeypat
     got, want = _device_frame(lib, args, baked, True, monkeypatch)
     _assert_rows_match(got, want, True, {})
     assert int((want.splat_pix < args.n_pix).sum()) > 0
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("name", ["textured_room", "cornell_icosphere"])
+def test_program_shards_match_whole_frame(lib, scenes, name, n, monkeypatch):
+    """The program over n row shards ("rounded"): each shard's outputs
+    equal the plain version's shard (as the whole frame's do), and the
+    shards side by side equal the whole-image launch bit for bit."""
+    from dataclasses import replace
+
+    baked = scenes[name]
+    textured = name == "textured_room"
+    cfg = RenderConfig(width=W, height=H, bdpt=BDPTConfig(max_depth=D, defer_textures=textured))
+    args = frame_mod.frame_args(baked, W, H, FRAME, pixel_jitter_for_frame(FRAME), cfg,
+                                splat_rgb8e=not textured)
+    whole, _ = _device_frame(lib, args, baked, True, monkeypatch)
+    sub = H // n * W
+    shards = []
+    for r in range(n):
+        got, want = _device_frame(lib, replace(args, pix0=r * sub, sub_pixels=sub), baked,
+                                  True, monkeypatch)
+        _assert_rows_match(got, want, True, {})
+        shards.append(got)
+    for name_, w in vars(whole).items():
+        if w is not None:
+            assert _bit_equal(torch.cat([getattr(s, name_) for s in shards], -1), w), name_
+    dead = whole.splat_pix == args.n_pix
+    assert 0 < int(dead.sum()) < dead.numel()
 
 
 def _rays(baked, seed):

@@ -11,7 +11,8 @@ module of the entry point (app, image I/O, golden harness, checkpoint,
 profiler, video) and runs the CLI at 16x16 with a PNG env map, --probe,
 --profile and --checkpoint, and the output passes and a GIF, and the scene
 I/O and animation modules: an .obj with a PNG texture, an .fbx, an
-.fscene animated and exported, a camera controller and skinning)."""
+.fscene animated and exported, a camera controller and skinning), and the
+row sharding of parallel/ on two CPU ranks, each refusing those imports."""
 import ast
 import os
 import subprocess
@@ -189,3 +190,74 @@ def test_port_renders_with_jax_imports_refused():
     assert proc.stdout.split() == ["on", "ok", "off", "ok", "bmfr", "ok", "pink_room", "ok",
                                    "textured", "ok", "subpath", "ok", "alpha", "ok",
                                    "env", "ok", "app", "ok", "io", "ok"], proc.stdout
+
+
+_SHARDED_RUN = f"""
+import importlib.abc
+import sys
+
+FORBIDDEN = {REFUSED_AT_RUN_TIME!r}
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".") for f in FORBIDDEN):
+            raise ImportError("refused: " + name)
+        return None
+
+
+# at the top level, so every spawned rank, which imports this file first,
+# refuses them too
+sys.meta_path.insert(0, Refuse())
+
+
+def forbidden_loaded():
+    return [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+
+
+def rank_fn(rank, mesh):
+    from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
+    from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
+        BDPTConfig, BMFRConfig, RenderConfig)
+
+    baked = Scene.from_built(cornell_box(), aspect=0.25).bake(device="cpu")
+    for mk, bmfr in (("on", False), ("off", False), ("on", True)):
+        cfg = RenderConfig(width=16, height=64, bdpt=BDPTConfig(megakernel=mk),
+                           bmfr=BMFRConfig(enabled=bmfr, regression=bmfr))
+        out = Renderer(baked, cfg, mesh=mesh).render_frame()
+        assert out.shape == (32, 16, 4) and bool(out.isfinite().all())
+    assert not forbidden_loaded()
+    return "rank" + str(rank)
+
+
+if __name__ == "__main__":
+    import contextlib
+    import io
+
+    from fyp_bidirectionalpathtracer_tpu_torch.parallel import sharding
+    from fyp_bidirectionalpathtracer_tpu_torch.pipeline import app
+
+    print(*sharding.launch(rank_fn, 2, device="cpu"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = app.main(["--width", "16", "--height", "16", "--frames", "1", "--shard", "2",
+                        "--outputdir", sys.argv[1]], device="cpu")
+    assert len(res["frame_times"]) == 1
+    assert not forbidden_loaded()
+    print("app", "ok")
+"""
+
+
+def test_sharded_port_with_jax_imports_refused(tmp_path):
+    """Row sharding (parallel/) on two CPU ranks, every rank refusing JAX,
+    the JAX package and PIL as the run above does: Renderer(mesh=) on the
+    megakernel, wavefront and BMFR-on routes, and app.main --shard 2."""
+    script = tmp_path / "sharded_run.py"
+    script.write_text(_SHARDED_RUN)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "out")], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["rank0", "rank1", "app", "ok"], proc.stdout
