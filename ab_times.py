@@ -182,6 +182,13 @@ def _two_box(cluster) -> bool:
     return "pairs" in inspect.signature(cluster.bvh_closest).parameters
 
 
+def _no_order(fn, n_args: int) -> tuple:
+    """The null ray order of a BVH entry point that takes one (the
+    argument before the stream), else nothing: `n_args` is the count of its
+    arguments without it."""
+    return (None,) * (len(fn.argtypes) - n_args)
+
+
 def _pink(pkg, dev, sub):
     """pink_room at `subdivisions` and the checkout's BVH shaded wrapper
     over its tables, for `chip_smoke.k4_rays`."""
@@ -218,10 +225,12 @@ def closest_times(torch, pkg, dev) -> dict:
         else:
             closest_tables = shaded_tables = (p(bk.tri_pack), p(bk.bvh_nodes))
             tail = (stream,)
+        shaded_tail = tail[:-1] + _no_order(lib.bdpt_bvh_shaded, 9) + tail[-1:]
+        closest_tail = tail[:-1] + _no_order(lib.bdpt_bvh_closest, 11) + tail[-1:]
         runs = {"bvh_shaded": lambda rows, cull: lib.bdpt_bvh_shaded(
-                    p(rows), n, *shaded_tables, cull, p(fields), *tail),
+                    p(rows), n, *shaded_tables, cull, p(fields), *shaded_tail),
                 "bvh_closest": lambda rows, cull: lib.bdpt_bvh_closest(
-                    p(rows), n, *closest_tables, cull, p(t), p(ids), p(u), p(v), *tail)}
+                    p(rows), n, *closest_tables, cull, p(t), p(ids), p(u), p(v), *closest_tail)}
         for name, run in runs.items():
             cuda.check_error(name, run(rows_g, 1))
             hits = int((fields[1] >= 0).sum() if name == "bvh_shaded" else (ids >= 0).sum())
@@ -251,7 +260,8 @@ def any_hit_times(torch, pkg, dev) -> dict:
         if getattr(bk, "bvh_pairs", None) is not None:
             tables = (bk.bw_rows, bk.n_tris, bk.bvh_pairs)
             counter = torch.empty(1, dtype=torch.int32, device=dev)
-            args = (p(rows), n, p(bk.bw_rows), p(bk.bvh_pairs), p(occ), p(counter), stream)
+            args = (p(rows), n, p(bk.bw_rows), p(bk.bvh_pairs), p(occ), p(counter),
+                    *_no_order(lib.bdpt_bvh_occluded, 7), stream)
         else:
             tables = (bk.tri_pack, bk.n_tris, bk.bvh_nodes)
             args = (p(rows), n, p(bk.tri_pack), p(bk.bvh_nodes), p(occ), stream)
@@ -294,7 +304,8 @@ def dense_times(torch, pkg, dev) -> dict:
         counter = torch.empty(1, dtype=torch.int32, device=dev)
         occ_w = torch.empty_like(occ)
         walk = lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(  # noqa: E731
-            p(rows_s), ns, p(bw_rows), p(pairs), p(occ_w), p(counter), stream))
+            p(rows_s), ns, p(bw_rows), p(pairs), p(occ_w), p(counter),
+            *_no_order(lib.bdpt_bvh_occluded, 7), stream))
         walk()
         out[f"bvh_occluded {label}"] = {"tris": bk.n_tris, "rays": ns,
                                         "equal_to_dense": bool(torch.equal(occ_w, occ)),
@@ -321,7 +332,7 @@ def dense_times(torch, pkg, dev) -> dict:
                     "ms": time_ms(lambda: cuda.check_error(name, launch()), 20)}
             shaded_w = lambda: cuda.check_error("bvh_shaded", lib.bdpt_bvh_shaded(  # noqa: E731
                 p(rows), n, p(bk.tri_pack), p(bw_rows), p(pairs), cull, p(fields_w),
-                p(counter), stream))
+                p(counter), *_no_order(lib.bdpt_bvh_shaded, 9), stream))
             shaded_w()
             out[f"bvh_shaded {label}{batch}"] = {
                 "tris": bk.n_tris, "rays": n, "cull": bool(cull),

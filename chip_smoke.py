@@ -121,6 +121,30 @@ ranks share the card, so their times show the collectives' overhead, not
 scaling.  Its numbers are the line {"phase10": ...}, after
 {"phase9": ...}; the kernels line gives each kernel's launches a rank in
 each sharded run (`sharded_launches_per_rank`).
+
+Phase 11 (after 10, before 5e) drives JAX's frame options at 1280x720:
+11a, pink_room's wavefront with `sort_bounces` and `sort_shadows` on (the
+defaults: the extensions and the est-1 and est-2 shadow batches walked in
+the direction-sorted order of `ops/raysort.py`; est-3's always is) and off,
+3 frames each, bit for bit, ms a frame; each BVH kernel's launch with and
+without a ray `order` on pink_room's G-buffer, extension and shadow
+batches (answers bit for bit), beside `sort_order`'s own time and the
+kernel's bound from phase 4d; 11b, Cornell (dense tier) and pink_room (BVH
+tier) under `reverse_shadows` (within the image bounds of the full
+frame), `merge_shadow_batches` (bit for bit, one any-hit launch a frame)
+and each timing stub and both, 4 timed frames each, every option twice in
+turns (the list, then reversed), ms a frame beside the full frame's and
+the launches a frame; 11c, every splat mode on one Cornell
+wavefront frame's estimator-2 updates against 'direct' (each within its
+mode's bound, ms a call), the tiled modes with `segments=3` bit-equal to
+the flat sort, K5 with segments on the frame's rows against K5 on the flat
+sort and its plain version, and a frame with `splat_segments` (rgb8e
+decoded into K5, run by run) bit-equal to the frame without.  Its numbers
+are the line {"phase11": ...}, after {"phase10": ...}; the kernels line
+gains the variants `bvh_shaded[order]`, `bvh_closest[order]`,
+`bvh_occluded[order]` (the ordered launch on the batch the main path
+orders: extensions, the shadow batch) and `splat_rows[segments]`, each with
+the launches of the main path's run (`cuda.LAUNCHES_BY_VARIANT`).
 """
 from __future__ import annotations
 
@@ -622,6 +646,7 @@ def main() -> int:
     from fyp_bidirectionalpathtracer_tpu_torch.ops import alpha as alpha_mod
     from fyp_bidirectionalpathtracer_tpu_torch.ops import compact, lightprobe, splat_tile, tonemap
     from fyp_bidirectionalpathtracer_tpu_torch.ops import splat as splat_mod
+    from fyp_bidirectionalpathtracer_tpu_torch.ops.raysort import sort_order
     from fyp_bidirectionalpathtracer_tpu_torch.ops.shading import (
         make_shaded_tracer,
         shading_from_fields_fm,
@@ -1370,9 +1395,11 @@ def main() -> int:
         bw, pairs = p(bk.bw_rows), p(bk.bvh_pairs)
         runs = {
             "bvh_shaded": lambda rows, cull: lib.bdpt_bvh_shaded(
-                p(rows), n, p(bk.tri_pack), bw, pairs, cull, p(fields), p(counter), stream),
+                p(rows), n, p(bk.tri_pack), bw, pairs, cull, p(fields), p(counter), None,
+                stream),
             "bvh_closest": lambda rows, cull: lib.bdpt_bvh_closest(
-                p(rows), n, bw, pairs, cull, p(t_), p(id_), p(u_), p(v_), p(counter), stream),
+                p(rows), n, bw, pairs, cull, p(t_), p(id_), p(u_), p(v_), p(counter), None,
+                stream),
         }
         out = {}
         walk_bytes = 4.0 * (bk.bw_rows.numel() + bk.bvh_pairs.numel())
@@ -1417,7 +1444,7 @@ def main() -> int:
         rows_s, _ = isect.rays(o_s, d_s, tn_s, tm_s)
         occ = torch.empty(ns, dtype=torch.bool, device=dev)
         ms = time_ms(lambda: cuda.check_error("bvh_occluded", lib.bdpt_bvh_occluded(
-            p(rows_s), ns, bw, pairs, p(occ), p(counter), stream)), 10)
+            p(rows_s), ns, bw, pairs, p(occ), p(counter), None, stream)), 10)
         wrapper_ms = time_ms(lambda: cluster.bvh_occluded(*walk, o_s, d_s, tn_s, tm_s), 10)
         flops, c = pair_walk_flops(bk, o_s, d_s, tn_s, tm_s, "any")
         bd = bound(ns * 33.0 + walk_bytes, float(flops))
@@ -1507,7 +1534,7 @@ def main() -> int:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / frames
         host_ms_of[label] = host_ms
-        launches = dict(cuda.LAUNCHES)
+        launches = {**cuda.LAUNCHES, **cuda.LAUNCHES_BY_VARIANT}
         ms = start.elapsed_time(end) / frames
         mrays = n_pix * RAYS_PER_PIXEL / (ms * 1e-3) / 1e6
         log(f"{label} {WIDTH}x{HEIGHT} d={DEPTH}: {ms:.4f} ms/frame, "
@@ -1559,7 +1586,14 @@ def main() -> int:
         if pk_launches[key] != want * pk_frames:
             raise AssertionError(f"kernel {key} launched {pk_launches[key]} times in "
                                  f"{pk_frames} pink_room frames, want {want} a frame")
-    log(f"pink_room launches a frame: {per_frame_pk} (as required)")
+    # the extensions and the three shadow batches walk their rays in the
+    # direction-sorted order (sort_bounces, sort_shadows: the defaults)
+    for key, want in (("bvh_shaded[order]", DEPTH - 1 + DEPTH), ("bvh_occluded[order]", 3)):
+        if pk_launches[key] != want * pk_frames:
+            raise AssertionError(f"kernel {key} launched {pk_launches[key]} times in "
+                                 f"{pk_frames} pink_room frames, want {want} a frame")
+    log(f"pink_room launches a frame: {per_frame_pk} (as required), of them ordered "
+        f"{ {k: v // pk_frames for k, v in pk_launches.items() if '[order]' in k} }")
     # ---- phase 5b: pink_room at 41,266 and 164,146 triangles ---------------
     # above 32768 triangles the shaded tracer takes the BVH closest kernel
     # and gathers the attributes and texels (JAX ops/shading.py:699-713)
@@ -1569,7 +1603,8 @@ def main() -> int:
         big_launches[sub], n_big, _, _ = drive("auto", big, f"pink_room subdivisions={sub} "
                                                f"({big.n_tris} tris)")
         for key, want in (("bvh_closest", 1 + (DEPTH - 1) + DEPTH), ("bvh_occluded", 3),
-                          ("bvh_shaded", 0)):
+                          ("bvh_shaded", 0), ("bvh_closest[order]", DEPTH - 1 + DEPTH),
+                          ("bvh_occluded[order]", 3)):
             if big_launches[sub][key] != want * n_big:
                 raise AssertionError(f"kernel {key} launched {big_launches[sub][key]} times in "
                                      f"{n_big} frames at subdivisions={sub}")
@@ -2410,6 +2445,311 @@ def main() -> int:
     p10["phase_s"] = time.perf_counter() - t10
     log(f"phase 10: {p10['phase_s']:.1f} s")
 
+    # ---- phase 11: JAX's frame options ---------------------------------------
+    # before phase 5e's profiler, as phases 6, 8, 9 and 10.  11a: pink_room's
+    # wavefront with the direction sort on (the default) and off, frames bit
+    # for bit; each BVH kernel with and without a ray `order` on pink_room's
+    # G-buffer, extension and shadow batches, against its bound.  11b:
+    # Cornell (dense tier) and pink_room (BVH tier) under reverse_shadows,
+    # merge_shadow_batches (bit-equal) and each timing stub, beside the full
+    # frame, in turns.  11c: every splat mode on one wavefront frame's estimator-2
+    # updates against 'direct', K5 with segments=3 against the flat sort,
+    # and a frame with splat_segments against one without, bit for bit.
+    t11 = time.perf_counter()
+    p11 = {}
+
+    def frames11(baked, n, megakernel="auto", **bdpt_kw):
+        """One frame, then n timed frames through Renderer at 1280x720,
+        counts from 0: (the first frame's channels, the last's, ms a frame
+        by CUDA events, by the host clock, the launches with the variants,
+        the frames)."""
+        r = Renderer(baked, cfg_for(WIDTH, HEIGHT, megakernel, **bdpt_kw))
+        cuda.reset_launch_counts()
+        r.render_frame()
+        first = {k: v.clone() for k, v in r.channels.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t_host) * 1e3 / n
+        counts = {**cuda.LAUNCHES, **cuda.LAUNCHES_BY_VARIANT}
+        if not all(bool(torch.isfinite(v).all()) for v in r.channels.values()):
+            raise AssertionError(f"phase 11: a frame is not finite ({bdpt_kw})")
+        return (first, dict(r.channels), start.elapsed_time(end) / n, host,
+                {k: v for k, v in counts.items() if v}, n + 1)
+
+    def same_bits(a, b):
+        return all(torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+    # 11a: the sorted frame (the defaults) against the frame with
+    # sort_bounces and sort_shadows off, 3 frames each
+    on = frames11(pink_main, 2)
+    off = frames11(pink_main, 2, sort_bounces=False, sort_shadows=False)
+    n11 = on[5]
+    want_on = {"bvh_shaded": 6 * n11, "bvh_shaded[order]": 5 * n11,
+               "bvh_occluded": 3 * n11, "bvh_occluded[order]": 3 * n11}
+    sorted_equal = same_bits(on[0], off[0]) and same_bits(on[1], off[1])
+    p11["11a pink_room sorted vs unsorted"] = {
+        "frames": n11, "bit_equal": sorted_equal, "sorted_ms_per_frame": on[2],
+        "sorted_host_ms_per_frame": on[3], "unsorted_ms_per_frame": off[2],
+        "unsorted_host_ms_per_frame": off[3], "sorted_launches": on[4],
+        "unsorted_launches": off[4]}
+    log(f"11a pink_room {WIDTH}x{HEIGHT}, {n11} frames: sorted (default) {on[2]:.4f} ms/frame "
+        f"(host {on[3]:.4f}), unsorted {off[2]:.4f} ms/frame (host {off[3]:.4f}); frames "
+        f"bit-equal {sorted_equal}; launches sorted {on[4]}, unsorted {off[4]}")
+    if not sorted_equal:
+        raise AssertionError("11a: the sorted pink_room frame differs from the unsorted one")
+    # est-3's batch is sorted either way, as in JAX
+    want_off = {"bvh_shaded[order]": 0, "bvh_occluded[order]": n11}
+    if any(on[4].get(k, 0) != v for k, v in want_on.items()) or any(
+            off[4].get(k, 0) != v for k, v in want_off.items()):
+        raise AssertionError(f"11a: launches {on[4]} (want {want_on}), unsorted {off[4]} "
+                             f"(want {want_off})")
+
+    # each BVH kernel's launch on packed rays with and without the order
+    (o_g, d_g), (o_e, d_e), (o_s, d_s, tm_s) = k4_rays(
+        pink_main, WIDTH, HEIGHT, dev,
+        partial(cluster.bvh_shaded_fm, rows=pink_main.bw_rows, pairs=pink_main.bvh_pairs))
+    lib, stream, p = cuda.library(), cuda.stream(dev), cuda.ptr
+    bw, pairs = p(pink_main.bw_rows), p(pink_main.bvh_pairs)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    st = bvh_stats["pink_room"]
+    p11a = {}
+    for batch, o, d, tmin, tmax, cull in (("G-buffer", o_g, d_g, 0.0, None, 1),
+                                          ("extension", o_e, d_e, MIN_T, None, 0),
+                                          ("shadow", o_s, d_s, MIN_T, tm_s, 0)):
+        order = sort_order(o, d, tmin, tmax, pink_main.sort_bounds)
+        sort_ms = time_ms(lambda: sort_order(o, d, tmin, tmax, pink_main.sort_bounds), 10)
+        rows, _ = isect.rays(o, d, tmin, tmax)
+        n = rows.shape[1]
+        fields = torch.empty((isect.OUT_W, n), device=dev)
+        t_ = torch.empty(n, device=dev)
+        id_ = torch.empty(n, dtype=torch.int32, device=dev)
+        u_, v_ = torch.empty_like(t_), torch.empty_like(t_)
+        occ = torch.empty(n, dtype=torch.bool, device=dev)
+        runs = {
+            "bvh_shaded": (lambda o_: lib.bdpt_bvh_shaded(
+                p(rows), n, p(pink_main.tri_pack), bw, pairs, cull, p(fields), p(counter), o_,
+                stream), lambda: fields.clone()),
+            "bvh_closest": (lambda o_: lib.bdpt_bvh_closest(
+                p(rows), n, bw, pairs, cull, p(t_), p(id_), p(u_), p(v_), p(counter), o_,
+                stream), lambda: torch.stack([t_, id_.view(torch.float32), u_, v_])),
+        } if batch != "shadow" else {
+            "bvh_occluded": (lambda o_: lib.bdpt_bvh_occluded(
+                p(rows), n, bw, pairs, p(occ), p(counter), o_, stream), lambda: occ.clone()),
+        }
+        for name, (launch, result) in runs.items():
+            cuda.check_error(name, launch(None))
+            plain_out = result()
+            cuda.check_error(name, launch(p(order)))
+            equal = bool(torch.equal(bits(plain_out), bits(result())))
+            ms = time_ms(lambda: cuda.check_error(name, launch(None)), 10)
+            ms_order = time_ms(lambda: cuda.check_error(name, launch(p(order))), 10)
+            bd = (st[name]["extension_bound_ms"] if batch == "extension"
+                  else st[name]["bound_ms"])
+            p11a[f"{name} {batch}"] = {"rays": n, "ms": ms, "order_ms": ms_order,
+                                       "sort_order_ms": sort_ms, "bound_ms": bd,
+                                       "bit_equal": equal}
+            log(f"11a {name} pink_room {batch} batch ({n} rays): {ms:.4f} ms in ray order, "
+                f"{ms_order:.4f} ms in sorted order (+ sort_order {sort_ms:.4f} ms), bound "
+                f"{bd:.4f} ms; answers bit-equal {equal}")
+            if not equal:
+                raise AssertionError(f"11a: {name} with the order differs ({batch} batch)")
+    p11["11a kernels with and without order"] = p11a
+
+    # the kernels line's [order] rows: the ordered launch on the batch the
+    # main path orders (extensions; the shadow batch for the any-hit kernel);
+    # the plain version with the order on every PINK_SAMPLE-th ray
+    oe, de = pick(o_e, PINK_SAMPLE), pick(d_e, PINK_SAMPLE)
+    os_, ds_, ts_ = pick(o_s, PINK_SAMPLE), pick(d_s, PINK_SAMPLE), pick(tm_s, PINK_SAMPLE, 1)
+    ord_e = sort_order(oe, de, MIN_T, None, pink_main.sort_bounds).long()
+    ord_s = sort_order(os_, ds_, MIN_T, ts_, pink_main.sort_bounds).long()
+    plain11 = {
+        "bvh_shaded": lambda: isect.shaded_plain(pink_main.tri_pack, pink_main.n_tris,
+                                                 oe[ord_e], de[ord_e], MIN_T, None, False),
+        "bvh_closest": lambda: isect.closest_plain(pink_main.bw_rows, pink_main.n_tris,
+                                                   oe[ord_e], de[ord_e], MIN_T, None, False),
+        "bvh_occluded": lambda: isect.occluded_plain(pink_main.bw_rows, pink_main.n_tris,
+                                                     os_[ord_s], ds_[ord_s], MIN_T, ts_[ord_s]),
+    }
+    for name in ("bvh_shaded", "bvh_closest", "bvh_occluded"):
+        rec = p11a[f"{name} {'shadow' if name == 'bvh_occluded' else 'extension'}"]
+        base = bvh_stats["pink_room"][name]
+        bd_key = "bound_ms" if name == "bvh_occluded" else "extension_bound_ms"
+        by_key = "bound_by" if name == "bvh_occluded" else "extension_bound_by"
+        kernels[f"{name}[order]"] = dict(
+            max_abs_err=0.0, ms=rec["order_ms"], unordered_ms=rec["ms"],
+            sort_order_ms=rec["sort_order_ms"], plain_ms=time_ms(plain11[name], 1),
+            plain_rays=int(ord_e.numel() if name != "bvh_occluded" else ord_s.numel()),
+            bound_ms=base[bd_key], bound_by=base.get(by_key, base["bound_by"]),
+            library_ms=None, batch="shadow" if name == "bvh_occluded" else "extension")
+
+    # 11b: the shadow options and the timing stubs on both tiers
+    p11b = {}
+    options = (("full frame", {}), ("reverse_shadows", dict(reverse_shadows=True)),
+               ("merge_shadow_batches", dict(merge_shadow_batches=True)),
+               ("debug_stub_shadows", dict(debug_stub_shadows=True)),
+               ("debug_stub_extensions", dict(debug_stub_extensions=True)),
+               ("both stubs", dict(debug_stub_shadows=True, debug_stub_extensions=True)))
+    for label, bk, tier in (("Cornell", cornell, ""), ("pink_room", pink_main, "bvh_")):
+        # the host paces these frames and drifts: every option twice, in
+        # turns (the list, then the list reversed), 5 frames each time
+        runs11, again = {}, {}
+        for opt, kw in options:
+            runs11[opt] = frames11(bk, 4, "off", **kw)
+        for opt, kw in reversed(options):
+            again[opt] = frames11(bk, 4, "off", **kw)[2]
+        full = runs11["full frame"]
+        n = full[5]
+        shaded, occluded = f"{tier}shaded", f"{tier}occluded"
+        want = {"full frame": (6, 3), "reverse_shadows": (6, 3), "merge_shadow_batches": (6, 1),
+                "debug_stub_shadows": (6, 0), "debug_stub_extensions": (1, 3),
+                "both stubs": (1, 0)}
+        rec = {}
+        for opt, (first, last, ms, host, launches, _) in runs11.items():
+            ws, wo = want[opt]
+            frac, mad, dmean, ok = image_stats(first["BDPT"], full[0]["BDPT"])
+            rec[opt] = {"ms_per_frame": ms, "ms_per_frame_again": again[opt],
+                        "host_ms_per_frame": host, "launches": launches,
+                        "bit_equal_to_full": same_bits(first, full[0]) and same_bits(last,
+                                                                                     full[1]),
+                        "frac_over_1e-3": frac, "mean_abs_d": mad, "mean_radiance_d": dmean}
+            log(f"11b {label} wavefront {opt}: {ms:.4f}, {again[opt]:.4f} ms/frame (host "
+                f"{host:.4f}), full frame {full[2]:.4f}, {again['full frame']:.4f}; frame 0 "
+                f"against the full frame: frac>1e-3 "
+                f"{frac:.4f}, mean|d| {mad:.2e}, bit-equal {rec[opt]['bit_equal_to_full']}; "
+                f"launches {launches}")
+            if launches.get(shaded, 0) != ws * n or launches.get(occluded, 0) != wo * n:
+                raise AssertionError(f"11b {label} {opt}: launches {launches}, want {ws} "
+                                     f"{shaded} and {wo} {occluded} a frame")
+            if opt == "merge_shadow_batches" and not rec[opt]["bit_equal_to_full"]:
+                raise AssertionError(f"11b {label}: the merged shadow batch changes the frame")
+            if opt == "reverse_shadows" and not ok:
+                raise AssertionError(f"11b {label}: the reversed shadow rays' frame is off "
+                                     f"the full frame beyond the image bounds")
+        p11b[label] = rec
+    p11["11b shadow options and timing stubs"] = p11b
+
+    # 11c: the splat modes on one Cornell wavefront frame's est-2 updates
+    caught = {}
+    real_scatter = splat_mod.scatter_add_rgba
+
+    def catch(mode, lin, rgb, alpha, n_targets, alpha_is_count=False, segments=1, **kw):
+        caught.update(lin=lin, rgb=rgb, alpha=alpha, n=n_targets, count=alpha_is_count)
+        return real_scatter(mode, lin, rgb, alpha, n_targets, alpha_is_count, segments, **kw)
+
+    splat_mod.scatter_add_rgba = catch
+    try:
+        Renderer(cornell, cfg_for(WIDTH, HEIGHT, "off")).render_frame()
+    finally:
+        splat_mod.scatter_add_rgba = real_scatter
+    lin_f, rgb_f, a_f, n_f = caught["lin"], caught["rgb"], caught["alpha"], caught["n"]
+    live_f = lin_f < n_f
+    # a pixel's envelope: the sum of its updates' largest channels
+    env = torch.zeros(n_f, device=dev).index_add_(0, lin_f[live_f].long(),
+                                                  rgb_f[live_f].amax(-1))
+    count_f = torch.zeros(n_f, device=dev).index_add_(0, lin_f[live_f].long(),
+                                                      torch.ones_like(a_f[live_f]))
+    # 'direct' and 'complex' add with atomics in no fixed order, so a second
+    # 'direct' call may differ from the first in the last bits
+    direct = real_scatter("direct", lin_f, rgb_f, a_f, n_f, alpha_is_count=True)
+    total = direct[:, :3].sum(0)
+    tol = {"direct": 1e-5, "complex": 1e-5, "tiled": 1e-5, "sorted": None, "packed": None,
+           "tiled_bf16": 2.0 ** -8, "tiled_bf16w": 2.0 ** -8, "tiled_rgb8e": 2.0 ** -8}
+    p11c = {"updates": int(lin_f.numel()), "live": int(live_f.sum()), "modes": {}}
+    for mode in ("direct", "sorted", "packed", "complex", "tiled", "tiled_bf16", "tiled_bf16w",
+                 "tiled_rgb8e", "tiled_sortonly", "skip"):
+        def run(mode=mode, segments=1):
+            return real_scatter(mode, lin_f, rgb_f, a_f, n_f, alpha_is_count=True,
+                                segments=segments)
+        out = run()
+        ms = time_ms(run, 10)
+        err = (out[:, :3] - direct[:, :3]).abs()
+        if mode in ("tiled_sortonly", "skip"):
+            ok = not bool(out.any())
+        else:
+            if mode == "sorted":
+                limit = total * 2.0 ** -20
+            elif mode == "packed":
+                limit = count_f[:, None] * 2.0 ** -19 + 1e-6
+            else:
+                limit = env[:, None] * tol[mode] + 1e-6
+            ok = bool((err <= limit).all()) and torch.equal(out[:, 3], direct[:, 3])
+        p11c["modes"][mode] = {"ms": ms, "max_abs_err": float(err.max()), "ok": ok}
+        log(f"11c splat mode {mode} on the frame's {lin_f.numel()} est-2 updates "
+            f"({int(live_f.sum())} live): {ms:.4f} ms, max |d| {float(err.max()):.3e} against "
+            f"'direct', within its bound {ok}")
+        if not ok:
+            raise AssertionError(f"11c: splat mode {mode} is off 'direct' beyond its bound")
+    seg_equal = {}
+    for mode in ("tiled", "tiled_rgb8e"):
+        flat = real_scatter(mode, lin_f, rgb_f, a_f, n_f, alpha_is_count=True)
+        seg = real_scatter(mode, lin_f, rgb_f, a_f, n_f, alpha_is_count=True, segments=DEPTH)
+        seg_equal[mode] = bool(torch.equal(bits(flat), bits(seg)))
+        p11c["modes"][mode]["segments_ms"] = time_ms(
+            lambda: real_scatter(mode, lin_f, rgb_f, a_f, n_f, alpha_is_count=True,
+                                 segments=DEPTH), 10)
+    log(f"11c segments={DEPTH} against the flat sort, bit-equal: {seg_equal}")
+    if not all(seg_equal.values()):
+        raise AssertionError(f"11c: a segmented splat differs from the flat one {seg_equal}")
+    p11c["segments_bit_equal"] = seg_equal
+
+    # K5 alone with segments on the frame's rows: each depth's updates sorted
+    # on their own, against K5 on the flat sort of the same updates
+    sent_f = splat_tile.sentinel(n_f)
+    keys_f = torch.where(lin_f < 0, sent_f, torch.clamp(lin_f, max=sent_f)).to(torch.int32)
+    ks_seg, ord_seg = torch.sort(keys_f.reshape(DEPTH, -1), dim=1, stable=True)
+    ord_seg = (ord_seg + torch.arange(DEPTH, device=dev)[:, None] * (keys_f.numel() // DEPTH))
+    ks_seg, ord_seg = ks_seg.reshape(-1).contiguous(), ord_seg.reshape(-1)
+    vals_seg = rgb_f.T[:, ord_seg].contiguous()
+    ks_flat, ord_flat = torch.sort(keys_f, stable=True)
+    vals_flat = rgb_f.T[:, ord_flat].contiguous()
+    k5s = splat_tile.splat_reduce_rows(ks_seg, vals_seg, n_f, DEPTH)
+    k5f = splat_tile.splat_reduce_rows(ks_flat, vals_flat, n_f)
+    k5p = splat_tile.reduce_rows_plain(ks_seg, vals_seg, n_f, DEPTH)
+    torch.cuda.synchronize()
+    k5_equal = bool(torch.equal(bits(k5s), bits(k5f)) and torch.equal(bits(k5s), bits(k5p)))
+    n_live_f = int(live_f.sum())
+    src_f = torch.cat([vals_flat[:, :n_live_f].T, torch.ones((n_live_f, 1), device=dev)], 1)
+    idx_f = ks_flat[:n_live_f].long()
+    k5_seg = dict(
+        max_abs_err=float((k5s - k5p).abs().max()), bit_equal_flat_and_plain=k5_equal,
+        ms=time_ms(lambda: splat_tile.splat_reduce_rows(ks_seg, vals_seg, n_f, DEPTH), 20),
+        flat_ms=time_ms(lambda: splat_tile.splat_reduce_rows(ks_flat, vals_flat, n_f), 20),
+        plain_ms=time_ms(lambda: splat_tile.reduce_rows_plain(ks_seg, vals_seg, n_f, DEPTH), 3),
+        library_ms=time_ms(lambda: torch.zeros((n_f, 4), device=dev).index_add_(
+            0, idx_f, src_f), 20),
+        segments=DEPTH, **bound(16.0 * n_live_f + 16.0 * n_f, 0.0))
+    log(f"11c K5 segments={DEPTH} on the frame's rows ({n_live_f} live): bit-equal to K5 on "
+        f"the flat sort and to its plain version {k5_equal}; {k5_seg['ms']:.4f} ms (flat "
+        f"{k5_seg['flat_ms']:.4f} ms), plain {k5_seg['plain_ms']:.4f} ms, index_add_ "
+        f"{k5_seg['library_ms']:.4f} ms, bound {k5_seg['bound_ms']:.4f} ms")
+    if not k5_equal:
+        raise AssertionError("11c: K5 with segments differs from the flat sort's K5")
+    kernels["splat_rows[segments]"] = k5_seg
+
+    # a wavefront frame with splat_segments ('auto': rgb8e decoded into K5,
+    # run by run) against the same frame without (K2 + sort + K3)
+    seg_run = frames11(cornell, 1, "off", splat_segments=True)
+    flat_run = frames11(cornell, 1, "off")
+    seg_frame_equal = same_bits(seg_run[0], flat_run[0]) and same_bits(seg_run[1], flat_run[1])
+    p11c["frame with splat_segments"] = {
+        "bit_equal": seg_frame_equal, "ms_per_frame": seg_run[2], "flat_ms_per_frame": flat_run[2],
+        "launches": seg_run[4], "frames": seg_run[5]}
+    log(f"11c Cornell wavefront with splat_segments: {seg_run[2]:.4f} ms/frame (without "
+        f"{flat_run[2]:.4f}), bit-equal to the frame without {seg_frame_equal}; launches "
+        f"{seg_run[4]}")
+    if not seg_frame_equal or seg_run[4].get("splat_rows[segments]", 0) != seg_run[5]:
+        raise AssertionError("11c: the frame with splat_segments differs, or K5 with "
+                             "segments did not run once a frame")
+    p11["11c splat modes and segments"] = p11c
+    p11["phase_s"] = time.perf_counter() - t11
+    log(f"phase 11: {p11['phase_s']:.1f} s")
+
     # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
     # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
     # is phase 5's megakernel run
@@ -2555,7 +2895,11 @@ def main() -> int:
                 "bvh_closest": big_launches[4]["bvh_closest"],
                 "frame_textured": tex_runs["auto"][0]["frame_textured"],
                 "splat_rows": tex_runs["tiled"][0]["splat_rows"],
-                "subpath": sp_launches["subpath"]}
+                "subpath": sp_launches["subpath"],
+                "bvh_shaded[order]": pk_launches["bvh_shaded[order]"],
+                "bvh_occluded[order]": pk_launches["bvh_occluded[order]"],
+                "bvh_closest[order]": big_launches[4]["bvh_closest[order]"],
+                "splat_rows[segments]": seg_run[4]["splat_rows[segments]"]}
     # the closest kernel's main path: phase 6a's alpha shadow batches and
     # restarts (the force_fused=False G-buffer of phase 4 launches it once)
     kernels["closest"]["gbuffer_force_fused_false_launches"] = kernels["closest"].pop("launches")
@@ -2576,6 +2920,10 @@ def main() -> int:
     paths["splat_rows"] = (f"textured room megakernel (defer_textures, splat_mode tiled) "
                            f"{WIDTH}x{HEIGHT}, {tex_runs['tiled'][1]} frames")
     paths["subpath"] = f"build_subpath, {n_pix} Cornell camera rays x {DEPTH} bounces, 1 call"
+    paths.update({f"{name}[order]": paths[name] + " (the sorted extensions and shadow batches)"
+                  for name in ("bvh_shaded", "bvh_closest", "bvh_occluded")})
+    paths["splat_rows[segments]"] = (f"11c Cornell wavefront with splat_segments "
+                                     f"{WIDTH}x{HEIGHT}, {seg_run[5]} frames")
     for name in ("bvh_shaded", "bvh_closest", "bvh_occluded"):
         kernels[name] = dict(max_abs_err=0.0, library_ms=None,
                              **{k: v for k, v in bvh_stats["pink_room"][name].items()})
@@ -2657,6 +3005,12 @@ def main() -> int:
     }
     # the HBM tier's kernels that the same walk replaces
     also = {"bvh_closest": [cl + ":602"], "bvh_occluded": [cl + ":546"]}
+    # the variants: the BVH kernels walking a ray order, K5 with segments
+    for name in ("bvh_shaded", "bvh_closest", "bvh_occluded"):
+        meta[f"{name}[order]"] = meta[name]
+        if name in also:
+            also[f"{name}[order]"] = also[name]
+    meta["splat_rows[segments]"] = meta["splat_rows"]
     # the alpha restarts' batches (phase 6a, 6b) beside each kernel's main keys
     for name, value in p6_kernels.items():
         kernels[name]["alpha_restarts"] = value
@@ -2670,6 +3024,7 @@ def main() -> int:
     log(json.dumps({"phase8": p8}))
     log(json.dumps({"phase9": p9}))
     log(json.dumps({"phase10": p10}))
+    log(json.dumps({"phase11": p11}))
     log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],
@@ -2677,7 +3032,8 @@ def main() -> int:
          **({"also_replaces": also[name]} if name in also else {}), **kernels[name]}
         for name in ("frame", "compact", "splat_tile", "shaded", "closest", "occluded",
                      "bvh_shaded", "bvh_closest", "bvh_occluded", "frame_textured",
-                     "splat_rows", "subpath")]}))
+                     "splat_rows", "subpath", "bvh_shaded[order]", "bvh_closest[order]",
+                     "bvh_occluded[order]", "splat_rows[segments]")]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

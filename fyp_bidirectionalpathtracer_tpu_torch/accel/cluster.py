@@ -31,6 +31,14 @@ The plain versions are the dense chunked programs of `accel/intersect.py`
 ties by (t, id) and cull conservatively, so a kernel equals its plain
 version bit for bit.  A wrapper runs the plain version for CPU tensors and
 launches its kernel for CUDA tensors.
+
+Each wrapper takes an optional `order` (int32 [N], a permutation of the
+rays, `ops/raysort.sort_order`): the kernel walks the rays in that order
+(slot j of its ray counter takes ray order[j]) and answers each in place,
+and the plain version gathers the rays in that order and scatters its
+answers back.  A ray's answer depends on that ray alone, so the output is
+the unordered call's bit for bit.  A launch with an order also counts in
+`cuda.LAUNCHES_BY_VARIANT` under `<kernel>[order]`.
 """
 from __future__ import annotations
 
@@ -162,60 +170,116 @@ def _counter(dev) -> torch.Tensor:
     return torch.empty((1,), dtype=torch.int32, device=dev)
 
 
+def _check_order(order, origin) -> None:
+    if order is not None:
+        cuda.check_tensor("order", order, torch.int32, origin.device)
+        n = origin.numel() // 3
+        if order.shape != (n,):
+            raise ValueError(f"order must be [{n}], got {tuple(order.shape)}")
+
+
+def _launch(kernel: str, err: int, order) -> None:
+    cuda.check_launch(kernel, err, None if order is None else f"{kernel}[order]")
+
+
+def _gathered(order, origin, direction, t_min, t_max):
+    """The rays, flat, in `order`: (origin, direction, t_min, t_max, the
+    index tensor); a scalar or absent interval end stays as it is."""
+    shape, idx = origin.shape[:-1], order.long()
+
+    def pick(x):
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        return torch.broadcast_to(x.to(origin.device, torch.float32), shape).reshape(-1)[idx]
+
+    return (origin.reshape(-1, 3)[idx], direction.reshape(-1, 3)[idx], pick(t_min),
+            pick(t_max), idx)
+
+
+def _scattered(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Columns [..., N] computed in the order `idx`, back in ray order."""
+    out = torch.empty_like(x)
+    out[..., idx] = x
+    return out
+
+
 # ------------------------------------------------------------ closest hit
 def bvh_closest(rows, n_tris, pairs, origin, direction, t_min, t_max=None,
-                cull_backface=False) -> HitRecord:
+                cull_backface=False, order=None) -> HitRecord:
     """Closest hit of rays [..., 3] in (t_min, t_max) (t_max None: 1e30),
     over the bake's [T_pad, 12] Baldwin-Weber rows (`BakedScene.bw_rows`)
-    and two-box table (`BakedScene.bvh_pairs`)."""
+    and two-box table (`BakedScene.bvh_pairs`), the rays walked in `order`
+    (see the module doc)."""
     _check(rows, n_tris, pairs, origin, direction)
+    _check_order(order, origin)
     if origin.device.type == "cpu":
-        return closest_plain(rows, n_tris, origin, direction, t_min, t_max, cull_backface)
+        if order is None:
+            return closest_plain(rows, n_tris, origin, direction, t_min, t_max, cull_backface)
+        o, d, tn, tm, idx = _gathered(order, origin, direction, t_min, t_max)
+        h = closest_plain(rows, n_tris, o, d, tn, tm, cull_backface)
+        return hit_record(*(_scattered(x, idx) for x in (h.t, h.tri, h.bary_u, h.bary_v)),
+                          tuple(origin.shape[:-1]))
     ray_rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = ray_rows.shape[1], ray_rows.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
-    cuda.check_launch("bvh_closest", cuda.library().bdpt_bvh_closest(
+    _launch("bvh_closest", cuda.library().bdpt_bvh_closest(
         cuda.ptr(ray_rows), n, cuda.ptr(rows), cuda.ptr(pairs), int(bool(cull_backface)),
         cuda.ptr(t), cuda.ptr(tri), cuda.ptr(u), cuda.ptr(v), cuda.ptr(_counter(dev)),
-        cuda.stream(dev)))
+        cuda.ptr(order), cuda.stream(dev)), order)
     return hit_record(t, tri, u, v, shape)
 
 
 # ------------------------------------------------- closest hit + attributes
 def bvh_shaded_fm(tri_pack, n_tris, rows, pairs, origin, direction, t_min, t_max=None,
-                  cull_backface=False):
+                  cull_backface=False, order=None):
     """Closest hit plus the winner's attributes: (HitRecord, fields_fm
     [32, ...]), the table of `accel/intersect.py`; the walk as
     `bvh_closest`'s, the fields from the winner's row of the [T_pad, 48]
     pack `tri_pack`."""
     _check(rows, n_tris, pairs, origin, direction)
     check_rays(tri_pack, n_tris, origin, direction)
+    _check_order(order, origin)
     if origin.device.type == "cpu":
-        return shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max, cull_backface)
+        if order is None:
+            return shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max,
+                                cull_backface)
+        o, d, tn, tm, idx = _gathered(order, origin, direction, t_min, t_max)
+        _, f = shaded_plain(tri_pack, n_tris, o, d, tn, tm, cull_backface)
+        shape = tuple(origin.shape[:-1])
+        fields = _scattered(f, idx)
+        return shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
     ray_rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = ray_rows.shape[1], ray_rows.device
     fields = torch.empty((OUT_W, n), dtype=torch.float32, device=dev)
-    cuda.check_launch("bvh_shaded", cuda.library().bdpt_bvh_shaded(
+    _launch("bvh_shaded", cuda.library().bdpt_bvh_shaded(
         cuda.ptr(ray_rows), n, cuda.ptr(tri_pack), cuda.ptr(rows), cuda.ptr(pairs),
-        int(bool(cull_backface)), cuda.ptr(fields), cuda.ptr(_counter(dev)), cuda.stream(dev)))
+        int(bool(cull_backface)), cuda.ptr(fields), cuda.ptr(_counter(dev)), cuda.ptr(order),
+        cuda.stream(dev)), order)
     return shaded_hit(fields, shape), fields.reshape((OUT_W,) + shape)
 
 
 # ---------------------------------------------------------------- any hit
-def bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max=None) -> torch.Tensor:
+def bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max=None,
+                 order=None) -> torch.Tensor:
     """Any hit of rays [..., 3] in (t_min, t_max), no culling -> bool [...],
-    over the Baldwin-Weber rows and the two-box table."""
+    over the Baldwin-Weber rows and the two-box table, the rays walked in
+    `order`."""
     _check(rows, n_tris, pairs, origin, direction)
+    _check_order(order, origin)
     if origin.device.type == "cpu":
-        return occluded_plain(rows, n_tris, origin, direction, t_min, t_max)
+        if order is None:
+            return occluded_plain(rows, n_tris, origin, direction, t_min, t_max)
+        o, d, tn, tm, idx = _gathered(order, origin, direction, t_min, t_max)
+        occ = occluded_plain(rows, n_tris, o, d, tn, tm)
+        return _scattered(occ, idx).reshape(origin.shape[:-1])
     ray_rows, shape = rays(origin, direction, t_min, t_max)
     n, dev = ray_rows.shape[1], ray_rows.device
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    cuda.check_launch("bvh_occluded", cuda.library().bdpt_bvh_occluded(
+    _launch("bvh_occluded", cuda.library().bdpt_bvh_occluded(
         cuda.ptr(ray_rows), n, cuda.ptr(rows), cuda.ptr(pairs), cuda.ptr(occ),
-        cuda.ptr(_counter(dev)), cuda.stream(dev)))
+        cuda.ptr(_counter(dev)), cuda.ptr(order), cuda.stream(dev)), order)
     return occ.reshape(shape)
 
 

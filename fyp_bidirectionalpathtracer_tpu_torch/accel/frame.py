@@ -1187,12 +1187,14 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
             splat_flat = splat_mod.scatter_add_rgba(
                 mode, torch.cat([s[0] for s in tex_splats]),
                 torch.cat([s[1] for s in tex_splats]), torch.cat([s[2] for s in tex_splats]),
-                n_pix, alpha_is_count=True, plain=baked.plain)
+                n_pix, alpha_is_count=True,
+                segments=len(tex_splats) if bcfg.splat_segments else 1, plain=baked.plain)
         else:
             rgba = out.splat_rgba.permute(0, 2, 1).reshape(-1, 4)
             splat_flat = splat_mod.scatter_add_rgba(
                 mode, out.splat_pix.reshape(-1), rgba[:, :3], rgba[:, 3], n_pix,
-                alpha_is_count=True, plain=baked.plain)
+                alpha_is_count=True, segments=bcfg.max_depth if bcfg.splat_segments else 1,
+                plain=baked.plain)
         if mesh is not None:
             # every shard's light subpaths splat onto any pixel: sum the
             # images over the ranks, keep this shard's rows

@@ -19,6 +19,16 @@ The JAX package sends the shadow rays of a 513-2048 triangle scene to its
 cluster tier (`scene.py:389` passes `brute_threshold=512`); the port keeps
 the dense any-hit kernel up to 2048 triangles, since an any-hit answer does
 not depend on the tier.
+
+`coherent=False` marks an incoherent wavefront.  JAX sorts such a batch by
+direction-major keys on its cluster tiers (`sort_wavefront`,
+`traverse.py:349-411`) and unsorts the answers; the port's BVH tier walks
+it in the same order (`ops/raysort.sort_order` over the bake's
+`sort_bounds`, empty-interval lanes last) by the BVH kernels' `order`,
+which answers each ray in place: the output is the unsorted call's bit for
+bit.  The dense tier stays unsorted, as JAX's dense tiers are.
+`const_origin` (every ray shares one origin) only spares JAX three sort
+payload columns; the port's sort moves no ray data, so it changes nothing.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from functools import partial
 
 import torch
 
+from ..ops.raysort import sort_order
 from . import cluster
 from . import intersect as isect
 from .intersect import _BIG, MAX_DENSE_TRIS, HitRecord
@@ -35,18 +46,20 @@ CLUSTER_THRESHOLD = 32768  # above it JAX's shaded tracer gathers its attributes
 
 
 def make_intersector(tri_pack: torch.Tensor, n_tris: int, pairs: torch.Tensor | None = None,
-                     bw_rows: torch.Tensor | None = None, *, plain: bool = False):
+                     bw_rows: torch.Tensor | None = None, *, plain: bool = False,
+                     bounds: torch.Tensor | None = None):
     """Build the `intersect(origin, direction, t_min, t_max=None,
     closest=True, cull_backface=False, coherent=True, const_origin=False)
     -> HitRecord` closure over the bake's [T_pad, 48] pack (and, above 2048
     triangles, its two-box BVH table `pairs` and Baldwin-Weber rows
-    `bw_rows`, which the BVH kernels walk).
+    `bw_rows`, which the BVH kernels walk, and its bounds [2, 3] `bounds`,
+    the box of the sort keys of incoherent batches).
 
-    `coherent` and `const_origin` are accepted and ignored: on the JAX
-    cluster tiers they only choose a direction sort that gives the same
-    output (`traverse.py:349-411`).  `plain=True` runs the kernels' plain
-    versions on any device (the reference the kernels are held against on
-    the card)."""
+    `coherent=False` on the BVH tier walks the rays in direction-sorted
+    order (see the module doc); `const_origin` is accepted and changes
+    nothing.  `plain=True` runs the kernels' plain versions on any device
+    (the reference the kernels are held against on the card)."""
+    bvh_tier = False
     if plain or n_tris <= MAX_DENSE_TRIS:
         occluded = partial(isect.occluded_plain if plain else isect.occluded, tri_pack, n_tris)
         closest_hit = partial(isect.closest_plain if plain else isect.intersect_closest,
@@ -57,16 +70,23 @@ def make_intersector(tri_pack: torch.Tensor, n_tris: int, pairs: torch.Tensor | 
     else:
         occluded = partial(cluster.bvh_occluded, bw_rows, n_tris, pairs)
         closest_hit = partial(cluster.bvh_closest, bw_rows, n_tris, pairs)
+        bvh_tier = True
 
     def intersect(origin, direction, t_min, t_max=None, closest=True,
                   cull_backface=False, coherent=True, const_origin=False):
-        del coherent, const_origin
+        del const_origin
+        kw = {}
+        if bvh_tier and not coherent:
+            if bounds is None:
+                raise ValueError("an incoherent batch on the BVH tier is sorted by keys "
+                                 "over the bake's bounds, which were not given")
+            kw["order"] = sort_order(origin, direction, t_min, t_max, bounds)
         if not closest and not cull_backface:
-            occ = occluded(origin, direction, t_min, t_max)
+            occ = occluded(origin, direction, t_min, t_max, **kw)
             zero = torch.zeros(occ.shape, dtype=torch.float32, device=occ.device)
             return HitRecord(t=torch.where(occ, zero, _BIG),
                              tri=torch.where(occ, 0, -1).to(torch.int32),
                              bary_u=zero, bary_v=zero)
-        return closest_hit(origin, direction, t_min, t_max, cull_backface=cull_backface)
+        return closest_hit(origin, direction, t_min, t_max, cull_backface=cull_backface, **kw)
 
     return intersect

@@ -42,11 +42,17 @@
 // and writes the 32 fields (intersect.cuh hit_fields) with coalesced
 // stores.
 //
+// `order` (optional, int32 [n]): slot j of the ray counter takes ray
+// order[j], which reads that ray's row and answers it at its own index, so
+// a launch in the direction-sorted order of ops/raysort.py (JAX sorts its
+// cluster tiers' incoherent wavefronts so) walks neighbouring rays in a
+// warp and changes no ray's answer: each walk depends on its own ray only.
+//
 // What bounds them on the H100: the pair tests and the slab tests a ray's
 // walk performs (operations), against the rays in and out and the tables
 // read once (bytes).  The walks are divergent and latency-bound on their
-// dependent row loads; sorting rays, wider trees and treelets in shared
-// memory are later work.
+// dependent row loads; wider trees and treelets in shared memory are later
+// work.
 #include <cuda_runtime.h>
 
 #include "bvh_pairs.cuh"
@@ -58,13 +64,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRefill = 8;
 constexpr int kSteps = 8;
 
-// The persistent loop of one warp over rays [0, n) drawn from `next`:
-// begin(i) sets up ray i's walk and returns false when it has answered the
-// ray itself; step() takes one step of the lane's walk (kWalking while it
-// goes on); finish(i, status) answers ray i when its walk ends.
+// The persistent loop of one warp over rays [0, n) drawn from `next` (slot
+// j is ray order[j], or ray j without an order): begin(i) sets up ray i's
+// walk and returns false when it has answered the ray itself; step() takes
+// one step of the lane's walk (kWalking while it goes on); finish(i,
+// status) answers ray i when its walk ends.
 template <typename Begin, typename Step, typename Finish>
-BDPT_DEV void rays_persistent(int n, int* __restrict__ next, Begin begin, Step step,
-                              Finish finish) {
+BDPT_DEV void rays_persistent(int n, int* __restrict__ next, const int* __restrict__ order,
+                              Begin begin, Step step, Finish finish) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1;
   int ray = -1;
@@ -79,8 +86,11 @@ BDPT_DEV void rays_persistent(int n, int* __restrict__ next, Begin begin, Step s
       base = __shfl_sync(kFull, base, 0);
       drained = base + __popc(idle) >= n;
       if (ray < 0) {
-        const int i = base + __popc(idle & below);
-        if (i < n && begin(i)) ray = i;
+        const int j = base + __popc(idle & below);
+        if (j < n) {
+          const int i = order ? __ldg(order + j) : j;
+          if (begin(i)) ray = i;
+        }
       }
       continue;  // lanes that drew dead rays are idle again
     }
@@ -99,11 +109,11 @@ BDPT_DEV void rays_persistent(int n, int* __restrict__ next, Begin begin, Step s
 __global__ void __launch_bounds__(kBvhThreads)
     bvh_occluded_kernel(const float* __restrict__ rows, int n, const float* __restrict__ bw,
                         const float* __restrict__ pairs, int* __restrict__ next,
-                        bool* __restrict__ out) {
+                        const int* __restrict__ order, bool* __restrict__ out) {
   AnyHitWalk w;
   int stack[kStackSize];
   rays_persistent(
-      n, next,
+      n, next, order,
       [&](int i) {
         const Ray r = load_ray(rows, (size_t)n, (size_t)i);
         if (any_hit_begin(w, r.o, r.d, r.tmin, r.tmax)) return true;
@@ -121,8 +131,9 @@ template <bool kFields>
 __global__ void __launch_bounds__(kBvhThreads)
     bvh_closest_kernel(const float* __restrict__ rows, int n, const float* __restrict__ bw,
                        const float* __restrict__ pairs, int cull, int* __restrict__ next,
-                       float* __restrict__ t_out, int* __restrict__ id_out,
-                       float* __restrict__ u_out, float* __restrict__ v_out) {
+                       const int* __restrict__ order, float* __restrict__ t_out,
+                       int* __restrict__ id_out, float* __restrict__ u_out,
+                       float* __restrict__ v_out) {
   ClosestWalk w;
   int stack[kStackSize];
   auto answer = [&](int i) {
@@ -137,7 +148,7 @@ __global__ void __launch_bounds__(kBvhThreads)
     }
   };
   rays_persistent(
-      n, next,
+      n, next, order,
       [&](int i) {
         const Ray r = load_ray(rows, (size_t)n, (size_t)i);
         if (closest_begin(w, r.o, r.d, r.tmin, r.tmax, cull != 0)) return true;
@@ -217,25 +228,26 @@ int launch_persistent(Kernel kernel, int& resident, int n, int* next, cudaStream
 
 }  // namespace bdpt
 
-// next: one int32 of scratch, the kernel's ray counter (all three)
+// next: one int32 of scratch, the kernel's ray counter; order: the rays'
+// order, int32 [n], or null for ray order (all three)
 extern "C" int bdpt_bvh_closest(const float* rows, int n, const float* bw, const float* pairs,
                                 int cull_backface, float* t, int* id, float* u, float* v,
-                                int* next, void* stream) {
+                                int* next, const int* order, void* stream) {
   using namespace bdpt;
   static int resident = 0;
   return launch_persistent(bvh_closest_kernel<false>, resident, n, next, (cudaStream_t)stream,
-                           rows, n, bw, pairs, cull_backface, next, t, id, u, v);
+                           rows, n, bw, pairs, cull_backface, next, order, t, id, u, v);
 }
 
 // tris: the [T_pad, 48] pack, whose winner rows give the fields
 extern "C" int bdpt_bvh_shaded(const float* rows, int n, const float* tris, const float* bw,
                                const float* pairs, int cull_backface, float* fields, int* next,
-                               void* stream) {
+                               const int* order, void* stream) {
   using namespace bdpt;
   static int resident = 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int err = launch_persistent(bvh_closest_kernel<true>, resident, n, next, s, rows, n, bw,
-                                    pairs, cull_backface, next, fields, (int*)nullptr,
+                                    pairs, cull_backface, next, order, fields, (int*)nullptr,
                                     (float*)nullptr, (float*)nullptr);
   if (err != 0 || n <= 0) return err;
   bvh_fields_kernel<<<(n + kBvhThreads - 1) / kBvhThreads, kBvhThreads, 0, s>>>(rows, n, tris,
@@ -244,11 +256,11 @@ extern "C" int bdpt_bvh_shaded(const float* rows, int n, const float* tris, cons
 }
 
 extern "C" int bdpt_bvh_occluded(const float* rows, int n, const float* bw, const float* pairs,
-                                 bool* occ, int* next, void* stream) {
+                                 bool* occ, int* next, const int* order, void* stream) {
   using namespace bdpt;
   static int resident = 0;
   return launch_persistent(bvh_occluded_kernel, resident, n, next, (cudaStream_t)stream, rows,
-                           n, bw, pairs, next, occ);
+                           n, bw, pairs, next, order, occ);
 }
 
 extern "C" int bdpt_bvh_count(const float* rows, int n, const float* tris, const float* nodes,

@@ -8,19 +8,22 @@
 // both: K3 is its third payload.
 //
 // Input: M keys sorted ascending (a key >= n_targets is a dropped update,
-// and dropped updates sort to the end) and, for K5, value rows [R, M] (R =
+// and dropped updates sort to the end) or, for K5 with `segments` S, S
+// runs of M / S keys each sorted so (JAX's splat_segments: a run a
+// light-tracing depth), and, for K5, value rows [R, M] (R =
 // 4: r, g, b, alpha; R = 3: r, g, b, alpha the update count), in float32 or
 // bfloat16 (the template parameter; bf16 widens exactly by a shift); for
 // K3 one row [M] of int32 rgb8e words, each decoded to (r, g, b) by
 // common.cuh unpack_rgb8e, with alpha the update count.  Each pixel's run
 // is added to four float32 sums one update at a time, in sorted (= source)
-// order.  A stable sort of the depth-concatenated updates gives each
-// pixel the order of the TPU kernel's per-segment accumulation, with no
-// atomics, so the sums are deterministic and bit-equal to a sequential
-// sum in sorted order (K5's plain version; K3's sums a run with a segment
-// sum, within rounding of it).  An rgb8e channel is an 8-bit integer times
-// a power of two, so its decode is exact and an FMA of decode and add
-// rounds as the two operations do.  The TPU kernels' one-hot MXU matmul
+// order; with S runs, a pixel's part of run 0 first, then of run 1, and so
+// on (the TPU kernel's loop over segments), the order a stable sort of the
+// depth-concatenated updates gives it.  There are no atomics, so the sums
+// are deterministic and bit-equal to a sequential sum in sorted order
+// (K5's plain version; K3's sums a run with a segment sum, within
+// rounding of it), and the segmented sums to the flat ones.  An rgb8e
+// channel is an 8-bit integer times a power of two, so its decode is exact
+// and an FMA of decode and add rounds as the two operations do.  The TPU kernels' one-hot MXU matmul
 // over 1024-pixel tiles, their K=2048 DMA blocks and their double buffer
 // are TPU devices and do not carry over.
 //
@@ -40,7 +43,8 @@
 // carrying the sums across chunks in registers, so the order, and the
 // bits, hold whatever the run lengths.  A pixel with no update writes
 // zeros; a tile with none writes zeros and reads nothing beyond its
-// searches.  One launch, no host sync, no scratch beyond the output.
+// searches.  With S runs the block does this run by run, its sums carried
+// across them.  One launch, no host sync, no scratch beyond the output.
 //
 // What bounds it on the H100: bytes, the live keys and value rows read once
 // and 16 B written per pixel (chip_smoke.py phases 3 and 3b count them so);
@@ -166,10 +170,11 @@ struct RowStage {
 
 // R value rows of type T; R = 3 counts the updates in alpha.  kPacked (K3):
 // one row of int32 rgb8e words (T = int, R = 1), alpha the count.
+// segments: S runs of m / S keys, each sorted (K3: 1).
 template <typename T, int R, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 4)
     splat_rows_kernel(const int* __restrict__ keys, const T* __restrict__ vals, int m,
-                      int n_targets, float4* __restrict__ out) {
+                      int segments, int n_targets, float4* __restrict__ out) {
   using S = std::conditional_t<kPacked, int, float>;  // a staged value
   __shared__ __align__(16) S vals_s[R][kChunk + kPad];
   __shared__ __align__(16) int keys_s[kChunk + kPad];
@@ -184,52 +189,57 @@ __global__ void __launch_bounds__(kThreads, 4)
     beg_s[threadIdx.x + q * kThreads] = 0;
     end_s[threadIdx.x + q * kThreads] = 0;
   }
-  int seg[2];
-  block_lower_bounds(keys, m, targets, seg, red_s);  // its syncs order the zeroing too
-  for (int c0 = seg[0]; c0 < seg[1]; c0 += kChunk) {
-    const int n = min(kChunk, seg[1] - c0);
-    RowStage<int> ks(keys + c0, n);
-    ks.load();
-    RowStage<T> vs[R];
+  const int run = m / segments;
+  for (int s = 0; s < segments; ++s) {
+    const int r0 = s * run;
+    int seg[2];
+    // its syncs order the zeroing, and the previous run's last chunk, too
+    block_lower_bounds(keys + r0, run, targets, seg, red_s);
+    for (int c0 = r0 + seg[0]; c0 < r0 + seg[1]; c0 += kChunk) {
+      const int n = min(kChunk, r0 + seg[1] - c0);
+      RowStage<int> ks(keys + c0, n);
+      ks.load();
+      RowStage<T> vs[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      vs[r] = RowStage<T>(vals + (size_t)r * m + c0, n);
-      vs[r].load();
-    }
-    ks.store(keys_s);
-#pragma unroll
-    for (int r = 0; r < R; ++r) vs[r].store(vals_s[r]);
-    __syncthreads();
-    const int* k_s = keys_s + ks.off;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int k = k_s[i];
-      if (i == 0 || k_s[i - 1] != k) beg_s[k - p0] = (uint16_t)i;
-      if (i == n - 1 || k_s[i + 1] != k) end_s[k - p0] = (uint16_t)(i + 1);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPixPerThread; ++q) {
-      const int px = threadIdx.x + q * kThreads;
-      const int e = end_s[px];
-      for (int j = beg_s[px]; j < e; ++j) {
-        if constexpr (kPacked) {
-          float cr, cg, cb;
-          bdpt::unpack_rgb8e(vals_s[0][vs[0].off + j], cr, cg, cb);
-          sum[q][0] += cr;
-          sum[q][1] += cg;
-          sum[q][2] += cb;
-          sum[q][3] += 1.0f;
-        } else {
-          sum[q][0] += vals_s[0][vs[0].off + j];
-          sum[q][1] += vals_s[1][vs[1].off + j];
-          sum[q][2] += vals_s[2][vs[2].off + j];
-          sum[q][3] += R == 4 ? vals_s[R - 1][vs[R - 1].off + j] : 1.0f;
-        }
+      for (int r = 0; r < R; ++r) {
+        vs[r] = RowStage<T>(vals + (size_t)r * m + c0, n);
+        vs[r].load();
       }
-      beg_s[px] = 0;
-      end_s[px] = 0;
+      ks.store(keys_s);
+#pragma unroll
+      for (int r = 0; r < R; ++r) vs[r].store(vals_s[r]);
+      __syncthreads();
+      const int* k_s = keys_s + ks.off;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int k = k_s[i];
+        if (i == 0 || k_s[i - 1] != k) beg_s[k - p0] = (uint16_t)i;
+        if (i == n - 1 || k_s[i + 1] != k) end_s[k - p0] = (uint16_t)(i + 1);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kPixPerThread; ++q) {
+        const int px = threadIdx.x + q * kThreads;
+        const int e = end_s[px];
+        for (int j = beg_s[px]; j < e; ++j) {
+          if constexpr (kPacked) {
+            float cr, cg, cb;
+            bdpt::unpack_rgb8e(vals_s[0][vs[0].off + j], cr, cg, cb);
+            sum[q][0] += cr;
+            sum[q][1] += cg;
+            sum[q][2] += cb;
+            sum[q][3] += 1.0f;
+          } else {
+            sum[q][0] += vals_s[0][vs[0].off + j];
+            sum[q][1] += vals_s[1][vs[1].off + j];
+            sum[q][2] += vals_s[2][vs[2].off + j];
+            sum[q][3] += R == 4 ? vals_s[R - 1][vs[R - 1].off + j] : 1.0f;
+          }
+        }
+        beg_s[px] = 0;
+        end_s[px] = 0;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 #pragma unroll
   for (int q = 0; q < kPixPerThread; ++q) {
@@ -239,36 +249,39 @@ __global__ void __launch_bounds__(kThreads, 4)
 }
 
 template <typename T, int R, bool kPacked = false>
-int launch(const int* keys, const void* vals, int m, int n_targets, float4* out,
+int launch(const int* keys, const void* vals, int m, int segments, int n_targets, float4* out,
            cudaStream_t s) {
+  if (segments < 1 || m % segments != 0) return (int)cudaErrorInvalidValue;
   const int grid = (n_targets + kTile - 1) / kTile;
   if (grid == 0) return 0;
-  splat_rows_kernel<T, R, kPacked><<<grid, kThreads, 0, s>>>(keys, (const T*)vals, m,
+  splat_rows_kernel<T, R, kPacked><<<grid, kThreads, 0, s>>>(keys, (const T*)vals, m, segments,
                                                              n_targets, out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_rows(const int* keys, const void* vals, int n_rows, int m, int n_targets,
-                float4* out, cudaStream_t s) {
-  if (n_rows == 4) return launch<T, 4>(keys, vals, m, n_targets, out, s);
-  if (n_rows == 3) return launch<T, 3>(keys, vals, m, n_targets, out, s);
+int launch_rows(const int* keys, const void* vals, int n_rows, int m, int segments,
+                int n_targets, float4* out, cudaStream_t s) {
+  if (n_rows == 4) return launch<T, 4>(keys, vals, m, segments, n_targets, out, s);
+  if (n_rows == 3) return launch<T, 3>(keys, vals, m, segments, n_targets, out, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// K5: keys [m] (segments runs of m / segments, each sorted) and value rows
+// [n_rows, m] -> out [n_targets, 4]
 extern "C" int bdpt_splat_rows(const int* keys, const void* vals, int bf16, int n_rows,
-                               int m, int n_targets, float* out, void* stream) {
+                               int m, int segments, int n_targets, float* out, void* stream) {
   float4* o = reinterpret_cast<float4*>(out);
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_rows<uint16_t>(keys, vals, n_rows, m, n_targets, o, s)
-              : launch_rows<float>(keys, vals, n_rows, m, n_targets, o, s);
+  return bf16 ? launch_rows<uint16_t>(keys, vals, n_rows, m, segments, n_targets, o, s)
+              : launch_rows<float>(keys, vals, n_rows, m, segments, n_targets, o, s);
 }
 
 // K3: keys [m] and their rgb8e words [m] -> out [n_targets, 4]
 extern "C" int bdpt_splat_reduce(const int* keys, const int* pay, int m, int n_targets,
                                  float* out, void* stream) {
-  return launch<int, 1, true>(keys, pay, m, n_targets, reinterpret_cast<float4*>(out),
+  return launch<int, 1, true>(keys, pay, m, 1, n_targets, reinterpret_cast<float4*>(out),
                               (cudaStream_t)stream);
 }

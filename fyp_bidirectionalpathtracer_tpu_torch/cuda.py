@@ -20,7 +20,9 @@ output.
 
 Each kernel wrapper counts its launches in `LAUNCHES`; a run resets the
 counts with `reset_launch_counts()` and reads them to show which kernels
-its path went through.
+its path went through.  A launch of a kernel's variant (the BVH kernels
+with a ray `order`, K5 with `segments`) also counts in
+`LAUNCHES_BY_VARIANT`.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ BUILD_LOG = "nvcc.log"
 LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
             "splat_rows": 0, "closest": 0, "shaded": 0, "occluded": 0,
             "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0, "subpath": 0}
+LAUNCHES_BY_VARIANT = {"bvh_closest[order]": 0, "bvh_shaded[order]": 0,
+                       "bvh_occluded[order]": 0, "splat_rows[segments]": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -69,8 +73,9 @@ def resolve_device(device) -> torch.device:
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_VARIANT):
+        for key in counts:
+            counts[key] = 0
 
 
 def _nvcc() -> str:
@@ -142,11 +147,11 @@ def _declare(lib) -> None:
     lib.bdpt_intersect_closest.argtypes = [p, i, p, i, i, p, p, p, p, p]
     lib.bdpt_intersect_shaded.argtypes = [p, i, p, i, i, p, p]
     lib.bdpt_occluded.argtypes = [p, i, p, i, p, p]
-    lib.bdpt_bvh_closest.argtypes = [p, i, p, p, i, p, p, p, p, p, p]
-    lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, p, i, p, p, p]
-    lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p, p]
+    lib.bdpt_bvh_closest.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p]
+    lib.bdpt_bvh_shaded.argtypes = [p, i, p, p, p, i, p, p, p, p]
+    lib.bdpt_bvh_occluded.argtypes = [p, i, p, p, p, p, p, p]
     lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
-    lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, p, p]
+    lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, i, p, p]
     lib.bdpt_subpath.argtypes = [p, i, p, i, i, i, i, p, p, p]
     for fn in (lib.bdpt_frame_launch, lib.bdpt_frame_textured_launch, lib.bdpt_compact,
                lib.bdpt_splat_reduce,
@@ -200,7 +205,9 @@ def check_error(kernel: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel '{kernel}' launch failed: cudaError {err}")
 
 
-def check_launch(kernel: str, err: int) -> None:
-    """check_error, then count one launch of `kernel`."""
+def check_launch(kernel: str, err: int, variant: str | None = None) -> None:
+    """check_error, then count one launch of `kernel` (and of `variant`)."""
     check_error(kernel, err)
     LAUNCHES[kernel] += 1
+    if variant is not None:
+        LAUNCHES_BY_VARIANT[variant] += 1

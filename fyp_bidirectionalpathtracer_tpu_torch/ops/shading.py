@@ -24,6 +24,7 @@ from ..accel import intersect as isect
 from ..accel.traverse import CLUSTER_THRESHOLD, HitRecord, TriSoA
 from ..core.vecmath import cross, dot, normalize
 from ..scene.types import SHADING_METAL_ROUGH, MaterialArray, TextureAtlas, on_device
+from .raysort import sort_order
 from .texture import sample_combined, sample_or_constant
 
 
@@ -238,17 +239,24 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
     `bounce_tex_mean`: on the kernel branches a `lean=True` trace (a
     subpath extension) decodes with the mean atlas, as JAX's TPU paths do
     (`:381-383, 451, 526`); primary hits tap the atlas.  The gather branch
-    taps it always, as JAX's does.  `coherent`, `sort_divergent` (a
-    direction sort whose permutation is inverted) and `lean_bf16` (JAX's
-    bf16 quantisation of lean bounce shading on the TPU; the port keeps
-    float32, as JAX on the CPU does) are accepted and ignored.  A bake with
-    `plain=True` runs the kernels' plain versions.
+    taps it always, as JAX's does.
+
+    `sort_divergent` (BDPTConfig.sort_bounces): a `coherent=False` trace
+    (a subpath extension) on the BVH tier walks its rays in the
+    direction-major order of `ops/raysort.sort_order`, as JAX sorts its
+    cluster tier's divergent traces (`:455-530`); the BVH kernels answer
+    each ray in place, so the hits and fields are the unsorted trace's bit
+    for bit.  The gather branch passes `coherent` to the intersector when
+    `sort_divergent`, as JAX's does (`:700-708`).  The dense tier does not
+    sort.  `lean_bf16` (JAX's bf16 quantisation of lean bounce shading on
+    the TPU; the port keeps float32, as JAX on the CPU does) is accepted and
+    ignored.  A bake with `plain=True` runs the kernels' plain versions.
 
     A scene with alpha-tested materials wraps each branch in
     `ops/alpha.wrap_tracer`, as JAX does (`:398-402`).  On the gather
     branch `baked.intersector()` is itself alpha-wrapped, so the restarts
     nest there, as in JAX's (`:699-715`)."""
-    del sort_divergent, lean_bf16
+    del lean_bf16
     from .alpha import wrap_tracer
 
     def alpha_wrap(trace):
@@ -268,12 +276,16 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
         else:
             shaded = partial(cluster.bvh_shaded_fm, rows=baked.bw_rows, pairs=baked.bvh_pairs)
 
+        sort = sort_divergent and not (baked.plain or dense)
+
         def trace(origin, direction, t_min, view_origin, cull_backface=False,
                   coherent=True, lean=False):
-            del coherent
+            kw = {}
+            if sort and not coherent:
+                kw["order"] = sort_order(origin, direction, t_min, None, baked.sort_bounds)
             hit, fields_fm = shaded(baked.tri_pack, baked.n_tris, origin=origin,
                                     direction=direction, t_min=t_min,
-                                    cull_backface=cull_backface)
+                                    cull_backface=cull_backface, **kw)
             return hit, shading_from_fields_fm(fields_fm, atlas_mean if lean else atlas_full,
                                                hit, origin, direction, view_origin)
 
@@ -285,8 +297,9 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
 
     def trace(origin, direction, t_min, view_origin, cull_backface=False,
               coherent=True, lean=False):
-        del coherent, lean
-        hit = intersect(origin, direction, t_min, closest=True, cull_backface=cull_backface)
+        del lean
+        hit = intersect(origin, direction, t_min, closest=True, cull_backface=cull_backface,
+                        coherent=coherent if sort_divergent else True)
         return hit, prepare_shading_data(tris, materials, atlas_full, hit, origin, direction,
                                          view_origin)
 

@@ -13,10 +13,12 @@ payload.  Given the stable-sorted live rgb8e updates it writes
 K5 replaces the TPU kernel `ops/splat_tile.py:_kernel` (`:44`, launched by
 `_tile_call` `:268`); its CUDA source is `csrc/splat_rows.cu`.  It sums
 unpacked value rows ([3 or 4, M], float32 or bfloat16) of the stable-sorted
-updates, each pixel's run in sorted (= source) order.  JAX's
-`splat_segments` (each depth sorted on its own, a TPU sort-cost knob) is
-accepted and ignored: a stable sort of the depth-concatenated updates gives
-each pixel the same order, so the sums are the same bit for bit.
+updates, each pixel's run in sorted (= source) order.  With `segments` =
+S (JAX's `splat_segments`: one run a light-tracing depth) the M updates
+are S runs of M/S, each sorted on its own, and K5 sums a pixel's updates of
+run 0, then of run 1, and so on (JAX's `_kernel` `:66-70`).  That is the
+order in which a stable sort of the depth-concatenated updates puts them,
+so the segmented sums equal the flat ones bit for bit.
 
 Both kernels sum a pixel's updates in that order, one float32 add at a
 time, so the sums are deterministic and their plain versions here equal
@@ -134,10 +136,14 @@ def scatter_add_rgba_tiled_prepacked(lin, packed, n_targets: int, *,
 
 
 # --------------------------------------------------------------------- K5
-def reduce_rows_plain(keys: torch.Tensor, vals: torch.Tensor, n_targets: int) -> torch.Tensor:
+def reduce_rows_plain(keys: torch.Tensor, vals: torch.Tensor, n_targets: int,
+                      segments: int = 1) -> torch.Tensor:
     """Plain K5: each pixel's updates summed one float32 add at a time, in
     stable-sorted order; round r adds every pixel's r-th update (one add a
-    pixel a round)."""
+    pixel a round).  With `segments` S the keys are S sorted runs of M/S,
+    and a pixel takes its updates of run 0 first, then of run 1, ...: the
+    order of a stable sort of all M keys, which this sort is."""
+    _check_segments(keys.numel(), segments)
     rows = vals.to(torch.float32)
     ks, order = torch.sort(keys, stable=True)
     live = ks < n_targets
@@ -153,11 +159,19 @@ def reduce_rows_plain(keys: torch.Tensor, vals: torch.Tensor, n_targets: int) ->
     return out
 
 
-def splat_reduce_rows(keys: torch.Tensor, vals: torch.Tensor, n_targets: int) -> torch.Tensor:
-    """K5 wrapper.  keys: int32 [M] sorted ascending (keys >= n_targets are
-    dropped updates); vals: float32 or bfloat16 [4, M] rows r, g, b, alpha,
-    or [3, M] when alpha is the count of updates.  Returns float32
-    [n_targets, 4]."""
+def _check_segments(m: int, segments: int) -> None:
+    if segments < 1 or m % segments:
+        raise ValueError(f"{m} updates are not {segments} runs of equal length")
+
+
+def splat_reduce_rows(keys: torch.Tensor, vals: torch.Tensor, n_targets: int,
+                      segments: int = 1) -> torch.Tensor:
+    """K5 wrapper.  keys: int32 [M], `segments` runs of M/S each sorted
+    ascending (keys >= n_targets are dropped updates); vals: float32 or
+    bfloat16 [4, M] rows r, g, b, alpha, or [3, M] when alpha is the count
+    of updates.  Returns float32 [n_targets, 4]: a pixel's updates summed
+    run by run, each run in sorted order.  A launch with segments > 1 also
+    counts in `cuda.LAUNCHES_BY_VARIANT` under `splat_rows[segments]`."""
     cuda.check_tensor("keys", keys, torch.int32, keys.device)
     if vals.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"vals must be float32 or bfloat16, got {vals.dtype}")
@@ -167,19 +181,28 @@ def splat_reduce_rows(keys: torch.Tensor, vals: torch.Tensor, n_targets: int) ->
             or vals.shape[1] != m:
         raise ValueError(f"keys [M] and vals [3 or 4, M] expected, got "
                          f"{tuple(keys.shape)} / {tuple(vals.shape)}")
+    _check_segments(m, segments)
     if keys.device.type == "cpu":
-        return reduce_rows_plain(keys, vals, n_targets)
+        return reduce_rows_plain(keys, vals, n_targets, segments)
     out = torch.empty((n_targets, 4), dtype=torch.float32, device=keys.device)
     bf16 = vals.dtype == torch.bfloat16
     cuda.check_launch("splat_rows", cuda.library().bdpt_splat_rows(
-        cuda.ptr(keys), cuda.ptr(vals), int(bf16), vals.shape[0], m, n_targets,
-        cuda.ptr(out), cuda.stream(keys.device)))
+        cuda.ptr(keys), cuda.ptr(vals), int(bf16), vals.shape[0], m, segments, n_targets,
+        cuda.ptr(out), cuda.stream(keys.device)),
+        "splat_rows[segments]" if segments > 1 else None)
     return out
 
 
+def _sort_only(ls, rows) -> torch.Tensor:
+    """JAX's data-dependent zero that keeps the sort live under
+    'tiled_sortonly' (`:498-504`): min(|r0 + g0 + b0 + a0| + key0^2, 0)."""
+    return torch.clamp(torch.abs(sum(x.reshape(-1)[0] for x in rows))
+                       + ls.reshape(-1)[0].to(torch.float32) ** 2, max=0.0)
+
+
 def scatter_add_rgba_tiled(lin, rgb, alpha, n_targets: int, alpha_is_count: bool = False,
-                           pack: str = "f32", mxu_bf16: bool = False, segments: int = 1, *,
-                           plain: bool = False) -> torch.Tensor:
+                           pack: str = "f32", mxu_bf16: bool = False, segments: int = 1,
+                           sort_only: bool = False, *, plain: bool = False) -> torch.Tensor:
     """lin [U] targets (outside [0, n_targets) dropped), rgb [U, 3],
     alpha [U] -> [n_targets, 4] (JAX `scatter_add_rgba_tiled`).
 
@@ -188,27 +211,47 @@ def scatter_add_rgba_tiled(lin, rgb, alpha, n_targets: int, alpha_is_count: bool
     is a count] as bf16x2 words; 'rgb8e' (alpha_is_count only) one word,
     through K2 + sort + K3 (`scatter_add_rgba_tiled_prepacked`), as JAX
     takes `_kernel_packed`.  `mxu_bf16` casts the value rows to bfloat16
-    before K5, as JAX's bf16 MXU path does.  `segments` is accepted and
-    ignored (see the module doc).  `plain=True` runs the kernels' plain
-    versions."""
-    del segments
+    before K5, as JAX's bf16 MXU path does.
+
+    `segments` S (when it divides U; else one run, as JAX's `:412`): each
+    of the S runs of U/S updates is stable-sorted on its own and K5 sums
+    them run by run (rgb8e too: decoded, then K5, as in JAX), which equals
+    the flat sort's sums bit for bit.  `sort_only` ('tiled_sortonly', a
+    timing stub): the sort runs and no reduction; the result is zeros plus
+    JAX's data-dependent zero (rgb8e without compaction, as in JAX).
+    `plain=True` runs the kernels' plain versions."""
     r, g, b = rgb[:, 0], rgb[:, 1], rgb[:, 2]
-    if pack == "rgb8e":
-        if not alpha_is_count:
-            raise ValueError("pack='rgb8e' requires alpha_is_count")
+    if pack not in ("f32", "bf16", "rgb8e"):
+        raise ValueError(f"unknown pack {pack!r}")
+    if pack == "rgb8e" and not alpha_is_count:
+        raise ValueError("pack='rgb8e' requires alpha_is_count")
+    u = lin.shape[0]
+    s_count = segments if segments > 1 and u % segments == 0 else 1
+    if pack == "rgb8e" and s_count == 1 and not sort_only:
         return scatter_add_rgba_tiled_prepacked(lin, pack_rgb8e(r, g, b), n_targets,
                                                 plain=plain)
-    if pack not in ("f32", "bf16"):
-        raise ValueError(f"unknown pack {pack!r}")
     sent = sentinel(n_targets)
     keys = torch.where(lin < 0, sent, torch.clamp(lin, max=sent)).to(torch.int32)
-    ls, order = torch.sort(keys, stable=True)
-    if pack == "f32":
-        rows = [c[order] for c in ((r, g, b) if alpha_is_count else (r, g, b, alpha))]
+    if s_count == 1:
+        ls, order = torch.sort(keys, stable=True)
+    else:  # each run stable-sorted on its own: one flat sort by (run, key)
+        run = torch.arange(u, device=keys.device) // (u // s_count)
+        order = torch.sort(run * (sent + 1) + keys, stable=True).indices
+        ls = keys[order]
+    live = (ls < sent).to(torch.float32)
+    if pack == "rgb8e":
+        rows = [*unpack_rgb8e(pack_rgb8e(r, g, b)[order]), live]
+    elif pack == "f32":
+        rows = [c[order] for c in (r, g, b)] + [live if alpha_is_count else alpha[order]]
     elif alpha_is_count:
-        rows = [*unpack2bf16(pack2bf16(r, g)[order]), b[order]]
+        rows = [*unpack2bf16(pack2bf16(r, g)[order]), b[order], live]
     else:
         rows = [*unpack2bf16(pack2bf16(r, g)[order]), *unpack2bf16(pack2bf16(b, alpha)[order])]
+    if sort_only:
+        return torch.zeros((n_targets, 4), dtype=torch.float32,
+                           device=lin.device) + _sort_only(ls, rows)
+    if alpha_is_count:
+        rows = rows[:3]
     vals = torch.stack(rows).to(torch.bfloat16 if mxu_bf16 else torch.float32)
     reduce = reduce_rows_plain if plain else splat_reduce_rows
-    return reduce(ls, vals.contiguous(), n_targets)
+    return reduce(ls, vals.contiguous(), n_targets, s_count)

@@ -17,10 +17,24 @@ one whole-image wavefront a step instead of a thread a pixel.
 
 Every closest-hit trace goes through `trace` (the shaded kernel), every
 shadow batch through `intersect` (the any-hit kernel).  The reference's
-quirks are kept under the config flags (utils/config.BDPTConfig).  The TPU
-tuning knobs `sort_bounces`, `sort_shadows`, `reverse_shadows`,
-`merge_shadow_batches`, `splat_segments` and the `debug_stub_*` stubs do
-not change what the port computes and are ignored.
+quirks are kept under the config flags (utils/config.BDPTConfig), and so
+are JAX's frame options:
+
+- `sort_bounces` / `sort_shadows`: the subpath extensions, and the est-1
+  and est-2 shadow batches, are traced as incoherent batches (est-3's
+  always are), which the BVH tier walks in direction-sorted order; the
+  image does not change;
+- `reverse_shadows`: the est-1 batch is traced from the light point
+  towards the vertex and the est-2 batch from the camera, over the same
+  open segments; an any-hit answer may change at grazing hits, as in JAX;
+- `merge_shadow_batches` (with `reverse_shadows` off): one any-hit query
+  over est-1, est-3 and est-2; the image does not change;
+- `splat_segments`: the estimator-2 splat sorts each depth's updates on
+  its own (`ops/splat_tile.py` `segments`); the image does not change;
+- `debug_stub_shadows` / `debug_stub_extensions`: timing stubs that break
+  the image on purpose, as JAX's do: every visibility query answers
+  "visible", or the extension traces are skipped and each subpath keeps
+  its payload.
 """
 from __future__ import annotations
 
@@ -262,8 +276,16 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     cam_pos = cam.pos_w.to(dev)
     cam_n = normalize(cam.camera_w).to(dev)
 
-    def shadow_fn(o, d, tmin, tmax):
-        return ~intersect(o, d, tmin, tmax, closest=False, coherent=False).hit
+    def shadow_fn(o, d, tmin, tmax, coherent=True, const_origin=False):
+        if cfg.debug_stub_shadows:  # timing attribution only
+            return torch.ones(o.shape[:-1], dtype=torch.bool, device=o.device)
+        return ~intersect(o, d, tmin, tmax, closest=False, coherent=coherent,
+                          const_origin=const_origin).hit
+
+    def extend(p, coherent=False):
+        # debug_stub_extensions (timing attribution only): the lane keeps
+        # its payload, as JAX's `if not cfg.debug_stub_extensions` leaves it
+        return p if cfg.debug_stub_extensions else shoot_ray(p, trace, cfg, coherent=coherent)
 
     valid = pos4[..., 3] != 0.0
     world_pos, world_norm = pos4[..., :3], norm4[..., :3]
@@ -312,24 +334,24 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
             was_active_l = ~lpayload.terminated
             if do_cam:
                 was_active_c = ~payload.terminated
-                merged = shoot_ray(_stack([payload, lpayload]), trace, cfg, coherent=False)
+                merged = extend(_stack([payload, lpayload]))
                 payload, lpayload = _unstack(merged, 0), _unstack(merged, 1)
                 camera_path[depth + 1] = payload.vertex().where(was_active_c, zeros_vert)
             else:
-                lpayload = shoot_ray(lpayload, trace, cfg, coherent=False)
+                lpayload = extend(lpayload)
             light_path[depth + 1] = lpayload.vertex().where(was_active_l, zeros_vert)
             take[depth + 1] = torch.where(was_active_l, ~lpayload.terminated, take[depth + 1])
         seed = payload.seed
     else:
         for depth in range(1, d_max):
             was_active = ~payload.terminated
-            payload = shoot_ray(payload, trace, cfg, coherent=False)
+            payload = extend(payload)
             camera_path[depth + 1] = payload.vertex().where(was_active, zeros_vert)
         # ---------------- light subpath ----------------
         light_path, lpayload = light_start(payload.seed)
         for depth in range(0, d_max):
             was_active = ~lpayload.terminated
-            lpayload = shoot_ray(lpayload, trace, cfg, coherent=False)
+            lpayload = extend(lpayload)
             light_path[depth + 1] = lpayload.vertex().where(was_active, zeros_vert)
             take[depth + 1] = torch.where(was_active, ~lpayload.terminated, take[depth + 1])
         seed = lpayload.seed
@@ -388,20 +410,45 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
         e2_geom.append((dir_to_cam, torch.where(pre_ok, dis, torch.zeros_like(dis))))
         e2_pre.append((ix, iy, pre_ok))
 
-    if n_e1:
-        vis_b = shadow_fn(torch.stack([camera_path[i + 1].pos for i in range(n_e1)]),
-                          torch.stack([p[0] for p in e1_picks]), cfg.min_t,
-                          torch.stack([p[1] for p in e1_picks]))
-    if e3_pairs:
-        # the interval ends min_t short of the far endpoint, which lies on
-        # the connected surface (PARITY.md)
-        e3_vis = shadow_fn(torch.stack([camera_path[s].pos for _, s, _ in e3_pairs]),
-                           torch.stack([g[0] for g in e3_geom]), cfg.min_t,
-                           torch.stack([g[1] for g in e3_geom]) - cfg.min_t)
-    if n_e2:
-        e2_vis = shadow_fn(torch.stack([light_path[i + 1].pos for i in range(n_e2)]),
-                           torch.stack([g[0] for g in e2_geom]), cfg.min_t,
-                           torch.stack([g[1] for g in e2_geom]))
+    # the est-1, est-3 and est-2 batches: origins, directions, interval ends
+    e1_batch = (torch.stack([camera_path[i + 1].pos for i in range(n_e1)]),
+                torch.stack([p[0] for p in e1_picks]),
+                torch.stack([p[1] for p in e1_picks])) if n_e1 else None
+    # est-3's interval ends min_t short of the far endpoint, which lies on
+    # the connected surface (PARITY.md)
+    e3_batch = (torch.stack([camera_path[s].pos for _, s, _ in e3_pairs]),
+                torch.stack([g[0] for g in e3_geom]),
+                torch.stack([g[1] for g in e3_geom]) - cfg.min_t) if e3_pairs else None
+    e2_batch = (torch.stack([light_path[i + 1].pos for i in range(n_e2)]),
+                torch.stack([g[0] for g in e2_geom]),
+                torch.stack([g[1] for g in e2_geom])) if n_e2 else None
+    batches = [b for b in (e1_batch, e3_batch, e2_batch) if b is not None]
+    if cfg.merge_shadow_batches and not cfg.reverse_shadows and batches:
+        # one any-hit query over the three families (the rays are the same)
+        o_all, d_all, t_all = (torch.cat(parts) for parts in zip(*batches))
+        vis_all = shadow_fn(o_all, d_all, cfg.min_t, t_all, coherent=False)
+        vis_b, e3_vis, e2_vis = (vis_all[:n_e1], vis_all[n_e1:n_e1 + len(e3_pairs)],
+                                 vis_all[n_e1 + len(e3_pairs):])
+    else:
+        if n_e1:
+            o1, l1, d1 = e1_batch
+            if cfg.reverse_shadows:
+                # from the light point towards the vertex over the same open
+                # segment (the light point is eval_light's pos + l * dist)
+                vis_b = shadow_fn(o1 + l1 * d1[..., None], -l1, 0.0, d1 - cfg.min_t,
+                                  coherent=not cfg.sort_shadows)
+            else:
+                vis_b = shadow_fn(o1, l1, cfg.min_t, d1, coherent=not cfg.sort_shadows)
+        if e3_pairs:
+            e3_vis = shadow_fn(*e3_batch[:2], cfg.min_t, e3_batch[2], coherent=False)
+        if n_e2:
+            o2, d2, dis2 = e2_batch
+            if cfg.reverse_shadows:
+                # from the camera towards the light vertex: one shared origin
+                e2_vis = shadow_fn(cam_pos.expand(d2.shape), -d2, 0.0, dis2 - cfg.min_t,
+                                   coherent=not cfg.sort_shadows, const_origin=True)
+            else:
+                e2_vis = shadow_fn(o2, d2, cfg.min_t, dis2, coherent=not cfg.sort_shadows)
 
     alpha1 = ones[..., None]
     # --- estimator 1: path tracing with NEE ---
@@ -449,7 +496,8 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     if e2_lin:
         splat = splat_mod.scatter_add_rgba(
             cfg.splat_mode, torch.cat(e2_lin).to(torch.int32), torch.cat(e2_rgb),
-            torch.cat(e2_a), n_pix, alpha_is_count=True, plain=baked.plain,
+            torch.cat(e2_a), n_pix, alpha_is_count=True,
+            segments=len(e2_lin) if cfg.splat_segments else 1, plain=baked.plain,
         )
         if mesh is not None:
             # light subpaths of any shard splat onto any pixel: sum the

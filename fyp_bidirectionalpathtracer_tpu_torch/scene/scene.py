@@ -28,6 +28,7 @@ from ..accel.traverse import make_intersector
 from ..accel.tri_pack import TriSoA, bake_triangles, pack_shaded_tris_lane
 from ..models.procedural import BuiltScene, MaterialDesc
 from ..ops.alpha import has_alpha_materials, wrap_intersector
+from ..ops.raysort import scene_bounds
 from . import animation as animation_mod
 from . import camera as camera_mod
 from .lights import light_rows, make_light_array
@@ -315,6 +316,10 @@ class BakedScene:
     # (accel/cluster.pair_tables)
     bvh_pairs: torch.Tensor | None
     bw_rows: torch.Tensor | None
+    # the scene's bounds [2, 3] (lo, hi; ops/raysort.scene_bounds) on
+    # device, above MAX_DENSE_TRIS triangles only: the keys of the BVH
+    # tier's direction sort (accel/traverse, ops/shading)
+    sort_bounds: torch.Tensor | None
     atlas: TextureAtlas        # data.textures on device
     env_map: torch.Tensor      # data.env_map [h, w, 4] on device
     # can a hit fail the alpha test (ops/alpha.has_alpha_materials)?  The
@@ -339,13 +344,14 @@ class BakedScene:
         """The device tables of a bake; raises, above MAX_DENSE_TRIS
         triangles, on a BVH deeper than the BVH kernels' stack."""
         tri_pack = pack_shaded_tris_lane(tris, data.materials).to(device)
-        rows, pairs = (pair_tables(data.bvh, tri_pack)
-                       if int(tris.v0.shape[0]) > MAX_DENSE_TRIS else (None, None))
+        bvh_tier = int(tris.v0.shape[0]) > MAX_DENSE_TRIS
+        rows, pairs = pair_tables(data.bvh, tri_pack) if bvh_tier else (None, None)
+        bounds = torch.stack(scene_bounds(tris)).to(device) if bvh_tier else None
         return cls(
             data=data, tris=tris, tri_pack=tri_pack,
             light_rows=light_rows(data.lights).to(device),
             bvh_nodes=pack_bvh_nodes(data.bvh).to(device),
-            bvh_pairs=pairs, bw_rows=rows,
+            bvh_pairs=pairs, bw_rows=rows, sort_bounds=bounds,
             atlas=on_device(data.textures, device),
             env_map=data.env_map.to(device),
             has_alpha=has_alpha_materials(data.materials, data.textures),
@@ -369,7 +375,7 @@ class BakedScene:
         bake's pack and BVH tables, in the alpha restarts when the scene
         has alpha-tested materials (JAX `scene.py:389-397`)."""
         intersect = make_intersector(self.tri_pack, self.n_tris, self.bvh_pairs, self.bw_rows,
-                                     plain=self.plain)
+                                     plain=self.plain, bounds=self.sort_bounds)
         return wrap_intersector(self, intersect) if self.has_alpha else intersect
 
 

@@ -7,8 +7,11 @@ recompiles, which replaces the reference's shader-define toggles
 The port's own copy of `fyp_bidirectionalpathtracer_tpu/utils/config.py`:
 the same dataclasses, fields and defaults (held equal by
 `tests/test_torch_scene.py`), so that the port imports nothing of the JAX
-package.  The port accepts every field; the comments on TPU tuning knobs
-describe the JAX package, where the port ignores them."""
+package.  The frame options (`splat_mode`, `splat_segments`,
+`sort_bounces`, `sort_shadows`, `reverse_shadows`, `merge_shadow_batches`
+and the `debug_stub_*` stubs) act as in the JAX package: `passes/bdpt.py`
+and `ops/splat.py` say how.  The comments' times and rates are the JAX
+package's, measured on a TPU."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace

@@ -51,6 +51,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
     RenderConfig,
 )
 from test_torch_textured import jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W, H = 64, 48
 T_MIN = 1e-3

@@ -53,6 +53,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 from test_torch_scene import _assert_bake_equals_jax
 from test_torch_wavefront import _assert_image_bounds
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CAMERA_POSE = ("pos_w", "target", "up")
 DT = 1.0 / 60.0

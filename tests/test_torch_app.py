@@ -39,6 +39,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, Rende
 from fyp_bidirectionalpathtracer_tpu_torch.utils.image import read_png, write_png
 from fyp_bidirectionalpathtracer_tpu_torch.utils.profiler import Profiler
 from test_torch_textured import jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W = 20, 28
 SMALL = ["--scene", "cornell", "--width", "16", "--height", "16"]

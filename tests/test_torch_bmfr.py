@@ -47,6 +47,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BMFRConfig, RenderConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 KEYS = ("WorldPosition", "WorldNormal", "MaterialDiffuse", "Accumulated")
 STATE_FIELDS = ("prev_pos", "prev_norm", "prev_noisy", "prev_filtered", "frame_number")

@@ -44,6 +44,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.models.pink_room import pink_room
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box, icosphere
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
 from fyp_bidirectionalpathtracer_tpu_torch.scene.types import BVHArrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CSRC = (Path(__file__).resolve().parent.parent / "fyp_bidirectionalpathtracer_tpu_torch"
         / "csrc")

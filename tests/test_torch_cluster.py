@@ -35,6 +35,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
 from fyp_bidirectionalpathtracer_tpu_torch.accel.traverse import make_intersector
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import baked_scene_from_arrays
 from fyp_bidirectionalpathtracer_tpu_torch.scene.types import BVHArrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 T_MIN = 1e-3
 T_ATOL = 1e-7  # one float32 ulp of n.o near a plane (test_torch_intersect.py)

@@ -1,5 +1,6 @@
-"""K1 (and its textured variant), K2, K3, K5, K6, the K4 intersectors and
-the BVH kernels against their plain versions on an H100, and the frames
+"""K1 (and its textured variant), K2, K3, K5 (also with `segments`), K6,
+the K4 intersectors and the BVH kernels (also with a ray `order`) against
+their plain versions on an H100, and the frames
 (Cornell, pink_room, the textured room's deferred-texture megakernel)
 against the plain chain; K1 at every depth the gate admits and at its
 2,048 triangles, K3 and K5 also on ragged inputs.
@@ -21,6 +22,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.accel import subpath
 from fyp_bidirectionalpathtracer_tpu_torch.core import rng
 from fyp_bidirectionalpathtracer_tpu_torch.core.samplers import cos_hemisphere_sample
 from fyp_bidirectionalpathtracer_tpu_torch.ops.compact import compact_live, compact_plain
+from fyp_bidirectionalpathtracer_tpu_torch.ops.raysort import sort_order
 from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     pack_rgb8e,
     reduce_rows_plain,
@@ -605,3 +607,66 @@ def test_textured_frame_with_splats_matches_plain_chain(dev, mode):
     assert (d.amax(-1) > 1e-3).float().mean() <= 0.02
     assert d.mean() < 5e-3
     assert abs(imgs[0][..., :3].mean() - imgs[1][..., :3].mean()) < 2e-3
+
+
+@pytest.mark.parametrize("w,h", [(64, 36), (1111, 501)])
+def test_bvh_kernels_with_order_bit_equal(dev, w, h):
+    """The BVH kernels walking pink_room's rays in the direction-sorted
+    order (`ops/raysort.sort_order`) and in a random order answer every ray
+    as the unordered launch does, bit for bit, and equal the plain versions
+    given the same order; each ordered launch counts as its variant."""
+    baked = _baked(dev, "pink_room", w, h)
+    walk = (baked.bw_rows, baked.n_tris, baked.bvh_pairs)
+    g = torch.Generator().manual_seed(3)
+    cuda.reset_launch_counts()
+    for kind, cull in (("gbuffer", True), ("bounce", False), ("shadow", False)):
+        o, d, tmax = _scene_rays(baked, w, h, kind, dev, 0.3)
+        n = o.numel() // 3
+        for order in (sort_order(o, d, 1e-3, tmax, baked.sort_bounds),
+                      torch.randperm(n, generator=g).to(torch.int32).to(dev)):
+            shaded = (baked.tri_pack, baked.n_tris, baked.bw_rows, baked.bvh_pairs, o, d, 1e-3,
+                      tmax, cull)
+            _, kf = cluster.bvh_shaded_fm(*shaded, order=order)
+            _, uf = cluster.bvh_shaded_fm(*shaded)
+            kc = cluster.bvh_closest(*walk, o, d, 1e-3, tmax, cull, order=order)
+            uc = cluster.bvh_closest(*walk, o, d, 1e-3, tmax, cull)
+            assert torch.equal(_bits(kf), _bits(uf)), kind
+            for k in ("t", "tri", "bary_u", "bary_v"):
+                assert torch.equal(_bits(getattr(kc, k)), _bits(getattr(uc, k))), (kind, k)
+            if w * h < 10_000:  # the plain version with the order, on the CPU
+                pc = cluster.bvh_closest(baked.bw_rows.cpu(), baked.n_tris,
+                                         baked.bvh_pairs.cpu(), o.cpu(), d.cpu(), 1e-3,
+                                         None if tmax is None else tmax.cpu(), cull,
+                                         order=order.cpu())
+                assert torch.equal(_bits(kc.t.cpu()), _bits(pc.t))
+                assert torch.equal(kc.tri.cpu(), pc.tri)
+            if kind == "shadow":
+                ko = cluster.bvh_occluded(*walk, o, d, 1e-3, tmax, order=order)
+                assert torch.equal(ko, cluster.bvh_occluded(*walk, o, d, 1e-3, tmax))
+    assert cuda.LAUNCHES_BY_VARIANT["bvh_shaded[order]"] == 6
+    assert cuda.LAUNCHES_BY_VARIANT["bvh_closest[order]"] == 6
+    assert cuda.LAUNCHES_BY_VARIANT["bvh_occluded[order]"] == 2
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.float32, 4), (torch.float32, 3),
+                                        (torch.bfloat16, 4), (torch.bfloat16, 3)])
+@pytest.mark.parametrize("case", ["est2", "ragged_targets"])
+def test_splat_rows_kernel_segments_bit_equal(dev, dtype, rows, case):
+    """K5 with segments=3 (three runs, each sorted) bit-equal to its plain
+    version and to K5 on the flat stable sort of the same updates."""
+    g = torch.Generator().manual_seed(12)
+    n_t = 60_000 if case == "est2" else 5 * 1024 + 37
+    run = 3 * n_t // 3 if case == "est2" else 20_003
+    keys = torch.randint(0, n_t + 3000, (3, run), generator=g)
+    keys[:, ::3] = ((n_t + 1023) // 1024) * 1024  # dead updates
+    seg = torch.sort(keys, dim=1, stable=True)[0].reshape(-1).to(torch.int32)
+    vals = (torch.rand(rows, seg.numel(), generator=g) * 3.0).to(dtype)
+    cuda.reset_launch_counts()
+    got = splat_reduce_rows(seg.to(dev), vals.to(dev), n_t, segments=3).cpu()
+    assert cuda.LAUNCHES["splat_rows"] == 1
+    assert cuda.LAUNCHES_BY_VARIANT["splat_rows[segments]"] == 1
+    want = reduce_rows_plain(seg, vals, n_t, segments=3)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    flat_keys, order = torch.sort(seg, stable=True)
+    flat = splat_reduce_rows(flat_keys.to(dev), vals[:, order].contiguous().to(dev), n_t).cpu()
+    assert torch.equal(got.view(torch.int32), flat.view(torch.int32))

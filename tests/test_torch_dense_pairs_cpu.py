@@ -46,6 +46,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
     textured_room,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CSRC = (Path(__file__).resolve().parent.parent / "fyp_bidirectionalpathtracer_tpu_torch"
         / "csrc")

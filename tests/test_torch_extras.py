@@ -33,6 +33,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.lights import light_rows, make_
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene, baked_scene_from_arrays
 from test_torch_textured import jax_scene_arrays
 from test_torch_wavefront import _assert_image_bounds
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-5
 SIZE = 24

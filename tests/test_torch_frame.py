@@ -46,6 +46,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import (
     render_frame_fn,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import baked_scene_from_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W = H = 32
 N_FRAMES = 3

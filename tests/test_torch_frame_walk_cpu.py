@@ -55,6 +55,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
 from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CSRC = (Path(__file__).resolve().parent.parent / "fyp_bidirectionalpathtracer_tpu_torch"
         / "csrc")

@@ -3,8 +3,9 @@ in its source (a static check of every import statement) nor at run time
 (a subprocess that refuses those imports, and PIL, which the machine with
 the card lacks, renders the Cornell box through both paths and with the
 BMFR denoiser on, pink_room with
-its procedural textures and the textured room through the deferred-texture
-megakernel with both splat kernels' plain versions, the alpha panel scene
+its procedural textures (its incoherent batches walked in the order of
+ops/raysort.py, whose functions it also calls) and the textured room
+through the deferred-texture megakernel with both splat kernels' plain versions, the alpha panel scene
 (the restarts), an env-mapped normal-mapped Cornell box with a tone map
 and the probe-lit pass, runs the fused subpath builder, imports every
 module of the entry point (app, image I/O, golden harness, checkpoint,
@@ -18,6 +19,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "fyp_bidirectionalpathtracer_tpu_torch"
@@ -89,6 +91,16 @@ room = Scene.from_built(pink_room(asset_dir=""), aspect=1.6).bake(device="cpu")
 out = Renderer(room, RenderConfig(width=16, height=10)).render_frame()
 assert tuple(out.shape) == (10, 16, 4) and bool(out.isfinite().all())
 print("pink_room", "ok")
+import torch
+from fyp_bidirectionalpathtracer_tpu_torch.ops import raysort
+o = torch.rand(64, 3) * 4.0 - 2.0
+d = torch.nn.functional.normalize(torch.randn(64, 3), dim=-1)
+order = raysort.sort_order(o, d, 1e-3, torch.rand(64), room.sort_bounds)
+assert sorted(order.tolist()) == list(range(64))
+assert raysort.ray_sort_keys(o, d, *raysort.scene_bounds(room.tris)).dtype == torch.int32
+hit = room.intersector()(o, d, 1e-3, torch.rand(64) * 5.0, closest=False, coherent=False)
+assert tuple(hit.t.shape) == (64,)
+print("raysort", "ok")
 import torch
 from fyp_bidirectionalpathtracer_tpu_torch.accel.subpath import build_subpath
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import textured_room
@@ -188,8 +200,8 @@ def test_port_renders_with_jax_imports_refused():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["on", "ok", "off", "ok", "bmfr", "ok", "pink_room", "ok",
-                                   "textured", "ok", "subpath", "ok", "alpha", "ok",
-                                   "env", "ok", "app", "ok", "io", "ok"], proc.stdout
+                                   "raysort", "ok", "textured", "ok", "subpath", "ok",
+                                   "alpha", "ok", "env", "ok", "app", "ok", "io", "ok"], proc.stdout
 
 
 _SHARDED_RUN = f"""

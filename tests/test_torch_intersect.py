@@ -34,6 +34,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.accel import intersect as isect
 from fyp_bidirectionalpathtracer_tpu_torch.accel.traverse import HitRecord, make_intersector
 from fyp_bidirectionalpathtracer_tpu_torch.ops import shading
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import baked_scene_from_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 T_MIN = 1e-3
 # t = (n.v0 - n.o) / n.d cancels for an origin near the plane: one float32

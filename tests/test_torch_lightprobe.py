@@ -37,6 +37,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import (
 )
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene, baked_scene_from_arrays
 from test_torch_textured import jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 

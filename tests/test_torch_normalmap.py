@@ -29,6 +29,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 from test_torch_alpha import H, W, assert_frames_within_bounds, render_both
 from test_torch_textured import jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _map(kind):

@@ -3,8 +3,10 @@ single-device frame and the JAX package's sharded functions.
 
 Every run of the port on two ranks shares one launch of two gloo ranks on
 the CPU (the `ranks` fixture: ~12 s, most of it the frames), and the app's
-three --shard runs each launch their own; the whole file takes ~70 s
-serially.  It holds:
+three --shard runs each launch their own; the whole file takes ~60 s
+serially, alone.  This process and the ranks run one intra-op thread each
+(`torch_threads.one_intra_op_thread`): in a parallel test run, the default
+of one a core in every process made the file take ~670 s.  It holds:
 
 - (a) `frame_plain` over 2 and 3 row shards (`FrameArgs.pix0`,
   `sub_pixels`), side by side, bit for bit against the whole-image call:
@@ -75,6 +77,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.utils.config import (
     BMFRConfig,
     RenderConfig,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 GBUF_KEYS = ("WorldPosition", "WorldNormal", "MaterialDiffuse",
              "MaterialSpecRough", "MaterialExtraParams", "Emissive")

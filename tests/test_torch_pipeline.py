@@ -14,6 +14,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import RenderConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SIZE = 64
 # the JAX package's golden bar (utils/testing.golden_compare)

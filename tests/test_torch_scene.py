@@ -32,6 +32,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
 )
 from fyp_bidirectionalpathtracer_tpu_torch.utils import config
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def jax_scene_arrays(jb) -> dict:
@@ -194,27 +195,47 @@ def _base_textured():
     (RenderConfig(width=8, height=8, tone_map_operator="aces"), cornell_box),
 ], ids=["defer-textures", "splat-sorted", "tonemap"])
 def test_pipeline_refuses_unported_options(cfg, built):
-    """defer-textures: the deferred-texture megakernel runs, and its splat
-    in the timing-attribution mode `tiled_sortonly` raises and names the
-    ROADMAP's 'not ported' list rather than returning zeros.  tonemap (a
-    refusal of earlier slices): the frame renders and `display` applies
-    the ACES operator as JAX's `tone_map` does, within atol 1e-6."""
-    r = Renderer(Scene.from_built(built(), aspect=1.0).bake(device="cpu"), cfg)
+    """Options of earlier slices' refusals, now ported.  defer-textures: the
+    deferred-texture megakernel runs, and its splat in the timing-attribution
+    mode `tiled_sortonly` gives zeros, so the frame equals the one with the
+    splat skipped bit for bit and differs from the one with splats.
+    splat-sorted: the megakernel frame with the sorted splat is within
+    1e-5 of the frame with the direct splat (prefix-sum rounding).  tonemap:
+    the frame renders and `display` applies the ACES operator as JAX's
+    `tone_map` does, within atol 1e-6."""
+    baked = Scene.from_built(built(), aspect=1.0).bake(device="cpu")
+    r = Renderer(baked, cfg)
+    r.render_frame()
     if cfg.tone_map_operator != "clamp":
-        r.render_frame()
         out = r.channels["PipelineOutput"][..., :3].numpy()
         want = jtonemap.tone_map(out, jtonemap.OPERATOR_NAMES[cfg.tone_map_operator])
         np.testing.assert_allclose(r.display().numpy(), np.asarray(want), atol=1e-6)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render_frame()
-        r.display()
+
+    def frame(mode):
+        other = Renderer(baked, dataclasses.replace(
+            cfg, bdpt=dataclasses.replace(cfg.bdpt, splat_mode=mode)))
+        other.render_frame()
+        return other.channels["BDPT"]
+
+    got = r.channels["BDPT"]
+    if cfg.bdpt.splat_mode == "tiled_sortonly":
+        assert torch.equal(got.view(torch.int32), frame("skip").view(torch.int32))
+        assert not torch.equal(got, frame("direct"))
+    else:
+        torch.testing.assert_close(got, frame("direct"), atol=1e-5, rtol=0)
 
 
 def test_unported_splat_mode_raises():
-    lin = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scatter_add_rgba("sorted", lin, torch.zeros(4, 3), torch.ones(4), 8)
+    """Every splat mode of JAX's runs now ('sorted' within the prefix
+    sums' rounding of 'direct'); a mode JAX does not have raises."""
+    lin = torch.tensor([0, 3, 3, 5], dtype=torch.int32)
+    rgb = torch.rand(4, 3, generator=torch.Generator().manual_seed(1))
+    got = scatter_add_rgba("sorted", lin, rgb, torch.ones(4), 8)
+    torch.testing.assert_close(got, scatter_add_rgba("direct", lin, rgb, torch.ones(4), 8),
+                               atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="unknown splat mode"):
+        scatter_add_rgba("sorted_by_depth", lin, rgb, torch.ones(4), 8)
 
 
 # ------------------------------------------------ the port's own copies

@@ -37,6 +37,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
 from fyp_bidirectionalpathtracer_tpu_torch.utils.image import read_png_rgba, write_png
 from test_torch_image import _encode_png
 from test_torch_scene import _assert_bake_equals_jax, jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CAMERA_POSE = ("pos_w", "target", "up")
 

@@ -26,6 +26,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     splat_reduce,
     unpack_rgb8e,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _rgb8e_inputs():
@@ -165,3 +166,86 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     assert all(v == 0 for v in cuda.LAUNCHES.values())
     with pytest.raises(TypeError):
         compact_live(keys.to(torch.int64), pay, 9, 1024)
+
+
+# ------------------------------------------- the scatter-workaround modes
+def _est2_updates(seed, count):
+    """The estimator-2 splat's shape scaled down: 3 depths x a 64x48 image
+    (U = 9,216 of the 1280x720 frame's 2,764,800), 15% live, the dead ones
+    at n_targets; radiance over four decades; alpha the count or real."""
+    n_targets = 64 * 48
+    lin, rgb = _splat_updates(seed, n_targets, 3 * n_targets, 0.15)
+    rs = np.random.RandomState(seed + 1)
+    rgb *= (10.0 ** rs.uniform(-3, 1, (rgb.shape[0], 1))).astype(np.float32)
+    live = lin < n_targets
+    alpha = live.astype(np.float32) if count else rs.rand(lin.shape[0]).astype(np.float32)
+    return lin, rgb, alpha, n_targets
+
+
+def _both(mode, lin, rgb, alpha, n_targets, count):
+    from fyp_bidirectionalpathtracer_tpu.ops.splat import scatter_add_rgba as jscatter
+
+    want = np.asarray(jscatter(mode, jnp.asarray(lin), jnp.asarray(rgb), jnp.asarray(alpha),
+                               n_targets, alpha_is_count=count))
+    got = scatter_add_rgba(mode, torch.from_numpy(lin), torch.from_numpy(rgb),
+                           torch.from_numpy(alpha), n_targets, alpha_is_count=count).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("count", [True, False], ids=["count", "alpha"])
+def test_packed_mode_bit_equal_to_jax(count):
+    """'packed': int32 fixed point at 2^-18, prefix sums wrapped at 32 bits
+    as XLA's int32, the scatter-max of segment ends: bit for bit; and within
+    the quantization (2^-19 an update) of the exact sum."""
+    lin, rgb, alpha, n_t = _est2_updates(21, count)
+    got, want = _both("packed", lin, rgb, alpha, n_t, count)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    exact = scatter_add_rgba_direct(torch.from_numpy(lin), torch.from_numpy(rgb),
+                                    torch.from_numpy(alpha), n_t).double().numpy()
+    n_upd = np.bincount(lin[lin < n_t], minlength=n_t)[:, None]
+    assert np.all(np.abs(got - exact) <= n_upd * 2.0 ** -19 + 1e-6)
+
+
+def test_packed_mode_wraps_as_int32():
+    """Prefix sums past 2^31 wrap, and a pixel's total (below 2^13) is
+    still exact: 10 updates of 500 a pixel on 4 pixels, 20,000 in all."""
+    lin = np.repeat(np.arange(4, dtype=np.int32), 10)
+    rgb = np.full((40, 3), 500.0, np.float32)
+    got, want = _both("packed", lin, rgb, np.ones(40, np.float32), 4, True)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got, np.tile([[5000.0] * 3 + [10.0]], (4, 1)))
+
+
+@pytest.mark.parametrize("mode", ["sorted", "complex"])
+@pytest.mark.parametrize("count", [True, False], ids=["count", "alpha"])
+def test_sorted_and_complex_modes_match_jax(mode, count):
+    """'complex' scatter-adds float pairs in update order: within the
+    direct mode's rtol 1e-6.  'sorted' takes a pixel's total as the
+    difference of two float32 prefix sums over all sorted updates, whose
+    rounding (JAX's cumsum associates in another order than torch's) is
+    relative to the prefix, not to the pixel: within 2^-20 of the
+    channel's whole sum of either package (8 float32 ulps of the largest
+    prefix), and of the exact sum."""
+    lin, rgb, alpha, n_t = _est2_updates(22, count)
+    got, want = _both(mode, lin, rgb, alpha, n_t, count)
+    exact = scatter_add_rgba_direct(torch.from_numpy(lin), torch.from_numpy(rgb),
+                                    torch.from_numpy(alpha), n_t).numpy()
+    if mode == "complex":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(got, exact, rtol=1e-6, atol=1e-7)
+    else:
+        prefix = exact.sum(0) * 2.0 ** -20
+        assert np.all(np.abs(got - want) <= prefix), np.abs(got - want).max(0) / prefix
+        assert np.all(np.abs(got - exact) <= prefix)
+    assert float(got[:, 3].sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["skip", "tiled_sortonly"])
+@pytest.mark.parametrize("count", [True, False], ids=["count", "alpha"])
+def test_timing_stub_modes_give_zeros(mode, count):
+    """'skip' and 'tiled_sortonly' (the sort kept, no reduction) give the
+    zeros JAX gives."""
+    lin, rgb, alpha, n_t = _est2_updates(23, count)
+    got, want = _both(mode, lin, rgb, alpha, n_t, count)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert got.shape == (n_t, 4) and not got.any()

@@ -7,9 +7,10 @@ order than the port's one-add-at-a-time sum, so counts are held exactly
 and every other channel to float32 re-association (rtol 1e-6, and 1e-6 of
 the channel's largest sum where a sum cancels to ~0).  The port's own
 orders are held bit for bit: K5's plain version is a sequential sum in
-sorted order.  The port ignores `segments` and sorts flat, which gives each
-pixel the order of JAX's per-segment sorts, so JAX's `segments=3` results
-are held to the same tolerance.
+sorted order.  With `segments` S both packages sort each of the S runs on
+its own and sum a pixel's updates run by run, the order the flat stable
+sort gives them: the port's segmented sums equal its flat ones bit for
+bit, and JAX's `segments=3` results are held to the same tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +30,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.ops.splat_tile import (
     splat_reduce_rows,
     unpack2bf16,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N_TARGETS = 2500          # no multiple of the 1024-pixel tile; sentinel 3072
 U = 3 * 1400              # three depth segments
@@ -99,8 +101,10 @@ def test_tiled_matches_jax(pack, count, segments, mxu):
 
 
 def test_tiled_empty_and_segments_order():
-    """An empty input gives zeros; `segments` is ignored (the flat stable
-    sort already orders each pixel's updates depth by depth)."""
+    """An empty input gives zeros; `segments=3` (three runs, each sorted on
+    its own, summed run by run by K5's plain version) equals the flat sort's
+    sums bit for bit, for every pack; a count that does not divide U takes
+    one run, as JAX's does."""
     empty = scatter_add_rgba_tiled(torch.zeros(0, dtype=torch.int32), torch.zeros(0, 3),
                                    torch.zeros(0), 100, True)
     assert empty.shape == (100, 4) and not bool(empty.any())
@@ -109,6 +113,8 @@ def test_tiled_empty_and_segments_order():
         flat = scatter_add_rgba_tiled(lin, rgb, alpha, N_TARGETS, count, pack=pack)
         seg = scatter_add_rgba_tiled(lin, rgb, alpha, N_TARGETS, count, pack=pack, segments=3)
         assert torch.equal(flat.view(torch.int32), seg.view(torch.int32)), pack
+        odd = scatter_add_rgba_tiled(lin, rgb, alpha, N_TARGETS, count, pack=pack, segments=11)
+        assert U % 11 and torch.equal(flat.view(torch.int32), odd.view(torch.int32)), pack
 
 
 def test_reduce_rows_plain_is_the_sequential_sum():
@@ -164,13 +170,38 @@ def test_modes_match_jax_dispatch(mode, count):
 
 def test_auto_resolution_and_refused_modes():
     """'auto': tiled_rgb8e for a count alpha on a CUDA device, tiled_bf16w
-    for any other alpha there (as JAX on the TPU), direct on the CPU; the
-    timing-attribution modes raise naming the ROADMAP."""
+    for any other alpha there (as JAX on the TPU), direct on the CPU; every
+    mode of JAX's runs (none raises any more), and a mode JAX does not have
+    raises."""
     assert resolve_mode("auto", True, True) == "tiled_rgb8e"
     assert resolve_mode("auto", True, False) == "tiled_bf16w"
     assert resolve_mode("auto", False, True) == resolve_mode("auto", False, False) == "direct"
     assert resolve_mode("tiled", True, True) == "tiled"
-    lin = torch.zeros(4, dtype=torch.int32)
-    for mode in ("tiled_sortonly", "skip", "packed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            scatter_add_rgba(mode, lin, torch.zeros(4, 3), torch.ones(4), 8, alpha_is_count=True)
+    lin = torch.tensor([0, 3, 3, 8], dtype=torch.int32)
+    for mode in ("direct", "sorted", "packed", "complex", "tiled", "tiled_bf16", "tiled_bf16w",
+                 "tiled_rgb8e", "tiled_sortonly", "skip", "auto"):
+        out = scatter_add_rgba(mode, lin, torch.ones(4, 3), torch.ones(4), 8, alpha_is_count=True)
+        assert out.shape == (8, 4), mode
+    with pytest.raises(ValueError, match="unknown"):
+        scatter_add_rgba("tiled_fp8", lin, torch.zeros(4, 3), torch.ones(4), 8)
+
+
+def test_segmented_rows_reduction_and_checks():
+    """K5's plain version with segments=3: three sorted runs summed run by
+    run, bit-equal to a literal loop that takes a pixel's updates of run 0,
+    then of run 1, then of run 2; a run count that does not divide M
+    raises in the wrapper and the plain version."""
+    rs = np.random.RandomState(8)
+    m, n_t = 3 * 500, 40
+    keys = np.sort(rs.randint(0, n_t + 3, size=(3, m // 3)), axis=1).astype(np.int32).ravel()
+    vals = (rs.rand(4, m) * 10.0 ** rs.uniform(-3, 3, size=(1, m))).astype(np.float32)
+    got = splat_reduce_rows(torch.from_numpy(keys), torch.from_numpy(vals), n_t, segments=3)
+    want = np.zeros((n_t, 4), np.float32)
+    for i in range(m):
+        if keys[i] < n_t:
+            want[keys[i]] = (want[keys[i]] + vals[:, i]).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    with pytest.raises(ValueError, match="runs"):
+        splat_reduce_rows(torch.from_numpy(keys), torch.from_numpy(vals), n_t, segments=7)
+    with pytest.raises(ValueError, match="runs"):
+        reduce_rows_plain(torch.from_numpy(keys), torch.from_numpy(vals), n_t, segments=0)

@@ -35,6 +35,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.passes import bdpt as bdpt_mod
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import baked_scene_from_arrays
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig
 from test_torch_textured import jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FIELDS = ("color", "pos", "n", "v", "dif", "spec", "rough", "pdf")
 EXACT = ("hit", "take", "is_spec")

@@ -48,6 +48,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
     baked_scene_from_arrays,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 T_MIN = 1e-3
 

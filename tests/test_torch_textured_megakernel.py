@@ -48,6 +48,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import (
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene, baked_scene_from_arrays
 from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
 from test_torch_textured import jax_scene_arrays
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W, H = 32, 24
 GBUF_KEYS = ("WorldPosition", "WorldNormal", "MaterialDiffuse", "MaterialSpecRough",
