@@ -82,8 +82,9 @@ card's name and power limit, the line before that lists the kernels with
 their launch counts, errors, times and bounds, and the line before that
 is the BMFR phase's {"bmfr": {...}}: ms/frame on and off, the stage times
 and device operations by solver, the card-vs-CPU errors and the
-regression's bound.  Before it come {"phase6": {...}}, {"phase8": {...}}
-and {"phase9": {...}}.
+regression's bound.  Before it come {"phase6": {...}}, {"phase8": {...}},
+{"phase9": {...}}, {"phase10": {...}}, {"phase11": {...}} and
+{"phase12": {...}}.
 
 Phase 9 drives scene I/O and animation at 1280x720, every file written
 by the port's own writers into a temporary folder: 9a, an .fscene whose
@@ -145,6 +146,23 @@ gains the variants `bvh_shaded[order]`, `bvh_closest[order]`,
 `bvh_occluded[order]` (the ordered launch on the batch the main path
 orders: extensions, the shadow batch) and `splat_rows[segments]`, each with
 the launches of the main path's run (`cuda.LAUNCHES_BY_VARIANT`).
+
+Phase 12 (after 11, before 5e) drives the image decoders, which this
+machine needs, having no PIL: 12a, every fixture of `tests/torch_images/`
+(JPEG baseline, progressive, 4:4:4 / 4:2:2 / 4:2:0, restarts, grey, EXIF;
+PNG at 2, 4 and 16 bits, Adam7; TGA raw, RLE, colour-mapped, 16-bit; BMP
+palettes, 16 / 24 / 32 bits, bit fields) decoded bit-equal to PIL's
+decode checked in beside it, host ms a file and a megapixel (best of 3);
+12b, the alpha panel as OBJ + MTL with its cutout map_Kd a 32-bit RLE TGA
+and the walls' map_Kd a progressive 4:2:0 JPEG, through `app.main
+--scene`, its launches equal to and its image bit-equal to the same scene
+with PNG maps of the same pixels; 12c, `--envmap` with the 1024x512
+baseline JPEG and `--probe` (phase 8d's route and launches), render and
+probe_lit bit-equal to its PNG twin's; 12d, pink_room built from the
+fixtures under its 28 texture names, its atlas and frames bit-equal to
+those of a folder of their PNG twins and unlike the checkerboard build's,
+the launches of the twins' route.  Each with ms a frame by CUDA events;
+its numbers are the line {"phase12": ...}, after {"phase11": ...}.
 """
 from __future__ import annotations
 
@@ -153,6 +171,7 @@ import io
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -438,6 +457,31 @@ def write_png_rgba(path: str, rgba: np.ndarray) -> None:
         fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)))
         fh.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         fh.write(chunk(b"IEND", b""))
+
+
+def write_tga_rle32(path: str, rgba: np.ndarray) -> None:
+    """A 32-bit RLE TGA (type 10, top-left origin) of float [H, W, 4] in
+    [0, 1], rounded as `write_png_rgba` rounds: phase 12b's cutout map.
+    Each row is runs of equal pixels and raw packets, 128 pixels at most."""
+    u8 = np.clip(np.rint(np.asarray(rgba, np.float32) * 255.0), 0, 255).astype(np.uint8)
+    h, w = u8.shape[:2]
+    out = bytearray(struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 32, 0x28))
+    for row in u8[..., [2, 1, 0, 3]]:
+        px = [p.tobytes() for p in row]
+        x = 0
+        while x < w:
+            n = 1
+            while x + n < w and n < 128 and px[x + n] == px[x]:
+                n += 1
+            if n > 1:
+                out += bytes([0x80 | (n - 1)]) + px[x]
+            else:
+                while x + n < w and n < 128 and px[x + n] != px[x + n - 1]:
+                    n += 1
+                out += bytes([n - 1]) + b"".join(px[x:x + n])
+            x += n
+    with open(path, "wb") as fh:
+        fh.write(bytes(out))
 
 
 def write_json(path: str, doc: dict) -> str:
@@ -2750,6 +2794,170 @@ def main() -> int:
     p11["phase_s"] = time.perf_counter() - t11
     log(f"phase 11: {p11['phase_s']:.1f} s")
 
+    # ---- phase 12: the image decoders (utils/jpeg.py, utils/raster.py) -------
+    # before phase 5e's profiler, as phases 6 and 8-11; this machine has no
+    # PIL.  12a: every fixture of tests/torch_images/ decoded and held bit
+    # for bit to PIL's decode checked in beside it, host ms a file and a
+    # megapixel.  12b: the alpha panel as OBJ + MTL with its cutout map_Kd a
+    # 32-bit RLE TGA and the walls' map_Kd a progressive 4:2:0 JPEG, through
+    # app.main --scene, against the same scene with PNG maps of the same
+    # pixels.  12c: --envmap with the 1024x512 baseline JPEG and --probe
+    # (phase 8d's route) against its PNG twin.  12d: pink_room built from a
+    # folder of the fixtures under its texture names against a folder of
+    # their PNG twins and against the checkerboard build.  Launches equal
+    # to the PNG route's, frames bit-equal to it, ms a frame by CUDA events.
+    from fyp_bidirectionalpathtracer_tpu_torch.models import pink_room as pink_mod
+    from fyp_bidirectionalpathtracer_tpu_torch.utils.image import read_image, read_rgba
+
+    t12 = time.perf_counter()
+    p12 = {"device": smi, "size": f"{WIDTH}x{HEIGHT}"}
+    fixture_dir = os.path.join(REPO, "tests", "torch_images")
+    fixtures = sorted(f for f in os.listdir(fixture_dir) if not f.endswith((".py", ".pil.png")))
+    decodes = {}
+    for name in fixtures:
+        path = os.path.join(fixture_dir, name)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            got = read_rgba(path)
+            times.append((time.perf_counter() - t) * 1e3)
+        want = read_rgba(path + ".pil.png")
+        if got.shape != want.shape or not np.array_equal(got.view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"12a: {name} does not decode as PIL does")
+        mpix = got.shape[0] * got.shape[1] / 1e6
+        decodes[name] = {"size": f"{got.shape[1]}x{got.shape[0]}", "bytes": os.path.getsize(path),
+                         "ms": min(times), "ms_per_megapixel": min(times) / mpix}
+    p12["12a decodes"] = decodes
+    env_dec = decodes["env_1024x512.jpg"]
+    log(f"12a {len(fixtures)} fixtures (JPEG, PNG, TGA, BMP) decoded bit-equal to PIL's decodes; "
+        f"host ms (best of 3): " + ", ".join(f"{k} {v['ms']:.2f}" for k, v in decodes.items())
+        + f"; the 1024x512 JPEG {env_dec['ms']:.2f} ms, {env_dec['ms_per_megapixel']:.2f} ms/MP")
+
+    with tempfile.TemporaryDirectory() as tmp12:
+        # 12b: the OBJ panel, TGA + JPEG maps against PNG maps of the same pixels
+        panel = procedural.alpha_panel_scene()
+        cut = panel.materials[1].base_color_image
+        runs_b = {}
+        for label, cut_map, wall_map in (("tga+jpeg", "cutout.tga", "walls.jpg"),
+                                         ("png", "cutout.png", "walls.png")):
+            d = f"{tmp12}/b_{label}"
+            os.makedirs(d)
+            save_obj(f"{d}/panel.obj", panel.meshes, panel.materials)
+            write_tga_rle32(f"{d}/cutout.tga", cut)
+            write_png_rgba(f"{d}/cutout.png", cut)
+            shutil.copy(os.path.join(fixture_dir, "progressive_420.jpg"), f"{d}/walls.jpg")
+            write_png(f"{d}/walls.png", read_png(f"{d}/walls.jpg"))
+            mtl = open(f"{d}/panel.mtl").read()
+            mtl = mtl.replace("newmtl panel\n", f"newmtl panel\nmap_Kd {cut_map}\n")
+            mtl = mtl.replace("newmtl white\n", f"newmtl white\nmap_Kd {wall_map}\n")
+            open(f"{d}/panel.mtl", "w").write(mtl)
+            res, launches = run_app(["--scene", f"{d}/panel.obj", "--frames", "2",
+                                     "--outputdir", f"{d}/out"])
+            runs_b[label] = (res, launches, d)
+        (res_t, launches_t, d_t), (res_p, launches_p, d_p) = runs_b["tga+jpeg"], runs_b["png"]
+        maps_equal = all(np.array_equal(read_rgba(f"{d_t}/{a}"), read_rgba(f"{d_p}/{b}"))
+                         for a, b in (("cutout.tga", "cutout.png"), ("walls.jpg", "walls.png")))
+        bk12b = app.load_scene(f"{d_t}/panel.obj").bake(max_lights=16, device=dev)
+        first_b, last_b, ms_b, host_b, frame_launches_b, n_b12 = frames11(bk12b, 2)
+        if not (maps_equal and launches_t == launches_p and same_file(res_t["output"],
+                                                                       res_p["output"])
+                and bk12b.has_alpha and launches_t.get("shaded", 0) > 0):
+            raise AssertionError(f"12b: the TGA/JPEG-mapped panel differs from the PNG-mapped "
+                                 f"one (maps equal {maps_equal}, launches {launches_t} vs "
+                                 f"{launches_p})")
+        p12["12b obj tga + jpeg maps"] = {
+            "tris": bk12b.n_tris, "frames": 2, "launches": launches_t,
+            "png_route_launches": launches_p, "image_bit_equal_to_png_route": True,
+            "sec_per_frame": res_t["sec_per_frame"], "ms_per_frame": ms_b,
+            "host_ms_per_frame": host_b, "renderer_launches": frame_launches_b,
+            "renderer_frames": n_b12}
+        log(f"12b app.main --scene panel.obj (map_Kd a 32-bit RLE TGA cutout and a progressive "
+            f"4:2:0 JPEG) {WIDTH}x{HEIGHT}, 2 frames: launches {launches_t} = the PNG-mapped "
+            f"scene's, image bit-equal to it; Renderer {ms_b:.4f} ms/frame (CUDA events), host "
+            f"{host_b:.4f}")
+        del bk12b, first_b, last_b
+
+        # 12c: --envmap with the 1024x512 baseline JPEG, phase 8d's route
+        env_jpg = os.path.join(fixture_dir, "env_1024x512.jpg")
+        write_png(f"{tmp12}/env.png", read_png(env_jpg))
+        runs_c = {}
+        for label, env in (("jpeg", env_jpg), ("png", f"{tmp12}/env.png")):
+            runs_c[label] = run_app(["--frames", "6", "--envmap", env, "--probe",
+                                     "--outputdir", f"{tmp12}/c_{label}"])
+        (res_j, launches_j), (res_q, launches_q) = runs_c["jpeg"], runs_c["png"]
+        env_scene = Scene.from_built(cornell_box())
+        env_scene.env_map = read_image(env_jpg)
+        bk12c = env_scene.bake(max_lights=16, device=dev)
+        first_c, last_c, ms_c, host_c, frame_launches_c, n_c12 = frames11(bk12c, 3)
+        if not (launches_j == launches_q == want_d
+                and same_file(res_j["output"], res_q["output"])
+                and same_file(res_j["probe_lit"], res_q["probe_lit"])):
+            raise AssertionError(f"12c: the JPEG env map's run differs from the PNG's "
+                                 f"(launches {launches_j}, {launches_q}, want {want_d})")
+        p12["12c jpeg env map"] = {
+            "env": "1024x512 baseline JPEG", "frames": 6, "launches": launches_j,
+            "images_bit_equal_to_png_route": True, "sec_per_frame": res_j["sec_per_frame"],
+            "ms_per_frame": ms_c, "host_ms_per_frame": host_c}
+        log(f"12c --envmap (1024x512 baseline JPEG) --probe {WIDTH}x{HEIGHT}, 6 frames: launches "
+            f"{launches_j} = the PNG env map's, render and probe_lit bit-equal to it; Renderer "
+            f"{ms_c:.4f} ms/frame (CUDA events), host {host_c:.4f}")
+        del bk12c, first_c, last_c
+
+        # 12d: pink_room from the fixtures under its texture names, against
+        # their PNG twins (the checked-in decodes) and the checkerboard build
+        names = []
+        real_loader = pink_mod._load_texture
+        pink_mod._load_texture = lambda d, name, fallback: names.append(name) or fallback
+        try:
+            pink_mod.pink_room(asset_dir="")
+        finally:
+            pink_mod._load_texture = real_loader
+        jpgs = [f for f in fixtures if f.endswith(".jpg") and not f.startswith("env")]
+        others = [f for f in fixtures if not f.startswith("env")]
+        bakes = {}
+        for label, suffix in (("fixtures", ""), ("png twins", ".pil.png")):
+            folder = f"{tmp12}/tex_{label.replace(' ', '_')}"
+            os.makedirs(folder)
+            for i, name in enumerate(names):
+                src = jpgs[i % len(jpgs)] if name.endswith(".jpg") else others[i % len(others)]
+                shutil.copy(os.path.join(fixture_dir, src + suffix), os.path.join(folder, name))
+            t = time.perf_counter()
+            built = pink_room(asset_dir=folder)
+            build_ms = (time.perf_counter() - t) * 1e3
+            bakes[label] = (Scene.from_built(built, aspect=WIDTH / HEIGHT).bake(device=dev),
+                            build_ms)
+        bk_fix, bk_twin = bakes["fixtures"][0], bakes["png twins"][0]
+        atlas = bk_fix.data.textures
+        same_atlas = all(torch.equal(getattr(atlas, k), getattr(bk_twin.data.textures, k))
+                         for k in ("data", "sizes"))
+        differs = not (atlas.sizes.shape == pink_main.data.textures.sizes.shape
+                       and torch.equal(atlas.sizes, pink_main.data.textures.sizes)
+                       and torch.equal(atlas.data, pink_main.data.textures.data))
+        run_fix, run_twin = frames11(bk_fix, 2), frames11(bk_twin, 2)
+        frames_equal = same_bits(run_fix[0], run_twin[0]) and same_bits(run_fix[1], run_twin[1])
+        if not (same_atlas and differs and frames_equal and run_fix[4] == run_twin[4]
+                and run_fix[4].get("bvh_shaded", 0) > 0):
+            raise AssertionError(f"12d: pink_room from the fixtures: atlas equal to the PNG "
+                                 f"twins' {same_atlas}, unlike the checkerboards' {differs}, "
+                                 f"frames equal {frames_equal}, launches {run_fix[4]} vs "
+                                 f"{run_twin[4]}")
+        p12["12d pink_room texture folder"] = {
+            "textures": len(names), "tris": bk_fix.n_tris,
+            "build_ms_fixtures": bakes["fixtures"][1], "build_ms_png_twins": bakes["png twins"][1],
+            "frames": run_fix[5], "ms_per_frame": run_fix[2], "host_ms_per_frame": run_fix[3],
+            "png_twins_ms_per_frame": run_twin[2], "launches": run_fix[4],
+            "atlas_equal_to_png_twins": True, "atlas_differs_from_checkerboards": True,
+            "frames_bit_equal_to_png_twins": True}
+        log(f"12d pink_room from {len(names)} fixture files under its texture names "
+            f"({bk_fix.n_tris} tris) {WIDTH}x{HEIGHT}, {run_fix[5]} frames: {run_fix[2]:.4f} "
+            f"ms/frame (CUDA events; PNG twins {run_twin[2]:.4f}), host {run_fix[3]:.4f}; build "
+            f"{bakes['fixtures'][1]:.1f} ms (PNG twins {bakes['png twins'][1]:.1f}); atlas equal "
+            f"to the PNG twins' and unlike the checkerboard build's; frames bit-equal; launches "
+            f"{run_fix[4]}")
+        del bakes, bk_fix, bk_twin, run_fix, run_twin
+    p12["phase_s"] = time.perf_counter() - t12
+    log(f"phase 12: {p12['phase_s']:.1f} s")
+
     # ---- phase 5e: BMFR on the Cornell megakernel path ---------------------
     # bench.py's BMFR cell: every stage, the full screen; the BMFR-off frame
     # is phase 5's megakernel run
@@ -3025,6 +3233,7 @@ def main() -> int:
     log(json.dumps({"phase9": p9}))
     log(json.dumps({"phase10": p10}))
     log(json.dumps({"phase11": p11}))
+    log(json.dumps({"phase12": p12}))
     log(json.dumps(bmfr_line))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + meta[name][0],

@@ -9,23 +9,21 @@ materials bit for bit (`tests/test_torch_scene_io.py`).
 Supports: v/vn/vt, f with v, v/vt, v//vn, v/vt/vn (triangulated by fan),
 usemtl/mtllib, newmtl Kd/Ks/Ke/Ns/d/Ni/map_Kd and the bump-map keys.
 
-Texture maps are decoded without PIL: a `.png` as PIL's
-`convert("RGBA")` (`utils/image.read_png_rgba`, the tRNS chunk applied);
-a missing file or a PNG that does not decode gives None, as JAX's PIL
-loader does.  Any other suffix (JPEG, which JAX reads through PIL; `.hdr`,
-which PIL cannot open) raises NotImplementedError naming the file, as does
-a PNG the decoder does not read (interlaced, or other than 8 bits a
-sample), rather than leaving the material untextured.
+Texture maps are decoded without PIL, as PIL's `convert("RGBA")`
+(`utils/image.read_rgba`: PNG, JPEG, BMP and TGA, picked by their first
+bytes; transparency applied).  A missing, corrupt or truncated file, or one
+PIL cannot open either (an `.hdr`), gives None, as JAX's `except
+Exception` does.  A well-formed file that PIL reads and the port does not
+(TIFF, GIF, CMYK JPEG, ...) raises NotImplementedError naming the file and
+the reason, rather than leaving the material untextured.
 """
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
 
-from ..utils.image import png_refusal, read_png_rgba
+from ..utils.image import DECODE_ERRORS, read_rgba, refusal
 from .procedural import MaterialDesc, MeshData
 
 
@@ -33,16 +31,12 @@ def _load_image(path: str) -> np.ndarray | None:
     """[h, w, 4] float32 in [0, 1], or None for a missing or corrupt file."""
     if not os.path.isfile(path):
         return None
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port decodes .png texture maps only (JAX reads other formats "
-            f"through PIL)")
-    reason = png_refusal(path)
-    if reason is not None:  # a well-formed PNG the decoder does not read
+    reason = refusal(path)
+    if reason is not None:  # a well-formed file the decoders do not read
         raise NotImplementedError(reason)
     try:
-        return read_png_rgba(path)
-    except (OSError, ValueError, struct.error, zlib.error):  # a corrupt file
+        return read_rgba(path)
+    except DECODE_ERRORS:  # a corrupt file
         return None
 
 

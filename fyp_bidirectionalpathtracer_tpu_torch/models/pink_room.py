@@ -2,10 +2,11 @@
 
 The port's own copy of `fyp_bidirectionalpathtracer_tpu/models/
 pink_room.py`, so that the port imports nothing of the JAX package;
-`tests/test_torch_textured.py` holds the two to equal scenes.  PIL stays a
-lazy import of `_load_texture`: `asset_dir=""` (procedural checkerboard
-textures) never reaches it.  `asset_dir=None` finds the reference textures
-where the environment variable `PINK_ROOM_TEXTURES` names their folder.
+`tests/test_torch_textured.py` holds the two to equal scenes.  Textures
+decode without PIL (`utils/image.read_rgba`, PIL's `convert("RGBA")` bit
+for bit, PNG and JPEG alike); `asset_dir=""` builds procedural checkerboard
+textures.  `asset_dir=None` finds the reference textures where the
+environment variable `PINK_ROOM_TEXTURES` names their folder.
 
 The reference renders `pink_room.fbx` — a packman-fetched binary asset that
 is NOT in its repository — so exact mesh parity is impossible anywhere.
@@ -28,6 +29,7 @@ import os
 
 import numpy as np
 
+from ..utils.image import DECODE_ERRORS, read_rgba
 from .procedural import (
     BuiltScene,
     MaterialDesc,
@@ -51,18 +53,15 @@ Z0, Z1 = -4.6, 1.4
 
 
 def _load_texture(asset_dir, name, fallback):
-    """PNG/JPG -> [h,w,4] float32 in [0,1]; `fallback` when unavailable."""
+    """PNG/JPG -> [h,w,4] float32 in [0,1]; `fallback` when the file is
+    missing or corrupt (JAX's PIL loader falls back on any failure; a file
+    PIL reads and the port does not raises, naming its reason)."""
     if asset_dir:
         path = os.path.join(asset_dir, name)
         if os.path.exists(path):
             try:
-                from PIL import Image
-
-                img = np.asarray(
-                    Image.open(path).convert("RGBA"), np.float32
-                ) / 255.0
-                return img
-            except Exception:  # pragma: no cover - corrupt asset
+                return read_rgba(path)
+            except DECODE_ERRORS:  # a corrupt asset
                 pass
     return fallback
 

@@ -1,19 +1,23 @@
-"""Image I/O and quality metrics (PNG, Radiance HDR, PSNR): the test
-harness's analogue of Falcor's screenshot capture + ImageMagick compare
-(RunTestsSet.py:262-289).
+"""Image I/O and quality metrics (PNG, JPEG, TGA, BMP, Radiance HDR,
+PSNR): the test harness's analogue of Falcor's screenshot capture +
+ImageMagick compare (RunTestsSet.py:262-289).
 
 Port of `fyp_bidirectionalpathtracer_tpu/utils/image.py`.  Every function
 works on numpy, as JAX's do; a torch tensor is taken through
 `.detach().cpu().numpy()` first, so 8-bit output is bit-equal to JAX's.
-PNGs are written and read with `zlib` and `struct` alone (no PIL):
-`write_png` writes 8-bit RGB (or grey for a 2-D image) with filter 0;
-`read_png` returns what `Image.open(path).convert("RGB")` does for grey,
-grey + alpha, RGB, RGBA and palette PNGs of 8 bits a sample, under all
-five row filters, and `read_png_rgba` what `convert("RGBA")` does (the
-tRNS chunk applied to grey, RGB and palette images); both raise
-ValueError on other bit depths and on interlaced files, the reason that
-`png_refusal` gives from the header alone.
-`read_image` reads `.hdr` and `.png` only.
+No PIL: `write_png` writes 8-bit RGB (or grey for a 2-D image) with filter
+0 through `zlib` and `struct`, and the readers decode with numpy and the
+standard library, bit for bit as JAX's PIL calls do.  As `Image.open`, a
+reader picks the decoder by the file's first bytes, not its name: PNG
+(every colour type and bit depth, tRNS, Adam7 interlacing, here), JPEG
+(`utils/jpeg.py`), BMP and TGA (`utils/raster.py`, which also holds
+Pillow's mode conversions).  `read_png` is JAX's reader of any format,
+PIL's `convert("RGB")`; `read_rgba` is `convert("RGBA")`, what the scene
+loaders' texture maps take.  A well-formed file that PIL reads and the
+port does not (TIFF, GIF, WebP, DDS, ..., and the cases `refusal` names)
+raises `Refused`, a NotImplementedError; a corrupt or truncated one
+ValueError (or `zlib.error`), as PIL raises in JAX.  `read_image` reads
+`.hdr` by its suffix, as JAX does.
 """
 from __future__ import annotations
 
@@ -22,9 +26,36 @@ import zlib
 
 import numpy as np
 
+from .jpeg import decode_jpeg, jpeg_refusal
+from .raster import (
+    Raster,
+    Refused,
+    convert,
+    decode_bmp,
+    decode_tga,
+    tga_header_ok,
+    unpack_bits,
+)
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples a pixel by PNG colour type: grey, RGB, palette, grey + alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# the bit depths of each colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# what a corrupt or truncated file raises (a refused one raises Refused)
+DECODE_ERRORS = (OSError, ValueError, struct.error, zlib.error)
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# formats PIL opens and the port does not decode, by their first bytes (not
+# ICO and CUR, whose magic bytes begin many TGA files)
+_OTHER_FORMATS = (
+    (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "BigTIFF"), (b"MM\0+", "BigTIFF"),
+    (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"DDS ", "DDS"), (b"8BPS", "PSD"),
+    (b"qoif", "QOI"),
+    (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (b"P1", "PNM"), (b"P2", "PNM"), (b"P3", "PNM"), (b"P4", "PNM"), (b"P5", "PNM"),
+    (b"P6", "PNM"), (b"P7", "PAM"))
 
 
 def _numpy(img) -> np.ndarray:
@@ -82,13 +113,11 @@ def _unfilter_walk(kind: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> n
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the row filters: [h, stride] uint8.  None, Sub (a cumulative sum
-    mod 256 per byte of the pixel) and Up (one add) are vectorised."""
-    data = np.frombuffer(raw, np.uint8)
-    if data.size < h * (stride + 1):
-        raise ValueError("PNG image data is truncated")
-    data = data[:h * (stride + 1)].reshape(h, stride + 1)
+def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the row filters of h rows of `stride` bytes, each led by its
+    filter byte: [h, stride] uint8.  None, Sub (a cumulative sum mod 256
+    per byte of the pixel) and Up (one add) are vectorised."""
+    data = data.reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -108,43 +137,65 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def _refusal(path: str, hdr) -> str | None:
-    """Why a PNG with this IHDR is not read although PIL reads it
-    (interlaced, or other than 8 bits a sample), or None."""
-    _, _, depth, ctype, _, _, interlace = hdr
-    if interlace:
-        return f"{path}: interlaced PNGs are not read"
-    if ctype in _CHANNELS and depth != 8:
-        return f"{path}: {depth}-bit PNGs are not read (8 bits a sample only)"
-    return None
+def _samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """[h, stride] unfiltered bytes -> [h, w, channels] samples (uint8, or
+    uint16 at 16 bits); 1-, 2- and 4-bit samples are packed from the most
+    significant bit."""
+    h = rows.shape[0]
+    if depth < 8:
+        return unpack_bits(rows, w, depth)[..., None]
+    if depth == 8:
+        return rows[:, :w * channels].reshape(h, w, channels)
+    pairs = rows[:, :2 * w * channels].reshape(h, w, channels, 2).astype(np.uint16)
+    return pairs[..., 0] << 8 | pairs[..., 1]
 
 
-def png_refusal(path: str) -> str | None:
-    """The reason `read_png` / `read_png_rgba` refuse a well-formed PNG
-    that PIL reads, from its IHDR chunk alone; None where they read it or
-    where the file is not a well-formed PNG (which they report as such)."""
-    with open(path, "rb") as fh:
-        head = fh.read(29)
-    if len(head) < 29 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
-        return None
-    return _refusal(path, struct.unpack(">IIBBBBB", head[16:29]))
+def _png_samples(raw: bytes, w: int, h: int, depth: int, channels: int,
+                 interlace: int) -> np.ndarray:
+    """The decompressed IDAT stream -> [h, w, channels] samples, one image or
+    Adam7's seven passes scattered into their pixels."""
+    data = np.frombuffer(raw, np.uint8)
+    bpp = max(1, channels * depth // 8)
+    passes = []
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            stride = -(-pw * channels * depth // 8)
+            passes.append((x0, y0, dx, dy, pw, ph, stride, pos))
+            pos += ph * (stride + 1)
+    if pos > data.size:
+        raise ValueError("PNG image data is truncated")
+    out = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    for x0, y0, dx, dy, pw, ph, stride, pos in passes:
+        rows = _unfilter(data[pos:pos + ph * (stride + 1)], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
+    return out
 
 
-def _decode_png(path: str):
-    """(samples [H, W, channels] uint8, colour type, palette [n, 3] or None,
-    the tRNS chunk's bytes or None) of an 8-bit, non-interlaced PNG."""
-    with open(path, "rb") as fh:
-        data = fh.read()
+def _png_raster(data: bytes, name: str) -> Raster:
+    """A PNG's bytes -> the image `Image.open` holds: PngImagePlugin's mode
+    for the colour type and depth (1-, 2- and 4-bit grey scaled to 8 bits,
+    16-bit grey as "I;16", other 16-bit samples cut to their high byte),
+    the palette, and the tRNS chunk as its `transparency` entry."""
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG")
+        raise ValueError(f"{name}: not a PNG")
     pos, idat, hdr, palette, trns = 8, [], None, None, None
     while pos + 8 <= len(data):
         n = struct.unpack(">I", data[pos:pos + 4])[0]
         kind, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if len(payload) < n:
+            raise ValueError(f"{name}: PNG chunk {kind!r} is truncated")
+        if not idat and kind != b"IDAT":  # PIL checks the chunks before the data
+            crc = data[pos + 8 + n:pos + 12 + n]
+            if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(kind + payload):
+                raise ValueError(f"{name}: broken PNG file (bad checksum in {kind!r})")
         if kind == b"IHDR":
+            if n < 13:
+                raise ValueError(f"{name}: a short IHDR chunk")
             hdr = struct.unpack(">IIBBBBB", payload[:13])
         elif kind == b"PLTE":
-            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(payload[:n // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"tRNS":
             trns = payload
         elif kind == b"IDAT":
@@ -153,63 +204,111 @@ def _decode_png(path: str):
             break
         pos += 12 + n
     if hdr is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, _, ctype, _, _, _ = hdr
-    reason = _refusal(path, hdr)
-    if reason is not None:
-        raise ValueError(reason)
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
+        raise ValueError(f"{name}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth not in _DEPTHS.get(ctype, ()):
+        raise ValueError(f"{name}: unknown PNG mode (colour type {ctype}, {depth} bits)")
+    if w == 0 or h == 0 or interlace > 1:
+        raise ValueError(f"{name}: a PNG header of {w}x{h}, interlace method {interlace}")
     if ctype == 3 and palette is None:
-        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
-    channels = _CHANNELS[ctype]
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * channels, channels)
-    return rows.reshape(h, w, channels), ctype, palette, trns
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    if not idat:
+        raise ValueError(f"{name}: no IDAT chunk")
+    px = _png_samples(zlib.decompress(b"".join(idat)), w, h, depth, _CHANNELS[ctype], interlace)
+
+    def key(count):
+        if trns is None:
+            return None
+        if len(trns) < 2 * count:
+            raise ValueError(f"{name}: a tRNS chunk of {len(trns)} bytes for colour type {ctype}")
+        return struct.unpack(f">{count}H", trns[:2 * count])
+
+    if ctype == 0:
+        grey = px[..., 0]
+        k = key(1)
+        if depth == 16:
+            return Raster("I;16", grey, transparency=None if k is None else k[0])
+        if depth == 1:
+            return Raster("1", grey * np.uint8(255),
+                          transparency=None if k is None else (255 if k[0] else 0))
+        scale = {2: 85, 4: 17, 8: 1}[depth]
+        return Raster("L", grey * np.uint8(scale), transparency=None if k is None else k[0])
+    if ctype == 3:  # the tRNS chunk's alphas; PIL keeps a single 0 entry's index, same alphas
+        return Raster("P", px[..., 0], palette, trns)
+    hi = (px >> 8).astype(np.uint8) if depth == 16 else px
+    if ctype == 2:
+        return Raster("RGB", hi, transparency=key(3))
+    if ctype == 4:
+        return Raster("LA", hi) if depth == 8 else Raster("RGBA", hi[..., [0, 0, 0, 1]])
+    return Raster("RGBA", hi)
 
 
-def _rgb(pix: np.ndarray, ctype: int, palette) -> np.ndarray:
-    """[H, W, 3] uint8: grey replicated, palette looked up (entries past
-    the PLTE chunk black), alpha dropped."""
-    if ctype == 3:
-        table = np.zeros((256, 3), np.uint8)
-        table[:len(palette)] = palette[:256]
-        return table[pix[..., 0]]
-    if ctype in (0, 4):
-        return np.repeat(pix[..., :1], 3, axis=-1)
-    return pix[..., :3]
+def _other_format(data: bytes) -> str | None:
+    for magic, fmt in _OTHER_FORMATS:
+        if data.startswith(magic):
+            return fmt
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"heix", b"mif1"):
+        return "AVIF / HEIF"
+    return None
+
+
+def decode(path: str) -> Raster:
+    """The image file at `path` as `Image.open(path)` holds it, the decoder
+    chosen by the file's first bytes."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] == _PNG_SIGNATURE:
+        return _png_raster(data, path)
+    if data[:3] == b"\xff\xd8\xff":
+        px = decode_jpeg(data, path)
+        return Raster("L" if px.ndim == 2 else "RGB", px)
+    if data[:2] == b"BM":
+        return decode_bmp(data, path)
+    fmt = _other_format(data)
+    if fmt is not None:
+        raise Refused(f"{path}: {fmt} images are not read (PNG, JPEG, BMP, TGA and .hdr)")
+    if tga_header_ok(data):
+        return decode_tga(data, path)
+    raise ValueError(f"cannot identify image file {path!r}")
+
+
+def refusal(path: str) -> str | None:
+    """The reason the readers refuse a well-formed file that PIL reads, from
+    its first bytes and headers (the JPEG decoder may find one more: a
+    progressive file whose scans stop short); None where they read it or
+    where the file is not a well-formed image (reported as such)."""
+    with open(path, "rb") as fh:
+        head = fh.read(32)
+    if head[:3] == b"\xff\xd8\xff":
+        return jpeg_refusal(path)
+    if head[:8] == _PNG_SIGNATURE:
+        return None
+    fmt = _other_format(head)
+    if fmt is not None:
+        return f"{path}: {fmt} images are not read (PNG, JPEG, BMP, TGA and .hdr)"
+    if head[:2] == b"BM" or tga_header_ok(head):
+        try:
+            decode(path)
+        except Refused as e:
+            return str(e)
+        except (ValueError, struct.error):
+            return None
+    return None
 
 
 def read_png(path: str) -> np.ndarray:
-    """PNG -> float32 [H, W, 3] in [0, 1]: PIL's `convert("RGB")` of it
-    (grey replicated, alpha dropped, palette looked up)."""
-    pix, ctype, palette, _ = _decode_png(path)
-    return np.ascontiguousarray(_rgb(pix, ctype, palette)).astype(np.float32) / 255.0
+    """An image file -> float32 [H, W, 3] in [0, 1]: PIL's
+    `Image.open(path).convert("RGB")` of it, as JAX's `read_png`."""
+    return convert(decode(path), "RGB").astype(np.float32) / 255.0
 
 
-def read_png_rgba(path: str) -> np.ndarray:
-    """PNG -> float32 [H, W, 4] in [0, 1]: PIL's `convert("RGBA")` of it.
-    Alpha is the file's for grey + alpha and RGBA; for a palette image the
-    tRNS chunk's entry of each index (255 past its end); for grey and RGB
-    0 where the sample equals the tRNS chunk's 16-bit value(s), else 255."""
-    pix, ctype, palette, trns = _decode_png(path)
-    rgb = _rgb(pix, ctype, palette)
-    if ctype in (4, 6):
-        alpha = pix[..., -1]
-    elif trns is None:
-        alpha = np.full(pix.shape[:2], 255, np.uint8)
-    elif ctype == 3:
-        table = np.full(256, 255, np.uint8)
-        entries = np.frombuffer(trns, np.uint8)[:256]
-        table[:len(entries)] = entries
-        alpha = table[pix[..., 0]]
-    else:
-        key = np.asarray(struct.unpack(f">{len(trns) // 2}H", trns[:len(trns) // 2 * 2]),
-                         np.int64)
-        if key.size != pix.shape[-1]:
-            raise ValueError(f"{path}: a tRNS chunk of {len(trns)} bytes for colour type {ctype}")
-        alpha = np.where((pix.astype(np.int64) == key).all(-1), 0, 255).astype(np.uint8)
-    rgba = np.concatenate([rgb, alpha[..., None]], -1)
-    return np.ascontiguousarray(rgba).astype(np.float32) / 255.0
+def read_rgba(path: str) -> np.ndarray:
+    """An image file -> float32 [H, W, 4] in [0, 1]: PIL's
+    `convert("RGBA")` of it (a palette's or a colour key's transparency
+    applied), what the scene loaders' texture maps take."""
+    return convert(decode(path), "RGBA").astype(np.float32) / 255.0
 
 
 def mse(a, b) -> float:
@@ -300,17 +399,11 @@ def write_hdr(path: str, img) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """.hdr or .png -> [h, w, 4] float32 rgba: .hdr via the RGBE reader
-    (linear radiance), .png as [0, 1] sRGB-as-stored (the reference samples
-    its PNG probes without conversion, lightProbeGBuffer.rt.hlsl:64-75).
-    JAX also reads JPEG and the rest through PIL, which the port does not
-    need: any other suffix raises."""
-    lower = path.lower()
-    if lower.endswith(".hdr"):
+    """Any image -> [h, w, 4] float32 rgba: .hdr (by its suffix) via the
+    RGBE reader (linear radiance), everything else through `read_png` as
+    [0, 1] sRGB-as-stored (the reference samples its PNG/JPG probes without
+    conversion, lightProbeGBuffer.rt.hlsl:64-75)."""
+    if path.lower().endswith(".hdr"):
         return read_hdr(path)
-    if not lower.endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port reads .hdr and .png images only (JAX's other formats "
-            f"go through PIL)")
     rgb = read_png(path)
     return np.concatenate([rgb, np.ones_like(rgb[..., :1])], -1)

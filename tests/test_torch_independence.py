@@ -1,9 +1,10 @@
-"""The port imports nothing of JAX and nothing of the JAX package: neither
-in its source (a static check of every import statement) nor at run time
-(a subprocess that refuses those imports, and PIL, which the machine with
-the card lacks, renders the Cornell box through both paths and with the
-BMFR denoiser on, pink_room with
-its procedural textures (its incoherent batches walked in the order of
+"""The port imports nothing of JAX, nothing of the JAX package and no PIL
+(which the machine with the card lacks): neither in its source (a static
+check of every import statement) nor at run time (a subprocess that
+refuses those imports renders the Cornell box through both paths and with
+the BMFR denoiser on, pink_room built from a folder of PNG and JPEG
+textures under its names, which it decodes, not checkerboards (its
+incoherent batches walked in the order of
 ops/raysort.py, whose functions it also calls) and the textured room
 through the deferred-texture megakernel with both splat kernels' plain versions, the alpha panel scene
 (the restarts), an env-mapped normal-mapped Cornell box with a tone map
@@ -24,8 +25,8 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "fyp_bidirectionalpathtracer_tpu_torch"
 JAX_PACKAGE = "fyp_bidirectionalpathtracer_tpu"
-FORBIDDEN = ("jax", "flax", "jaxlib", JAX_PACKAGE)
-REFUSED_AT_RUN_TIME = FORBIDDEN + ("PIL",)  # pink_room's texture loader is lazy
+FORBIDDEN = ("jax", "flax", "jaxlib", JAX_PACKAGE, "PIL")
+REFUSED_AT_RUN_TIME = FORBIDDEN
 
 
 def _forbidden(name: str) -> bool:
@@ -87,7 +88,33 @@ bmfr = BMFRConfig(enabled=True, regression=True, half_screen_debug=False)
 out = Renderer(baked, RenderConfig(width=16, height=16, bmfr=bmfr)).render_frame()
 assert tuple(out.shape) == (16, 16, 4) and bool(out.isfinite().all())
 print("bmfr", "ok")
-room = Scene.from_built(pink_room(asset_dir=""), aspect=1.6).bake(device="cpu")
+import shutil
+import tempfile
+import numpy as np
+from fyp_bidirectionalpathtracer_tpu_torch.models import pink_room as pink_mod
+from fyp_bidirectionalpathtracer_tpu_torch.utils import image
+names = []
+real_loader = pink_mod._load_texture
+pink_mod._load_texture = lambda d, name, fallback: names.append(name) or fallback
+stand_in = pink_room(asset_dir="")
+pink_mod._load_texture = real_loader
+tex_dir = tempfile.mkdtemp()
+jpegs = iter(["baseline_420.jpg", "progressive_420.jpg"])
+for i, name in enumerate(names):
+    if name.endswith(".jpg"):
+        shutil.copy("tests/torch_images/" + next(jpegs), tex_dir + "/" + name)
+    else:
+        pixels = np.random.RandomState(i).uniform(0, 1, (8 + i, 12, 3))
+        image.write_png(tex_dir + "/" + name, pixels)
+built = pink_room(asset_dir=tex_dir)
+kinds = ("base_color_image", "specular_image", "emissive_image")
+maps = [getattr(m, f) for m in built.materials for f in kinds if getattr(m, f) is not None]
+assert len(maps) == len(names) and not any(m.shape == (64, 64, 4) for m in maps)
+assert np.array_equal(built.materials[12].base_color_image,
+                      image.read_rgba(tex_dir + "/Abstract.jpg"))
+assert (built.materials[12].base_color_image.shape
+        != stand_in.materials[12].base_color_image.shape)
+room = Scene.from_built(built, aspect=1.6).bake(device="cpu")
 out = Renderer(room, RenderConfig(width=16, height=10)).render_frame()
 assert tuple(out.shape) == (10, 16, 4) and bool(out.isfinite().all())
 print("pink_room", "ok")

@@ -1,8 +1,8 @@
 """The port's scene I/O against the JAX package's on the CPU, with no JAX
 render: `scene/animation.py` (Path.sample with the loop wrap and the
 clamp, rigid_transform_at, at 50 seeded times), `models/obj.py` (OBJ + MTL
-with RGBA, grey + tRNS and palette + tRNS PNG maps, decoded bit for bit as
-JAX's PIL decodes them), `models/fbx.py` (files written by each package
+with RGBA, grey + tRNS and palette + tRNS PNG maps, and JPEG, TGA and BMP
+maps, decoded bit for bit as JAX's PIL decodes them), `models/fbx.py` (files written by each package
 read by the other, versions 7400 and 7500), `scene/fscene.py` (load_fscene
 on a file that covers every branch, save_fscene both ways) and the bake of
 a loaded scene.
@@ -21,6 +21,7 @@ import zlib
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from fyp_bidirectionalpathtracer_tpu.models import fbx as jfbx
 from fyp_bidirectionalpathtracer_tpu.models import obj as jobj
@@ -34,7 +35,7 @@ from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import (
     baked_scene_arrays,
     baked_scene_from_arrays,
 )
-from fyp_bidirectionalpathtracer_tpu_torch.utils.image import read_png_rgba, write_png
+from fyp_bidirectionalpathtracer_tpu_torch.utils.image import read_rgba, write_png
 from test_torch_image import _encode_png
 from test_torch_scene import _assert_bake_equals_jax, jax_scene_arrays
 from torch_threads import one_intra_op_thread  # noqa: F401
@@ -205,7 +206,7 @@ def write_maps(folder) -> dict:
                                   "rgb_trns.png", "palette_trns.png", "palette_one.png"])
 def test_png_rgba_decode_equals_pil(tmp_path, name):
     path = write_maps(str(tmp_path))[name]
-    got = read_png_rgba(path)
+    got = read_rgba(path)
     want = jobj._load_image(path)  # PIL's convert("RGBA") / 255
     _assert_same(got, want, name)
     if name != "rgb.png":
@@ -295,22 +296,50 @@ def test_load_obj_and_mtl_bit_equal(tmp_path):
 
 
 def test_texture_maps_refused_or_missing(tmp_path):
-    """A .jpg (or any other suffix) map that exists raises, naming the
-    file, as does an interlaced PNG (which PIL reads); a missing one gives
-    None, a corrupt PNG None, as JAX's."""
+    """JAX's answers: a garbage .jpg, a truncated PNG and a missing map give
+    None; an interlaced PNG decodes as PIL decodes it.  What PIL reads and
+    the port refuses (a TIFF map) raises, naming the file and the format,
+    where JAX reads it."""
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0 not decoded here")
     (tmp_path / "bad.png").write_bytes(b"\x89PNG\r\n\x1a\n truncated")
-    (tmp_path / "m.mtl").write_text("newmtl a\nmap_Kd a.jpg\n")
-    with pytest.raises(NotImplementedError, match=r"a\.jpg"):
-        obj.load_mtl(str(tmp_path / "m.mtl"))
-    _encode_png(str(tmp_path / "laced.png"), np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=1)
-    (tmp_path / "m.mtl").write_text("newmtl a\nmap_bump laced.png\n")
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        obj.load_mtl(str(tmp_path / "m.mtl"))
-    (tmp_path / "m.mtl").write_text("newmtl a\nmap_Kd b.jpg\nmap_bump bad.png\n")
+    rs = np.random.RandomState(3)
+    _encode_png(str(tmp_path / "laced.png"), rs.randint(0, 256, (6, 5, 3)), 2, 8, interlace=1)
+    (tmp_path / "m.mtl").write_text("newmtl a\nmap_Kd a.jpg\nmap_bump laced.png\n"
+                                    "newmtl b\nmap_Kd b.jpg\nmap_bump bad.png\n")
     got, want = obj.load_mtl(str(tmp_path / "m.mtl")), jobj.load_mtl(str(tmp_path / "m.mtl"))
-    assert got["a"].base_color_image is None and got["a"].normal_map_image is None
+    assert got["a"].base_color_image is None and got["a"].normal_map_image is not None
+    assert got["b"].base_color_image is None and got["b"].normal_map_image is None
     _assert_materials_equal(list(got.values()), list(want.values()))
+    Image.fromarray(rs.randint(0, 256, (4, 4, 3)).astype(np.uint8)).save(tmp_path / "t.tif")
+    (tmp_path / "t.mtl").write_text("newmtl t\nmap_Kd t.tif\n")
+    with pytest.raises(NotImplementedError, match=r"t\.tif: TIFF"):
+        obj.load_mtl(str(tmp_path / "t.mtl"))
+    assert jobj.load_mtl(str(tmp_path / "t.mtl"))["t"].base_color_image.shape == (4, 4, 4)
+
+
+def test_jpeg_tga_bmp_maps_equal_jax(tmp_path):
+    """An MTL whose maps are a progressive 4:2:0 JPEG, a baseline JPEG, a
+    32-bit RLE TGA cutout, a grey TGA, a palette BMP and a 16-bit BMP (the
+    checked-in fixtures of tests/torch_images/): load_mtl's materials equal
+    JAX's, every map PIL's convert("RGBA") bit for bit."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_images")
+    maps = {"progressive_420.jpg": "map_Kd", "baseline_420.jpg": "map_Kd",
+            "cutout_rle32.tga": "map_Kd", "grey_rle.tga": "map_bump",
+            "palette8.bmp": "map_Kd", "rgb565.bmp": "bump"}
+    text = ""
+    for i, (name, key) in enumerate(maps.items()):
+        with open(os.path.join(fixtures, name), "rb") as src:
+            (tmp_path / name).write_bytes(src.read())
+        text += f"newmtl m{i}\nKd 0.5 0.5 0.5\n{key} {name}\n"
+    (tmp_path / "maps.mtl").write_text(text)
+    got = obj.load_mtl(str(tmp_path / "maps.mtl"))
+    want = jobj.load_mtl(str(tmp_path / "maps.mtl"))
+    _assert_materials_equal(list(got.values()), list(want.values()))
+    for i, (name, key) in enumerate(maps.items()):
+        img = (got[f"m{i}"].base_color_image if key == "map_Kd"
+               else got[f"m{i}"].normal_map_image)
+        assert img is not None and img.shape[-1] == 4, name
+    assert (got["m2"].base_color_image[..., 3] == 0).any()  # the TGA's cutout
 
 
 def _scene_meshes(mod):

@@ -1,5 +1,7 @@
 """Textured scenes and pink_room on the port's wavefront against the JAX
-package on the CPU: the copy of models/pink_room.py, the textured bake, the
+package on the CPU: the copy of models/pink_room.py (with procedural
+textures, and with a folder of PNG and JPEG maps under JAX's names, which
+the port decodes without PIL), the textured bake, the
 texture taps, the shaded tracer's BVH branch with textures, a pink_room
 frame, and the pink_room golden.
 
@@ -95,6 +97,62 @@ def test_pink_room_copy_equals_jax(kw):
     """models/pink_room.py: the same meshes, materials (textures included),
     lights and camera."""
     _assert_scenes_equal(_pink(pink, **kw), _pink(jpink, **kw))
+
+
+def pink_texture_names(monkeypatch, mod) -> list:
+    """The texture files pink_room loads, in order (read off its loader)."""
+    names = []
+    with monkeypatch.context() as m:
+        m.setattr(mod, "_load_texture", lambda d, name, fallback: names.append(name) or fallback)
+        mod.pink_room(asset_dir="")
+    return names
+
+
+def write_pink_textures(folder, names) -> None:
+    """Seeded maps under pink_room's names, written by PIL: the .jpg ones
+    as a baseline and a progressive JPEG, the .png ones in turn as RGB,
+    RGBA, L, LA and P files of a few sizes; the last PNG truncated."""
+    from PIL import Image
+
+    rs = np.random.RandomState(21)
+    pngs = [n for n in names if n.endswith(".png")]
+    for i, name in enumerate(names):
+        h, w = 12 + 3 * (i % 4), 16 + 2 * (i % 5)
+        pic = rs.randint(0, 256, (h, w, 4)).astype(np.uint8)
+        path = os.path.join(folder, name)
+        if name.endswith(".jpg"):
+            Image.fromarray(pic[..., :3]).save(path, quality=85, progressive=i % 2 == 1)
+            continue
+        mode = ("RGB", "RGBA", "L", "LA", "P")[i % 5]
+        img = {"RGB": lambda: Image.fromarray(pic[..., :3]), "RGBA": lambda: Image.fromarray(pic),
+               "L": lambda: Image.fromarray(pic[..., 0]),
+               "LA": lambda: Image.fromarray(pic[..., :2], "LA"),
+               "P": lambda: Image.fromarray(pic[..., :3]).quantize(9)}[mode]()
+        img.save(path)
+        if name == pngs[-1]:
+            data = open(path, "rb").read()
+            open(path, "wb").write(data[:len(data) // 2])
+
+
+def test_pink_room_texture_folder_equals_jax(tmp_path, monkeypatch):
+    """pink_room(asset_dir=folder) with PNG and JPEG maps under JAX's names:
+    the same scene in both packages (every texture PIL's convert("RGBA")
+    bit for bit), the truncated file's procedural fallback in both."""
+    names = pink_texture_names(monkeypatch, pink)
+    assert names == pink_texture_names(monkeypatch, jpink)
+    assert {"Abstract.jpg", "Fabric.jpg"} <= set(names) and len(set(names)) == len(names)
+    write_pink_textures(str(tmp_path), names)
+    got, want = pink.pink_room(asset_dir=str(tmp_path)), jpink.pink_room(asset_dir=str(tmp_path))
+    _assert_scenes_equal(got, want)
+    stand_in = pink.pink_room(asset_dir="")
+    by_name = {m.name: (m, s) for m, s in zip(got.materials, stand_in.materials)}
+    for mat in ("abstract", "fabric", "walls"):
+        m, s = by_name[mat]
+        assert m.base_color_image.shape != s.base_color_image.shape, mat
+    truncated = [n for n in names if n.endswith(".png")][-1]  # Light_Emissive.png
+    assert truncated == "Light_Emissive.png"
+    np.testing.assert_array_equal(by_name["light_fixture"][0].emissive_image,
+                                  by_name["light_fixture"][1].emissive_image)
 
 
 # ------------------------------------------------------------- the bake
