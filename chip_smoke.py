@@ -713,6 +713,7 @@ def main() -> int:
     )
     from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
     from fyp_bidirectionalpathtracer_tpu_torch.pipeline.frame_profile import (
+        device_operations,
         profile_calls,
         profile_renderer,
     )
@@ -3015,7 +3016,6 @@ def main() -> int:
         raise AssertionError("the card's BMFR pass differs from the CPU's")
     # device operations of one call (kernels, copies and memsets, from a
     # profiler trace); after every timing, as CUPTI slows later launches
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     for solver, fns in stage_fns.items():
@@ -3024,8 +3024,7 @@ def main() -> int:
             with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            stages[solver][f"{name}_device_ops"] = sum(
-                e.device_type == DeviceType.CUDA for e in prof.events())
+            stages[solver][f"{name}_device_ops"] = len(device_operations(prof.events()))
     n_blocks = ((HEIGHT + 31) // 32 + 1) * ((WIDTH + 31) // 32 + 1)
     # the regression reads its block window once ([n_by * 32, n_bx * 32, 12]
     # float32), reads the noisy image and writes the output ([H, W, 4]);

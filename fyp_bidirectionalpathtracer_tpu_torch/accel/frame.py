@@ -62,6 +62,7 @@ from ..core.vecmath import (
 from ..ops.splat_tile import pack_rgb8e
 from ..ops.texture import sample_or_constant_fm
 from ..scene.types import LIGHT_DIRECTIONAL, SHADING_METAL_ROUGH
+from ..utils.profiler import span
 from .cluster import check_nodes
 from .intersect import any_hit_rows, closest_rows, winner_uv
 
@@ -1010,42 +1011,43 @@ def frame_args(baked, width: int, height: int, bdpt_frame: int, pixel_jitter,
                sub_pixels: int | None = None) -> FrameArgs:
     """Host-side argument packing of the JAX `_frame_out`; `pix0` and
     `sub_pixels` select a shard's pixels (its `pixel_offset`, `n_sub`)."""
-    cam = baked.data.camera
-    gcfg = cfg.gbuffer
-    bcfg = cfg.bdpt
-    lens_radius = gcfg.focal_length_gui / (2.0 * gcfg.f_stop) if gcfg.use_thin_lens else 0.0
-    jit = torch.as_tensor(pixel_jitter, dtype=torch.float32)
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32).reshape(-1)  # noqa: E731
-    scal = torch.cat([
-        cam.pos_w, cam.camera_u, cam.camera_v, cam.camera_w,
-        cam.camera_w / torch.linalg.norm(cam.camera_w),
-        f([1.0]) / torch.dot(cam.camera_u, cam.camera_u).reshape(1),
-        f([1.0]) / torch.dot(cam.camera_v, cam.camera_v).reshape(1),
-        f([1.0]) / torch.dot(cam.camera_w, cam.camera_w).reshape(1),
-        jit[:2],
-        baked.data.env_map[0, 0, :3].to(torch.float32),
-        f(float(baked.data.lights.count)),
-        f([lens_radius, gcfg.focal_length_gui]),
-        cam.camera_u / torch.linalg.norm(cam.camera_u),
-        cam.camera_v / torch.linalg.norm(cam.camera_v),
-    ]).to(torch.float32)
-    return FrameArgs(
-        scal=tuple(scal.tolist()),
-        bdpt_frame=int(bdpt_frame) & 0xFFFFFFFF,
-        gbuf_frame=int(gbuf_frame) & 0xFFFFFFFF,
-        light_count=int(baked.data.lights.count),
-        n_tris=baked.n_tris, width=width, height=height,
-        d_max=bcfg.max_depth, mat_model=bcfg.mat_model,
-        faithful_rng=bcfg.faithful_rng,
-        reference_quirks=bcfg.reference_quirks,
-        min_t=_f32(bcfg.min_t), clamp_upper=_f32(bcfg.clamp_upper),
-        enable_e1=bcfg.enable_path_tracing,
-        enable_e2=bcfg.enable_light_tracing,
-        enable_e3=bcfg.enable_connections,
-        connection_weight=bcfg.connection_weight,
-        use_thin_lens=bool(gcfg.use_thin_lens), splat_rgb8e=splat_rgb8e,
-        textured=is_textured(baked), pix0=int(pix0), sub_pixels=sub_pixels,
-    )
+    with span("frame_args"):
+        cam = baked.data.camera
+        gcfg = cfg.gbuffer
+        bcfg = cfg.bdpt
+        lens_radius = gcfg.focal_length_gui / (2.0 * gcfg.f_stop) if gcfg.use_thin_lens else 0.0
+        jit = torch.as_tensor(pixel_jitter, dtype=torch.float32)
+        f = lambda v: torch.as_tensor(v, dtype=torch.float32).reshape(-1)  # noqa: E731
+        scal = torch.cat([
+            cam.pos_w, cam.camera_u, cam.camera_v, cam.camera_w,
+            cam.camera_w / torch.linalg.norm(cam.camera_w),
+            f([1.0]) / torch.dot(cam.camera_u, cam.camera_u).reshape(1),
+            f([1.0]) / torch.dot(cam.camera_v, cam.camera_v).reshape(1),
+            f([1.0]) / torch.dot(cam.camera_w, cam.camera_w).reshape(1),
+            jit[:2],
+            baked.data.env_map[0, 0, :3].to(torch.float32),
+            f(float(baked.data.lights.count)),
+            f([lens_radius, gcfg.focal_length_gui]),
+            cam.camera_u / torch.linalg.norm(cam.camera_u),
+            cam.camera_v / torch.linalg.norm(cam.camera_v),
+        ]).to(torch.float32)
+        return FrameArgs(
+            scal=tuple(scal.tolist()),
+            bdpt_frame=int(bdpt_frame) & 0xFFFFFFFF,
+            gbuf_frame=int(gbuf_frame) & 0xFFFFFFFF,
+            light_count=int(baked.data.lights.count),
+            n_tris=baked.n_tris, width=width, height=height,
+            d_max=bcfg.max_depth, mat_model=bcfg.mat_model,
+            faithful_rng=bcfg.faithful_rng,
+            reference_quirks=bcfg.reference_quirks,
+            min_t=_f32(bcfg.min_t), clamp_upper=_f32(bcfg.clamp_upper),
+            enable_e1=bcfg.enable_path_tracing,
+            enable_e2=bcfg.enable_light_tracing,
+            enable_e3=bcfg.enable_connections,
+            connection_weight=bcfg.connection_weight,
+            use_thin_lens=bool(gcfg.use_thin_lens), splat_rgb8e=splat_rgb8e,
+            textured=is_textured(baked), pix0=int(pix0), sub_pixels=sub_pixels,
+        )
 
 
 def textured_replay(out: FrameOut, bcfg, atlas):
@@ -1165,8 +1167,9 @@ def render_frame_megakernel(baked, width: int, height: int, bdpt_frame,
     args = frame_args(baked, width, height, bdpt_frame, pixel_jitter, cfg,
                       gbuf_frame=gbuf_frame, splat_rgb8e=packed, pix0=pix0,
                       sub_pixels=sub_h * width)
-    out = (frame_plain(args, baked.light_rows, baked.tri_pack) if baked.plain
-           else frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes))
+    with span("k1"):
+        out = (frame_plain(args, baked.light_rows, baked.tri_pack) if baked.plain
+               else frame_kernel(args, baked.light_rows, baked.tri_pack, baked.bvh_nodes))
     n_pix = args.n_pix
 
     def img(rows):

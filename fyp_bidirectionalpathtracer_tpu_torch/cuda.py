@@ -22,7 +22,9 @@ Each kernel wrapper counts its launches in `LAUNCHES`; a run resets the
 counts with `reset_launch_counts()` and reads them to show which kernels
 its path went through.  A launch of a kernel's variant (the BVH kernels
 with a ray `order`, K5 with `segments`) also counts in
-`LAUNCHES_BY_VARIANT`.
+`LAUNCHES_BY_VARIANT`.  Beside them, `READS["host_reads"]` counts the
+frame path's reads of a CUDA tensor's value on the host (`read_host`),
+each of which waits for the device; `reset_launch_counts()` resets it too.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
             "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0, "subpath": 0}
 LAUNCHES_BY_VARIANT = {"bvh_closest[order]": 0, "bvh_shaded[order]": 0,
                        "bvh_occluded[order]": 0, "splat_rows[segments]": 0}
+READS = {"host_reads": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -73,9 +76,17 @@ def resolve_device(device) -> torch.device:
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_VARIANT):
+    for counts in (LAUNCHES, LAUNCHES_BY_VARIANT, READS):
         for key in counts:
             counts[key] = 0
+
+
+def read_host(t: torch.Tensor):
+    """`t.item()`, counted in `READS["host_reads"]` when `t` is on a CUDA
+    device (the read waits for the device's queue up to it)."""
+    if t.is_cuda:
+        READS["host_reads"] += 1
+    return t.item()
 
 
 def _nvcc() -> str:

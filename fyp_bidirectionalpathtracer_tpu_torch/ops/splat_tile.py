@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
+from ..utils.profiler import span
 from .compact import compact_live, compact_plain
 
 TILE = 1024  # the sentinel key is n_targets rounded up to TILE, as in JAX
@@ -123,16 +124,20 @@ def scatter_add_rgba_tiled_prepacked(lin, packed, n_targets: int, *,
     K2 compacts the live updates, a stable sort groups them by pixel (the
     JAX package sorts with XLA outside any Pallas kernel), and K3 sums each
     pixel's run.  Sorting only the live prefix needs the live count on the
-    host: one scalar read, and so one host sync, per call.  `plain=True`
-    runs the plain versions of K2 and K3 on any device."""
-    compact, reduce = ((compact_plain, reduce_sorted_plain) if plain
-                       else (compact_live, splat_reduce))
-    sent = sentinel(n_targets)
-    keys = torch.where(lin < 0, sent, torch.clamp(lin, max=sent)).to(torch.int32)
-    keys_c, pay_c, n_live = compact(keys, packed.contiguous(), n_targets, sent)
-    n = int(n_live.item())
-    ls, order = torch.sort(keys_c[:n], stable=True)
-    return reduce(ls, pay_c[:n][order].contiguous(), n_targets)
+    host: one scalar read, and so one host sync, per call (the span
+    `splat/read_live`, one count of `cuda.READS["host_reads"]` on a CUDA
+    device).  `plain=True` runs the plain versions of K2 and K3 on any
+    device."""
+    with span("splat"):
+        compact, reduce = ((compact_plain, reduce_sorted_plain) if plain
+                           else (compact_live, splat_reduce))
+        sent = sentinel(n_targets)
+        keys = torch.where(lin < 0, sent, torch.clamp(lin, max=sent)).to(torch.int32)
+        keys_c, pay_c, n_live = compact(keys, packed.contiguous(), n_targets, sent)
+        with span("read_live"):
+            n = cuda.read_host(n_live)
+        ls, order = torch.sort(keys_c[:n], stable=True)
+        return reduce(ls, pay_c[:n][order].contiguous(), n_targets)
 
 
 # --------------------------------------------------------------------- K5

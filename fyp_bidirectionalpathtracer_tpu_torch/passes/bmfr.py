@@ -43,6 +43,7 @@ import torch
 
 from .. import cuda
 from ..ops.splat_tile import pack2bf16, unpack2bf16
+from ..utils.profiler import span
 
 BLOCK_EDGE = 32
 BLOCK_PIXELS = 1024
@@ -693,41 +694,45 @@ def bmfr_pass(state: BMFRState, channels: dict, camera, cfg, *, mesh=None):
         return _extend_rows(x, margin, margin, mesh, "zero")
 
     filt_taps = None
-    if cfg.preprocess:
-        hist = None
-        if sharded:
-            cols = [state.prev_pos[..., :3], state.prev_norm[..., :3], state.prev_noisy]
-            hist = window(_pack_hist_bf16(torch.cat(cols + [state.prev_filtered[..., :3]], -1))
-                          if pack == "bf16" else torch.cat(cols, -1))
-        noisy, accept, prev_pixel_f, filt_taps = preprocess(
-            state, cur_pos, cur_norm, noisy, camera.prev_view_proj, cfg, pack=pack,
-            hist=hist, hist_y0=hist_y0, full_h=full_h)
-    else:
-        # no reprojection: postprocess blends nothing (no accept bits)
-        h, w, dev = noisy.shape[0], noisy.shape[1], noisy.device
-        accept = torch.zeros((h, w), dtype=torch.int32, device=dev)
-        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                                torch.arange(w, dtype=torch.float32, device=dev),
-                                indexing="ij")
-        prev_pixel_f = torch.stack([xs, ys], -1)
+    with span("preprocess"):
+        if cfg.preprocess:
+            hist = None
+            if sharded:
+                cols = [state.prev_pos[..., :3], state.prev_norm[..., :3], state.prev_noisy]
+                hist = window(
+                    _pack_hist_bf16(torch.cat(cols + [state.prev_filtered[..., :3]], -1))
+                    if pack == "bf16" else torch.cat(cols, -1))
+            noisy, accept, prev_pixel_f, filt_taps = preprocess(
+                state, cur_pos, cur_norm, noisy, camera.prev_view_proj, cfg, pack=pack,
+                hist=hist, hist_y0=hist_y0, full_h=full_h)
+        else:
+            # no reprojection: postprocess blends nothing (no accept bits)
+            h, w, dev = noisy.shape[0], noisy.shape[1], noisy.device
+            accept = torch.zeros((h, w), dtype=torch.int32, device=dev)
+            ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                                    torch.arange(w, dtype=torch.float32, device=dev),
+                                    indexing="ij")
+            prev_pixel_f = torch.stack([xs, ys], -1)
 
     # history blits (DenoisePass.cpp:180-182)
     state = replace(state, prev_noisy=noisy, prev_norm=cur_norm, prev_pos=cur_pos)
 
     if cfg.regression:
-        if sharded:
-            noisy = regression_sharded(cur_pos, cur_norm, albedo, noisy, state.frame_number,
-                                       cfg, mesh)
-        else:
-            noisy = regression(cur_pos, cur_norm, albedo, noisy, state.frame_number, cfg)
+        with span("regression"):
+            if sharded:
+                noisy = regression_sharded(cur_pos, cur_norm, albedo, noisy,
+                                           state.frame_number, cfg, mesh)
+            else:
+                noisy = regression(cur_pos, cur_norm, albedo, noisy, state.frame_number, cfg)
 
     if cfg.postprocess:
-        hist_f = None
-        if sharded and filt_taps is None:  # bf16 fetched the taps in preprocess
-            hist_f = window(state.prev_filtered[..., :3])
-        out = postprocess(state, noisy, accept, prev_pixel_f, cfg, taps=filt_taps,
-                          hist=hist_f, hist_y0=hist_y0, full_h=full_h)
-        state = replace(state, prev_filtered=out)
+        with span("postprocess"):
+            hist_f = None
+            if sharded and filt_taps is None:  # bf16 fetched the taps in preprocess
+                hist_f = window(state.prev_filtered[..., :3])
+            out = postprocess(state, noisy, accept, prev_pixel_f, cfg, taps=filt_taps,
+                              hist=hist_f, hist_y0=hist_y0, full_h=full_h)
+            state = replace(state, prev_filtered=out)
     else:
         out = noisy
     return replace(state, frame_number=state.frame_number + 1), out

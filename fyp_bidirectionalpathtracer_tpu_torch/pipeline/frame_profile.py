@@ -21,15 +21,18 @@ splat.  Prints one JSON object:
 - `ms_per_frame_host`: host-clock ms per frame of `--frames` frames, with a
   device sync before and after them, without the profiler and (`_profiled`)
   under it;
-- `device_busy_ms_per_frame`: the union of the CUDA kernels' intervals in a
-  `torch.profiler` trace of the profiled frames, per frame;
+- `device_busy_ms_per_frame`: the union of the device operations' intervals
+  in a `torch.profiler` trace of the profiled frames, per frame (the spans'
+  ranges on the device's timeline are none, `device_operations`);
   `device_idle_share` is 1 - busy / the unprofiled host-clock frame time
   (the profiler slows the host, not the kernels);
 - `kernels_ms_per_frame`: device time per frame by kernel name, and
   `kernel_launches_per_frame` the number of CUDA kernels a frame runs;
-- `stages_ms`: host-clock ms of each stage of one frame with a device sync
-  after it (attribution only: the syncs serialise what overlaps in a real
-  frame), once per repeat; with `--bmfr` the BMFR pass is one of them.
+- `stages_ms`: the self time of each `utils/profiler` span (its host-clock
+  ms less its child spans'), by path, ms a frame over `--repeats` frames of
+  `Renderer.render_frame_profiled`, whose six pass events wait for the
+  device (attribution only: the waits serialise what overlaps in a real
+  frame); with `--bmfr` BMFR's three stages are among them.
 
 `--out` also writes the JSON to a file, `--trace` the Chrome trace.
 `profile_renderer` does the same for any `Renderer` (chip_smoke.py's
@@ -46,24 +49,13 @@ from collections import defaultdict
 
 import torch
 
-from ..accel.frame import (
-    frame_args,
-    frame_kernel,
-    is_textured,
-    supports_megakernel,
-    textured_replay,
-)
+from ..accel.frame import supports_megakernel
 from ..models.pink_room import pink_room
 from ..models.procedural import cornell_box, textured_room
-from ..ops.shading import make_shaded_tracer
-from ..ops.splat import scatter_add_rgba, scatter_add_rgba_prepacked
-from ..passes.bdpt import bdpt_pass
-from ..passes.bmfr import bmfr_pass
-from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
-from ..scene.camera import begin_frame
 from ..scene.scene import Scene
 from ..utils.config import BDPTConfig, BMFRConfig, RenderConfig
-from .renderer import BDPT_FRAME_INIT, GBUF_FRAME_INIT, Renderer
+from ..utils.profiler import Profiler
+from .renderer import Renderer
 
 WIDTH, HEIGHT, DEPTH = 1280, 720, 3
 
@@ -86,44 +78,15 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def stage_times(renderer: Renderer) -> dict:
-    """One frame, stage by stage, with a sync after each stage."""
-    cfg, r = renderer.cfg, renderer
-    scene = r.baked.with_camera(r.camera)
-    frame = (BDPT_FRAME_INIT + r.state.frame_index) & 0xFFFFFFFF
-    jitter = pixel_jitter_for_frame(frame)
-    out = {}
-    if cfg.bdpt.megakernel == "off" or not supports_megakernel(scene, cfg):
-        trace = make_shaded_tracer(scene, bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
-        out["G-buffer (ray_traced_gbuffer, one shaded launch)"], ch = _timed(
-            lambda: ray_traced_gbuffer(scene, trace, cfg.width, cfg.height,
-                                       GBUF_FRAME_INIT, jitter))
-        out["bdpt_pass (5 shaded + 3 any-hit launches, splat chain)"], _ = _timed(
-            lambda: bdpt_pass(scene, scene.intersector(), ch, frame, jitter, cfg.bdpt,
-                              trace=trace))
-    else:
-        textured = is_textured(scene)
-        out["frame_args (host)"], args = _timed(lambda: frame_args(
-            scene, cfg.width, cfg.height, frame, jitter, cfg,
-            gbuf_frame=GBUF_FRAME_INIT, splat_rgb8e=not textured))
-        out["K1 frame_kernel" + (" (textured)" if textured else "")], fo = _timed(
-            lambda: frame_kernel(args, scene.light_rows, scene.tri_pack, scene.bvh_nodes))
-        if textured:
-            out["textured_replay (taps, ratios, accumulation)"], rep = _timed(
-                lambda: textured_replay(fo, cfg.bdpt, scene.atlas))
-            out[f"splat ({cfg.bdpt.splat_mode})"], _ = _timed(lambda: scatter_add_rgba(
-                cfg.bdpt.splat_mode, *(torch.cat(x) for x in zip(*rep[1])), args.n_pix,
-                alpha_is_count=True))
-        else:
-            out["splat chain (K2 + live-count sync + sort + K3)"], _ = _timed(
-                lambda: scatter_add_rgba_prepacked(fo.splat_pix.reshape(-1),
-                                                   fo.splat_pay.reshape(-1), args.n_pix))
-    if cfg.bmfr.enabled:
-        out["bmfr_pass (preprocess, regression, postprocess)"], _ = _timed(
-            lambda: bmfr_pass(r.state.bmfr, r.channels, r.camera, cfg.bmfr))
-    out["begin_frame (camera update)"], _ = _timed(lambda: begin_frame(r.camera))
-    out["whole render_frame"], _ = _timed(r.render_frame)
-    return out
+def stage_self_ms(r: Renderer, frames: int) -> dict:
+    """The spans' self ms a frame, by path, over `frames` frames of
+    `render_frame_profiled` (`{}` for none; the `frame` event waits for
+    each frame's device work)."""
+    prof = Profiler()
+    for _ in range(frames):
+        r.render_frame_profiled(prof)
+    return {key: ev["self_ms"] * ev["count"] / frames
+            for key, ev in sorted(prof.as_dict().items())}
 
 
 SCENES = {"cornell": cornell_box, "pink_room": lambda: pink_room(asset_dir=""),
@@ -149,18 +112,28 @@ def profile(frames: int = 5, repeats: int = 2, trace: str | None = None,
             "bmfr": bmfr, **profile_renderer(r, frames, repeats, trace)}
 
 
+def device_operations(events) -> list:
+    """The device operations among a torch.profiler trace's events: its
+    CUDA events less the device timeline's copies of `record_function`
+    ranges (user annotations, such as the port's spans), which are no
+    operations."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_calls(fn, calls: int):
     """`calls` calls of `fn` on a CUDA device under torch.profiler: (host
     ms a call with a device sync before and after, device busy ms a call
-    (the union of the CUDA kernels' intervals), device operations a call,
-    device ms a call by kernel name, the profiler)."""
-    from torch.autograd import DeviceType
+    (the union of the device operations' intervals), device operations a
+    call, device ms a call by kernel name, the profiler)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         host_ms, _ = _timed(lambda: [fn() for _ in range(calls)])
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_operations(prof.events())
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / calls
@@ -176,7 +149,7 @@ def profile_renderer(r: Renderer, frames: int = 5, repeats: int = 2,
     r.render(3)  # warm-up: kernel build, allocator, first-call costs
     plain_ms, _ = _timed(lambda: r.render(frames))
     # before the profiler: CUPTI slows every launch after it has traced
-    stages = [stage_times(r) for _ in range(repeats)]
+    stages = stage_self_ms(r, repeats)
     host_ms, busy, launches, by_name, prof = profile_calls(r.render_frame, frames)
     if trace:
         prof.export_chrome_trace(trace)

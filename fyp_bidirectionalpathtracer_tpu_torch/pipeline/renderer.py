@@ -21,7 +21,8 @@ dense K4 intersectors or, above 2048 triangles, the BVH kernels, in the
 alpha restarts of `ops/alpha.py` where the scene has alpha-tested
 materials.  `Renderer.display` tone-maps with any of the 7 operators of
 `ops/tonemap.py`.  `Renderer.render_frame_profiled` is the same frame
-with each pass timed by a `utils/profiler.Profiler` event;
+with each pass timed by a `utils/profiler.Profiler` event; the camera,
+the display and the layers under the passes are `utils/profiler` spans;
 `set_camera_pose` moves the camera (the checkpoint's resume calls it);
 `Renderer.animate` advances the bake's camera and object paths (JAX
 `renderer.py:183-205`) and bakes the host scene again on the renderer's
@@ -52,7 +53,7 @@ from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
 from ..scene.camera import begin_frame, derive_camera
 from ..scene.scene import BakedScene
 from ..utils.config import RenderConfig
-from ..utils.profiler import Profiler
+from ..utils.profiler import Profiler, span
 
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
@@ -86,8 +87,10 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
     a time (the RenderingPipeline ProfilerEvent-per-pass analogue,
     RenderingPipeline.cpp:666-682): `frame`, then `megakernel` or `gbuffer`
     + `bdpt`, then `accumulate` and `bmfr`, each waiting for its outputs on
-    the device before its end time.  The waits are its only cost: the work
-    and its order are the same with or without it."""
+    the device before its end time (with its `wait`).  The waits are its
+    only cost: the work and its order are the same with or without it.
+    The passes are spans of the same tracer (`utils/profiler`) with or
+    without `prof`, so a running `torch.profiler` sees them too."""
     prof = _NO_PROFILE if prof is None else prof
     scene = baked.with_camera(camera)
     jitter = pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
@@ -177,8 +180,9 @@ class Renderer:
     def set_camera_pose(self, pos, target, up=(0, 1, 0)):
         """Move the camera (host float32 tensors, as CameraData keeps them)
         and roll prevViewProj; the next frame resets the accumulation."""
-        self.camera = begin_frame(replace(
-            self.camera, pos_w=_host_f32(pos), target=_host_f32(target), up=_host_f32(up)))
+        with span("camera"):
+            self.camera = begin_frame(replace(
+                self.camera, pos_w=_host_f32(pos), target=_host_f32(target), up=_host_f32(up)))
 
     def animate(self, dt: float):
         """Advance the active camera path and any object paths (Scene::update,
@@ -209,7 +213,8 @@ class Renderer:
 
     # -- frame loop ------------------------------------------------------
     def render_frame(self, prof: Profiler | None = None):
-        reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
+        with span("camera"):
+            reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
         i = self.state.frame_index
         self.channels, self.state.accum, self.state.bmfr = self._step(
             self.baked, self.camera, self.state.accum, self.state.bmfr,
@@ -218,12 +223,16 @@ class Renderer:
         self.state.frame_index += 1
         self._prev_view_proj = self.camera.view_proj
         # roll prevViewProj for the next frame's reprojection
-        self.camera = begin_frame(self.camera)
+        with span("camera"):
+            self.camera = begin_frame(self.camera)
         return self.channels["PipelineOutput"]
 
     def render_frame_profiled(self, prof: Profiler):
-        """`render_frame` with a Profiler event a pass (`render_frame_fn`)."""
-        return self.render_frame(prof)
+        """`render_frame` with a Profiler event a pass (`render_frame_fn`),
+        `prof` active over the whole frame: the camera's spans and those
+        under the passes report to it too, without waits."""
+        with prof:
+            return self.render_frame(prof)
 
     def render(self, n_frames: int):
         out = None
@@ -235,11 +244,12 @@ class Renderer:
         """Tone-mapped image (the SimpleToneMappingPass analogue), by the
         configured operator; on a mesh, of the whole image gathered from
         every rank's rows (some operators take the frame's mean)."""
-        op = tonemap_mod.OPERATOR_NAMES[self.cfg.tone_map_operator]
-        img = self.channels[channel]
-        if self.mesh is not None:
-            img = self.mesh.gather_rows(img)
-        return tonemap_mod.tone_map(img[..., :3], op)
+        with span("display"):
+            op = tonemap_mod.OPERATOR_NAMES[self.cfg.tone_map_operator]
+            img = self.channels[channel]
+            if self.mesh is not None:
+                img = self.mesh.gather_rows(img)
+            return tonemap_mod.tone_map(img[..., :3], op)
 
 
 def _host_f32(x) -> torch.Tensor:

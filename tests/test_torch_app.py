@@ -199,9 +199,12 @@ def test_profiled_render_matches_fused(megakernel):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     for key in r1.channels:
         np.testing.assert_array_equal(r1.channels[key].numpy(), r2.channels[key].numpy(), key)
-    stages = {"megakernel"} if megakernel == "auto" else {"gbuffer", "bdpt"}
-    assert set(prof.events) == {"frame"} | {f"frame/{s}" for s in
-                                            stages | {"accumulate", "bmfr"}}
+    # the passes' events, the spans under the megakernel (the CPU's splat
+    # mode 'direct' has none) and the camera's, outside the frame
+    stages = ({"megakernel", "megakernel/frame_args", "megakernel/k1"} if megakernel == "auto"
+              else {"gbuffer", "bdpt"})
+    assert set(prof.events) == {"camera", "frame"} | {f"frame/{s}" for s in
+                                                      stages | {"accumulate", "bmfr"}}
     assert prof.as_dict()["frame"]["count"] == 2
     assert r1.state.frame_index == r2.state.frame_index == 2
 
