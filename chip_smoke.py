@@ -38,7 +38,10 @@ and the Cornell megakernel path with the BMFR denoiser on (every stage,
 the full screen: `bench.py`'s BMFR cell), beside the BMFR-off frame, with
 one pass's stages timed by solver ('qr', 'normal'), their device
 operations counted and the card's pass held against the port's CPU pass
-on the same 1280x720 inputs.  Phase 6 drives, through `Renderer` at the
+on the same 1280x720 inputs; the 'qr' regression is BMFR's fit kernel
+(`csrc/bmfr_fit.cu`, one launch a frame asserted), timed eager and
+graph-replayed beside its host cost a call, its plain version and its
+bound, and held against the plain version on the same card inputs.  Phase 6 drives, through `Renderer` at the
 default config, the scenes the megakernel gate sends to the wavefront:
 the alpha panel room (6a, 8 triangles: the dense shaded kernel with the
 alpha restarts and the closest kernel on the alpha shadow batches, which
@@ -81,8 +84,8 @@ standard output is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, the line before that lists the kernels with
 their launch counts, errors, times and bounds, and the line before that
 is the BMFR phase's {"bmfr": {...}}: ms/frame on and off, the stage times
-and device operations by solver, the card-vs-CPU errors and the
-regression's bound.  Before it come {"phase6": {...}}, {"phase8": {...}},
+and device operations by solver, the card-vs-CPU errors, the regression's
+bound and the fit kernel's times, registers and errors.  Before it come {"phase6": {...}}, {"phase8": {...}},
 {"phase9": {...}}, {"phase10": {...}}, {"phase11": {...}} and
 {"phase12": {...}}.
 
@@ -2401,7 +2404,8 @@ def main() -> int:
                                   "compact": 1, "splat_tile": 1},
         "10c wavefront pink_room": {"bvh_shaded": 1 + (DEPTH - 1) + DEPTH, "bvh_occluded": 3,
                                     "compact": 1, "splat_tile": 1},
-        "10c BMFR on Cornell (camera moved)": {"frame": 1, "compact": 1, "splat_tile": 1},
+        "10c BMFR on Cornell (camera moved)": {"frame": 1, "compact": 1, "splat_tile": 1,
+                                               "bmfr_fit": 1},
     }
     p10["runs"] = {}
     for run in P10_RUNS:
@@ -2966,7 +2970,7 @@ def main() -> int:
                           half_screen_debug=False)
     bm_label = "Cornell megakernel + BMFR (full screen)"
     bm_launches, bm_frames, _, bm_ms = drive("auto", label=bm_label, bmfr=bmfr_cfg)
-    for key in ("frame", "compact", "splat_tile"):
+    for key in ("frame", "compact", "splat_tile", "bmfr_fit"):
         if bm_launches[key] != bm_frames:
             raise AssertionError(f"kernel {key} launched {bm_launches[key]} times in "
                                  f"{bm_frames} BMFR frames")
@@ -2990,12 +2994,36 @@ def main() -> int:
                                   scfg),
             "postprocess": partial(bmfr_mod.postprocess, st_blit, reg, pre[1], pre[2], scfg),
             "pass": partial(bmfr_mod.bmfr_pass, st, ch, cam, scfg)}
+        if solver == "qr":  # the fit kernel's plain version on the same inputs
+            stage_fns[solver]["regression_plain"] = partial(
+                bmfr_mod.regression_plain, pos, nrm, alb, pre[0], st.frame_number, scfg)
     # eager (paced by the host's cost of each of a pass's ~1,000 launches)
     # and CUDA-graph replays (the device's time)
     stages = {solver: {key: value for name, fn in fns.items()
                        for key, value in ((f"{name}_ms", time_ms(fn, 10)),
                                           (f"{name}_graph_ms", time_graph_ms(fn, 5)))}
               for solver, fns in stage_fns.items()}
+    # the fit kernel: host us a call, and against its plain version on the
+    # same card inputs (the share of pixels and blocks beyond 1e-3, the
+    # pixels the window leaves bit-equal)
+    fit = stage_fns["qr"]
+    fit_got, fit_want = fit["regression"](), fit["regression_plain"]()
+    fit_d = (fit_got - fit_want)[..., :3].abs().amax(-1)
+    fit_line = {
+        "kernel_ms": stages["qr"]["regression_ms"],
+        "kernel_graph_ms": stages["qr"]["regression_graph_ms"],
+        "kernel_host_us": host_us(fit["regression"], 200),
+        "plain_ms": stages["qr"]["regression_plain_ms"],
+        "plain_graph_ms": stages["qr"]["regression_plain_graph_ms"],
+        "max_abs_err": float(fit_d.max()), "share_over_1e-3": float((fit_d > 1e-3).float().mean()),
+        "alpha_equal": bool(torch.equal(fit_got[..., 3], fit_want[..., 3])),
+        "ptxas": {v: kernel_ptxas(ptxas, f"bmfr_fit_kernelILb{int(v == 'ld_skip')}E")
+                  for v in ("ld_skip", "add_noise")}}
+    log(f"BMFR fit kernel at {WIDTH}x{HEIGHT}: {fit_line}")
+    if not (fit_line["share_over_1e-3"] <= 1e-3 and fit_line["alpha_equal"]
+            and bool(torch.isfinite(fit_got).all())):
+        raise AssertionError("BMFR's fit kernel differs from its plain version")
+    del fit, fit_got, fit_want, fit_d
     # the card's pass against the port's own CPU pass on the same inputs
     st_cpu = BMFRState(*(t.cpu() for t in (st.prev_pos, st.prev_norm, st.prev_noisy,
                                             st.prev_filtered, st.frame_number)))
@@ -3040,11 +3068,14 @@ def main() -> int:
                   "half_screen_debug=False), solver auto = qr, history_pack auto = f32",
         "ms_per_frame": bm_ms, "host_ms_per_frame": host_ms_of[bm_label],
         "ms_per_frame_bmfr_off": mk_ms, "host_ms_per_frame_bmfr_off": host_ms_of["auto path"],
-        "kernel_launches": {k: bm_launches[k] for k in ("frame", "compact", "splat_tile")},
+        "kernel_launches": {k: bm_launches[k] for k in ("frame", "compact", "splat_tile",
+                                                        "bmfr_fit")},
         "frames": bm_frames, "stages": stages, "card_vs_cpu": vs_cpu,
         "regression_bytes": reg_bytes, "regression_flops": reg_flops,
         "regression_bound_ms": reg_bound["bound_ms"],
-        "regression_bound_by": reg_bound["bound_by"]}}
+        "regression_bound_by": reg_bound["bound_by"],
+        "fit_kernel": {**fit_line, "blocks": n_blocks,
+                       "bound_share": reg_bound["bound_ms"] / fit_line["kernel_graph_ms"]}}}
     log(f"{bm_label}: {bm_ms:.4f} ms/frame against {mk_ms:.4f} BMFR off; stages {stages}; "
         f"regression bound {reg_bound['bound_ms']:.4f} ms ({reg_bound['bound_by']})")
     del r, ch, st, cam, ch_cpu, st_cpu, stage_fns

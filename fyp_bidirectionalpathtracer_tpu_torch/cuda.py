@@ -42,7 +42,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("frame.cu", "frame_small.cu", "frame_textured.cu", "compact.cu", "intersect.cu",
-           "bvh.cu", "splat_rows.cu", "subpath.cu")
+           "bvh.cu", "splat_rows.cu", "subpath.cu", "bmfr_fit.cu")
 HEADERS = ("common.cuh", "intersect.cuh", "frame_program.cuh", "frame_launch.cuh", "bvh.cuh",
            "bvh_pairs.cuh", "subpath.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -53,7 +53,8 @@ BUILD_LOG = "nvcc.log"
 
 LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
             "splat_rows": 0, "closest": 0, "shaded": 0, "occluded": 0,
-            "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0, "subpath": 0}
+            "bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0, "subpath": 0,
+            "bmfr_fit": 0}
 LAUNCHES_BY_VARIANT = {"bvh_closest[order]": 0, "bvh_shaded[order]": 0,
                        "bvh_occluded[order]": 0, "splat_rows[segments]": 0}
 READS = {"host_reads": 0}
@@ -164,12 +165,14 @@ def _declare(lib) -> None:
     lib.bdpt_bvh_count.argtypes = [p, i, p, p, i, p, p]
     lib.bdpt_splat_rows.argtypes = [p, p, i, i, i, i, i, p, p]
     lib.bdpt_subpath.argtypes = [p, i, p, i, i, i, i, p, p, p]
+    lib.bdpt_bmfr_fit.argtypes = [p, i, i] * 5 + [i, i, p, i, i, i, ctypes.c_float, i, i, p, i, p,
+                                                        p]
     for fn in (lib.bdpt_frame_launch, lib.bdpt_frame_textured_launch, lib.bdpt_compact,
                lib.bdpt_splat_reduce,
                lib.bdpt_intersect_closest, lib.bdpt_intersect_shaded,
                lib.bdpt_occluded, lib.bdpt_bvh_closest, lib.bdpt_bvh_shaded,
                lib.bdpt_bvh_occluded, lib.bdpt_bvh_count, lib.bdpt_splat_rows,
-               lib.bdpt_subpath):
+               lib.bdpt_subpath, lib.bdpt_bmfr_fit):
         fn.restype = ctypes.c_int
 
 

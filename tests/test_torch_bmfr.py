@@ -42,6 +42,7 @@ from fyp_bidirectionalpathtracer_tpu.passes import bmfr as jbmfr
 from fyp_bidirectionalpathtracer_tpu.utils.config import BMFRConfig as JBMFRConfig
 from fyp_bidirectionalpathtracer_tpu.utils.image import psnr, read_png, to_u8
 from fyp_bidirectionalpathtracer_tpu.utils.testing import GOLDEN_DIR
+from fyp_bidirectionalpathtracer_tpu_torch import cuda
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
 from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
@@ -617,3 +618,78 @@ def test_bmfr_behaviour(case):
     """tests/test_bmfr.py's 11 behaviour tests, on the port, with their
     tolerances."""
     BEHAVIOUR[case]()
+
+
+# ------------------------------------------ the fit kernel's wrapper on the CPU
+def _faulty(fault):
+    """The flat scene's regression inputs with one fault the fit kernel's
+    wrapper refuses on every device."""
+    pos, norm, albedo, noisy4, _ = _flat_scene(_linear)
+    fr = _frame(3)
+    if fault == "float64_albedo":
+        albedo = albedo.double()
+    elif fault == "int64_frame":
+        fr = fr.long()
+    elif fault == "column_slice":  # rows of a wider image: not one pixel stride
+        pos = torch.cat([pos, pos], 1)[:, :W]
+    elif fault == "transposed":
+        norm = norm.transpose(0, 1)
+    elif fault == "three_channels":
+        noisy4 = noisy4[..., :3]
+    elif fault == "channel_on_meta":
+        albedo = albedo.to("meta")
+    elif fault == "frame_on_meta":
+        fr = fr.to("meta")
+    return pos, norm, albedo, noisy4, fr
+
+
+FIT_FAULTS = ("float64_albedo", "int64_frame", "column_slice", "transposed", "three_channels",
+              "channel_on_meta", "frame_on_meta")
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("fault", FIT_FAULTS)
+def test_fit_wrapper_refuses_what_the_kernel_does_not_take(fault, sharded):
+    """`regression` and `regression_sharded` check the inputs as the fit
+    kernel takes them on every device (dtypes, [H, W, 4], one pixel stride,
+    one device) and raise before any work, the CPU's plain path included."""
+    args = _faulty(fault)
+    cfg = BMFRConfig(half_screen_debug=False)
+    with pytest.raises((TypeError, ValueError)):
+        if sharded:
+            bmfr.regression_sharded(*args, cfg, None)
+        else:
+            bmfr.regression(*args, cfg)
+
+
+def test_fit_wrapper_takes_plane_major_channels():
+    """K1's G-buffer channels are plane-major views ([H, W, 4] with pixel
+    stride 1): the wrapper takes them, and the fit equals the contiguous
+    channels' bit for bit."""
+    pos, norm, albedo, noisy4, _ = _flat_scene(_linear)
+
+    def planes(t):
+        return t.reshape(-1, 4).T.contiguous().T.reshape(H, W, 4)
+
+    assert planes(pos).stride() == (W, 1, H * W)
+    cfg = BMFRConfig(half_screen_debug=False)
+    got = bmfr.regression(planes(pos), planes(norm), planes(albedo), noisy4, _frame(5), cfg)
+    want = bmfr.regression(pos, norm, albedo, noisy4, _frame(5), cfg)
+    assert torch.equal(got, want)
+
+
+def test_bmfr_pass_on_cpu_takes_the_plain_fit(monkeypatch):
+    """On CPU tensors `bmfr_pass` fits through `regression_plain`, once a
+    pass, and launches no fit kernel."""
+    calls = []
+    plain = bmfr.regression_plain
+    monkeypatch.setattr(bmfr, "regression_plain", lambda *a: calls.append(1) or plain(*a))
+    pos, norm, albedo, noisy4, _ = _flat_scene(_linear)
+    cfg = BMFRConfig(enabled=True, regression=True, half_screen_debug=False)
+    state = bmfr.BMFRState.create(H, W, device="cpu")
+    cuda.reset_launch_counts()
+    for _ in range(2):
+        state, out = bmfr.bmfr_pass(state, dict(zip(KEYS, (pos, norm, albedo, noisy4))),
+                                    types.SimpleNamespace(prev_view_proj=torch.eye(4)), cfg)
+    assert len(calls) == 2 and cuda.LAUNCHES["bmfr_fit"] == 0
+    assert bool(torch.isfinite(out).all())

@@ -1,6 +1,7 @@
 """K1 (and its textured variant), K2, K3, K5 (also with `segments`), K6,
-the K4 intersectors and the BVH kernels (also with a ray `order`) against
-their plain versions on an H100, and the frames
+the K4 intersectors, the BVH kernels (also with a ray `order`) and BMFR's
+fit kernel (one device and row-sharded) against their plain versions on an
+H100, and the frames
 (Cornell, pink_room, the textured room's deferred-texture megakernel)
 against the plain chain; K1 at every depth the gate admits and at its
 2,048 triangles, K3 and K5 also on ragged inputs.
@@ -39,12 +40,13 @@ from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import (
     textured_room,
 )
 from fyp_bidirectionalpathtracer_tpu_torch.passes.accumulate import AccumState
+from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr
 from fyp_bidirectionalpathtracer_tpu_torch.passes.bmfr import BMFRState
 from fyp_bidirectionalpathtracer_tpu_torch.passes.gbuffer import pixel_jitter_for_frame
-from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import render_frame_fn
+from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer, render_frame_fn
 from fyp_bidirectionalpathtracer_tpu_torch.scene.camera import camera_ray_dirs
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
-from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, RenderConfig
+from fyp_bidirectionalpathtracer_tpu_torch.utils.config import BDPTConfig, BMFRConfig, RenderConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -670,3 +672,164 @@ def test_splat_rows_kernel_segments_bit_equal(dev, dtype, rows, case):
     flat_keys, order = torch.sort(seg, stable=True)
     flat = splat_reduce_rows(flat_keys.to(dev), vals[:, order].contiguous().to(dev), n_t).cpu()
     assert torch.equal(got.view(torch.int32), flat.view(torch.int32))
+
+
+# ------------------------------------------------------------- the BMFR fit
+# The fit kernel sums each block's 1,024 products in another order than
+# torch: float32 rounding of ~1e-7 relative, amplified by the conditioning
+# of a block's near-dependent features.  FIT_ATOL is the bound the CPU
+# suite holds the plain fit to against JAX's for the same reason
+# (tests/test_torch_bmfr.py PIX_TOL).  A column whose reduced norm lies
+# within rounding of the LD-skip threshold 0.01 can be kept on one side and
+# skipped on the other; such a block's pixels are left out, and there are
+# at most FIT_DIFFERING_BLOCKS of them a frame.
+FIT_ATOL = 1e-3
+FIT_DIFFERING_BLOCKS = 0.02
+
+
+@pytest.fixture(scope="module")
+def bmfr_inputs(dev):
+    """Cornell's BMFR regression inputs at 64x64 and 1280x720: the G-buffer
+    channels (plane-major views of K1's rows) and the preprocessed noisy
+    image (spp in alpha) of the third frame."""
+    out = {}
+    for w, h in ((64, 64), (1280, 720)):
+        cfg = RenderConfig(width=w, height=h, bmfr=BMFRConfig(
+            enabled=True, regression=True, half_screen_debug=False))
+        r = Renderer(Scene.from_built(cornell_box(), aspect=w / h).bake(device=dev), cfg)
+        r.render(2)
+        ch = r.channels
+        pos, nrm, alb = (ch[k] for k in ("WorldPosition", "WorldNormal", "MaterialDiffuse"))
+        noisy = bmfr.preprocess(r.state.bmfr, pos, nrm, ch["Accumulated"],
+                                r.camera.prev_view_proj, cfg.bmfr)[0]
+        out[(w, h)] = (pos, nrm, alb, noisy)
+    return out
+
+
+def _fit_blocks(h, w, frame, cfg):
+    """Each pixel's block of the frame's window (block by * n_bx + bx), -1
+    where the window leaves the pixel; and n_by, n_bx."""
+    n_bx, n_by = bmfr._blocks_x(w, cfg), (h + 31) // 32 + 1
+    off_x, off_y = bmfr.BLOCK_OFFSETS[frame % 16]
+    wy, wx = torch.arange(h)[:, None] - off_y, torch.arange(w)[None, :] - off_x
+    inside = (wy >= 0) & (wy < n_by * 32) & (wx >= 0) & (wx < n_bx * 32)
+    return torch.where(inside, (wy // 32) * n_bx + wx // 32, -1), n_by, n_bx
+
+
+def _plain_kept(fn, monkeypatch):
+    """`fn()` (a plain LD-skip regression) and each block's kept feature
+    columns as bits, read from R (a skipped column's R is zero)."""
+    seen, back = {}, bmfr._back_substitute_ld
+
+    def spy(rmat, qty, limit):
+        seen["rmat"] = rmat
+        return back(rmat, qty, limit)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(bmfr, "_back_substitute_ld", spy)
+        out = fn()
+    kept = (seen["rmat"][:, :, :bmfr.FEATURES] != 0).any(1).int()
+    return out, (kept << torch.arange(bmfr.FEATURES, device=kept.device)).sum(1).int()
+
+
+def _check_fit(got, want, noisy, blocks, differ):
+    """Pixels the window leaves equal noisy bit for bit, alpha is noisy's,
+    and the fitted rgb is within FIT_ATOL but in the `differ` blocks.
+    Returns the worst difference checked."""
+    blocks = blocks.to(got.device)
+    out = blocks < 0
+    assert torch.equal(got[out], noisy[out])
+    assert torch.equal(got[..., 3], noisy[..., 3])
+    checked = ~out & ~torch.isin(blocks, differ)
+    d = (got[..., :3] - want[..., :3]).abs().amax(-1)[checked]
+    worst = float(d.max()) if d.numel() else 0.0
+    assert worst <= FIT_ATOL, worst
+    return worst
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("ld", [True, False])
+@pytest.mark.parametrize("size", [(64, 64), (1280, 720)])
+def test_bmfr_fit_kernel_matches_plain(dev, bmfr_inputs, monkeypatch, size, ld, half):
+    """The fit kernel against `regression_plain` on the same Cornell inputs
+    at every one of the 16 frame offsets, both QR variants (LD skip and
+    add-noise), half screen on and off: one launch a call, the kept columns
+    of every block equal but for a few (FIT_DIFFERING_BLOCKS; none in the
+    add-noise variant, which keeps them all), and `_check_fit`."""
+    pos, nrm, alb, noisy = bmfr_inputs[size]
+    w, h = size
+    cfg = BMFRConfig(enabled=True, regression=True, remove_ld_features=ld,
+                     half_screen_debug=half, regression_solver="qr")
+    worst, n_differ = 0.0, 0
+    for frame in range(16):
+        fr = torch.tensor(frame, dtype=torch.int32, device=dev)
+        blocks, n_by, n_bx = _fit_blocks(h, w, frame, cfg)
+        kept = torch.empty(n_by * n_bx, dtype=torch.int32, device=dev)
+        cuda.reset_launch_counts()
+        got = bmfr._fit_kernel((pos, nrm, alb, noisy), h, noisy, fr, cfg, n_by, 0, False, kept)
+        assert cuda.LAUNCHES["bmfr_fit"] == 1
+        assert torch.equal(got, bmfr.regression(pos, nrm, alb, noisy, fr, cfg))
+        plain = lambda: bmfr.regression_plain(pos, nrm, alb, noisy, fr, cfg)  # noqa: E731
+        if ld:
+            want, want_kept = _plain_kept(plain, monkeypatch)
+        else:
+            want, want_kept = plain(), torch.full_like(kept, (1 << bmfr.FEATURES) - 1)
+        differ = torch.nonzero(kept != want_kept)[:, 0]
+        assert differ.numel() <= (FIT_DIFFERING_BLOCKS * kept.numel() if ld else 0), frame
+        n_differ += differ.numel()
+        worst = max(worst, _check_fit(got, want, noisy, blocks, differ))
+    print(f"{size} ld={ld} half={half}: worst {worst:.3e}, differing blocks {n_differ} "
+          f"in 16 frames")
+
+
+class _RowHalves:
+    """Two ranks' row mesh over one image held whole on one device: the
+    row exchange and gather of `parallel/sharding.RowMesh`, without a
+    process group."""
+
+    def __init__(self, full, rank):
+        self.full, self.rank, self.size = full, rank, 2
+        self.sub_h = full.shape[0] // 2
+
+    def exchange_rows(self, first, last):
+        r0, r1 = self.rank * self.sub_h, (self.rank + 1) * self.sub_h
+        above = self.full[r0 - last.shape[0]:r0] if self.rank > 0 else None
+        below = self.full[r1:r1 + first.shape[0]] if self.rank < 1 else None
+        return above, below
+
+    def gather_rows(self, x):
+        return self.full
+
+
+@pytest.mark.parametrize("ld", [True, False])
+def test_bmfr_fit_kernel_sharded_matches_plain(dev, bmfr_inputs, monkeypatch, ld):
+    """`regression_sharded` on the two row halves of the 1280x720 Cornell
+    inputs: the kernel from each rank's halo-extended rows equals the
+    one-device kernel's rows bit for bit (the same blocks from the same
+    pixels), and the plain sharded fit within `_check_fit`'s bounds but in
+    the blocks whose kept columns differ between the one-device kernel and
+    the plain fit."""
+    pos, nrm, alb, noisy = bmfr_inputs[(1280, 720)]
+    cfg = BMFRConfig(enabled=True, regression=True, remove_ld_features=ld,
+                     half_screen_debug=False, regression_solver="qr")
+    full = torch.cat([pos[..., :3], nrm[..., :3], alb[..., :3], noisy[..., :3]], -1)
+    for frame in (0, 3, 9, 13):
+        fr = torch.tensor(frame, dtype=torch.int32, device=dev)
+        blocks, n_by, n_bx = _fit_blocks(720, 1280, frame, cfg)
+        kept = torch.empty(n_by * n_bx, dtype=torch.int32, device=dev)
+        one = bmfr._fit_kernel((pos, nrm, alb, noisy), 720, noisy, fr, cfg, n_by, 0, False, kept)
+        if ld:
+            _, want_kept = _plain_kept(
+                lambda: bmfr.regression_plain(pos, nrm, alb, noisy, fr, cfg), monkeypatch)
+            differ = torch.nonzero(kept != want_kept)[:, 0]
+        else:
+            differ = kept[:0]
+        for rank in (0, 1):
+            rows = slice(rank * 360, (rank + 1) * 360)
+            part = [t[rows] for t in (pos, nrm, alb, noisy)]
+            cuda.reset_launch_counts()
+            got = bmfr.regression_sharded(*part, fr, cfg, _RowHalves(full, rank))
+            assert cuda.LAUNCHES["bmfr_fit"] == 1
+            assert torch.equal(got, one[rows])
+            want = bmfr.regression_sharded_plain(*part, fr, cfg, _RowHalves(full, rank))
+            _check_fit(got, want, part[3], blocks[rows], differ)

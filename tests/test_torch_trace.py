@@ -21,6 +21,7 @@ import torch
 
 from fyp_bidirectionalpathtracer_tpu_torch import cuda
 from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import cornell_box
+from fyp_bidirectionalpathtracer_tpu_torch.passes import bmfr
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline import frame_profile
 from fyp_bidirectionalpathtracer_tpu_torch.pipeline.renderer import Renderer
 from fyp_bidirectionalpathtracer_tpu_torch.scene.scene import Scene
@@ -281,6 +282,35 @@ def test_a_progressive_frame_reads_the_device_once():
     assert cuda.READS["host_reads"] == 1 == len(syncs), [str(w.message) for w in syncs]
     assert prof.events["frame/megakernel/splat/read_live"].count == 1
     assert cuda.LAUNCHES["frame"] == 1 and cuda.LAUNCHES["compact"] == 1
+
+
+@pytest.mark.cuda
+def test_an_interactive_frame_fits_bmfr_in_one_launch(monkeypatch):
+    """The benchmark's interactive mix on the card (a pose a frame, BMFR's
+    three stages on the full screen, `qr`, the f32 history, `display`):
+    each frame launches the fit kernel once, never runs the plain fit, and
+    reads the device once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = RenderConfig(width=256, height=144, bmfr=BMFRConfig(
+        enabled=True, preprocess=True, regression=True, postprocess=True,
+        half_screen_debug=False, regression_solver="qr", history_pack="f32"))
+    r = Renderer(Scene.from_built(cornell_box(), aspect=256 / 144).bake(device="cuda"), cfg)
+    r.render_frame()
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain fit ran on the card")
+
+    monkeypatch.setattr(bmfr, "regression_plain", refuse)
+    monkeypatch.setattr(bmfr, "_fit_window", refuse)
+    for pose in POSES:
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        r.set_camera_pose(*pose)
+        r.render_frame()
+        r.display()
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["bmfr_fit"] == 1 and cuda.READS["host_reads"] == 1
 
 
 @contextlib.contextmanager
