@@ -24,10 +24,13 @@ each pixel:
    pixel and added there with its count in alpha, then one saturate.
 
 A pixel whose primary ray misses shows the environment and takes no
-estimator; its light subpath is not traced.  Every ray is tested against
-every triangle (Moller-Trumbore), in float64 unless the caller asks
-otherwise.  Each draw comes from the pixel's own stream (`rng`) in the
-order the shaders take them.
+estimator; its light subpath is not traced.  A ray is tested
+(Moller-Trumbore, in float64 unless the caller asks otherwise) against
+every triangle of each group whose box it passes within a margin of
+(`scene.split`, `_margin`), in blocks of at most CAP pairs, so memory
+does not grow with the triangle count; the answers are those of testing
+every triangle, bit for bit.  Each draw comes from the pixel's own
+stream (`rng`) in the order the shaders take them.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from .rng import Stream, pixel_stream
 CLAMP = 0.9          # mClampUpper
 MIN_T = 1.0e-3       # ResourceManager's mMinT
 FAR = 1.0e30
-CHUNK = 1 << 17      # rays a block of the triangle tests
+CAP = 1 << 24        # ray-box or ray-triangle pairs a block holds at most
 MSAA8 = ((1, -3), (-1, 3), (5, 1), (-3, -5), (-5, 5), (-7, -1), (3, 7), (7, -7))
 FIELDS = ("color", "pos", "n", "v", "dif", "spec", "alpha", "spec_lobe", "pdf")
 
@@ -70,40 +73,103 @@ def sat(x):
 
 
 # ------------------------------------------------------------------ rays
-def _tests(scene, o, d, tmin, tmax, cull):
-    """Every triangle against rays o, d [M, 3]: (valid, t, u, v), [M, T]."""
+def _tests(v0, e1, e2, o, d, tmin, tmax, cull):
+    """Triangles v0, e1, e2 ([L, 3], or [M, L, 3] a ray each) against rays
+    o, d [M, 3]: (valid, t, u, v), [M, L]."""
     o, d = o[:, None], d[:, None]
-    pvec = cross(d, scene.e2)
-    det = dot(scene.e1, pvec)
+    pvec = cross(d, e2)
+    det = dot(e1, pvec)
     ok = det > 1e-9 if cull else det.abs() > 1e-9
     inv = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
                       torch.zeros_like(det))
-    tvec = o - scene.v0
+    tvec = o - v0
     u = dot(tvec, pvec) * inv
-    q = cross(tvec, scene.e1)
+    q = cross(tvec, e1)
     v = dot(d, q) * inv
-    t = dot(scene.e2, q) * inv
+    t = dot(e2, q) * inv
     hit = ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > tmin[:, None]) & (t < tmax[:, None])
     return hit, t, u, v
 
 
+def _margin(scene, o, d):
+    """[M, G]: how far outside a group's box the triangle test can still
+    find a hit of a ray o, d [M, 3].
+
+    Let R be a bound on the distance from o to the group's box's farthest
+    point, E the group's longest edge and e the working type's epsilon.
+    The test's u, v and t are products of sums of lengths up to R, E and
+    |d|, over det, with |det| > 1e-9.  Their rounding puts a point that
+    the test accepts at most about 38 e |d| E^2 R / 1e-9 from its
+    triangle; this takes 1000 e |d| E^2 R / 1e-9.  To that it adds 1e-9 x
+    (S + R), S the scene's scale, which the box test's own rounding stays
+    under while |d| E^2 is under 1e9.  Under the bfloat16 control the
+    margin stays the working type's."""
+    centre = (scene.box_lo + scene.box_hi) / 2
+    half = torch.linalg.vector_norm(scene.box_hi - scene.box_lo, dim=1) / 2
+    reach = torch.linalg.vector_norm(o[:, None] - centre, dim=2) + half
+    length = torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    rounding = 1000 * torch.finfo(o.dtype).eps / 1e-9
+    return 1e-9 * (scene.scale + reach) + rounding * length * scene.box_edge ** 2 * reach
+
+
+def _enter(scene, o, d, tmin, tmax):
+    """[M, G]: whether each ray o + t d, tmin < t < tmax, passes within
+    its margin of a group's box, slab by slab."""
+    pad = _margin(scene, o, d)[..., None]
+    inv = (1.0 / d)[:, None]
+    t0 = (scene.box_lo - pad - o[:, None]) * inv
+    t1 = (scene.box_hi + pad - o[:, None]) * inv
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    # 0 * inf: a ray in a slab's plane that runs along it
+    near = torch.where(torch.isnan(lo), -math.inf, lo).amax(-1)
+    far = torch.where(torch.isnan(hi), math.inf, hi).amin(-1)
+    return (near <= far) & (far >= tmin[:, None]) & (near <= tmax[:, None])
+
+
+def _nearest(scene, o, d, tmin, tmax, cull):
+    """Each group's nearest hit for each ray o, d [M, 3] that `_enter`s
+    its box, in blocks of at most CAP ray-box and CAP ray-triangle pairs:
+    yields (ray, t, triangle, u, v), each [P], t = inf where the group has
+    no hit; a tie goes to the lower triangle index."""
+    m, (n_groups, width) = o.shape[0], scene.groups.shape
+    per_block, per_chunk = max(1, CAP // n_groups), max(1, CAP // width)
+    for a in range(0, m, per_block):
+        b = min(m, a + per_block)
+        rays, groups = _enter(scene, o[a:b], d[a:b], tmin[a:b], tmax[a:b]).nonzero(as_tuple=True)
+        for c in range(0, rays.numel(), per_chunk):
+            r = rays[c:c + per_chunk] + a
+            tris = scene.groups[groups[c:c + per_chunk]]
+            hit, t, u, v = _tests(scene.v0[tris], scene.e1[tris], scene.e2[tris], o[r], d[r],
+                                  tmin[r], tmax[r], cull)
+            t = torch.where(hit, t, torch.full_like(t, math.inf))
+            best, k = t.min(1)
+            rows = torch.arange(r.numel(), device=o.device)
+            yield r, best, tris[rows, k], u[rows, k], v[rows, k]
+
+
 def closest(scene, o, d, tmin, cull=False):
-    """The nearest hit of each ray beyond tmin: (tri, -1 on a miss; t, u, v)."""
-    m = o.shape[0]
-    tri = torch.full((m,), -1, dtype=torch.int64, device=o.device)
-    t, u, v = (torch.zeros(m, dtype=o.dtype, device=o.device) for _ in range(3))
-    tmin = torch.as_tensor(tmin, dtype=o.dtype, device=o.device).expand(m)
-    far = torch.full((m,), FAR, dtype=o.dtype, device=o.device)
-    for a in range(0, m, CHUNK):
-        b = min(m, a + CHUNK)
-        hit, tt, uu, vv = _tests(scene, o[a:b], d[a:b], tmin[a:b], far[a:b], cull)
-        tt = torch.where(hit, tt, torch.full_like(tt, math.inf))
-        best, k = tt.min(1)
-        rows = torch.arange(b - a, device=o.device)
-        found = torch.isfinite(best)
-        tri[a:b] = torch.where(found, k, torch.full_like(k, -1))
-        t[a:b], u[a:b], v[a:b] = best, uu[rows, k], vv[rows, k]
-    return tri, t, u, v
+    """The nearest hit of each ray beyond tmin: (tri, -1 on a miss; t, u, v),
+    as testing every triangle gives it, the least t and on a tie the lowest
+    triangle index; a miss reads t = inf and triangle 0's u, v."""
+    m, dev = o.shape[0], o.device
+    tmin = torch.as_tensor(tmin, dtype=o.dtype, device=dev).expand(m)
+    far = torch.full((m,), FAR, dtype=o.dtype, device=dev)
+    none = scene.v0.shape[0]
+    tri = torch.full((m,), none, dtype=torch.int64, device=dev)
+    t = torch.full((m,), math.inf, dtype=o.dtype, device=dev)
+    _, _, u, v = _tests(scene.v0[:1], scene.e1[:1], scene.e2[:1], o, d, tmin, far, cull)
+    u, v = u[:, 0].clone(), v[:, 0].clone()
+    for r, tt, k, uu, vv in _nearest(scene, o, d, tmin, far, cull):
+        found = torch.isfinite(tt)
+        r, tt, k, uu, vv = r[found], tt[found], k[found], uu[found], vv[found]
+        best = t.scatter_reduce(0, r, tt, "amin")
+        ties = tt == best[r]
+        k_best = torch.where(t == best, tri, torch.full_like(tri, none)).scatter_reduce(
+            0, r[ties], k[ties], "amin")
+        take = ties & (k == k_best[r])
+        u[r[take]], v[r[take]] = uu[take], vv[take]
+        t, tri = best, k_best
+    return torch.where(tri < none, tri, torch.full_like(tri, -1)), t, u, v
 
 
 def blocked(scene, o, d, tmin, tmax):
@@ -111,9 +177,9 @@ def blocked(scene, o, d, tmin, tmax):
     m = o.shape[0]
     out = torch.zeros(m, dtype=torch.bool, device=o.device)
     tmin = torch.as_tensor(tmin, dtype=o.dtype, device=o.device).expand(m)
-    for a in range(0, m, CHUNK):
-        b = min(m, a + CHUNK)
-        out[a:b] = _tests(scene, o[a:b], d[a:b], tmin[a:b], tmax[a:b], False)[0].any(1)
+    tmax = torch.as_tensor(tmax, dtype=o.dtype, device=o.device).expand(m)
+    for r, t, _, _, _ in _nearest(scene, o, d, tmin, tmax, False):
+        out[r[torch.isfinite(t)]] = True
     return out
 
 

@@ -8,6 +8,12 @@ emissive, opacity and whether it is double-sided (simplePrepareShadingData,
 BDPTUtils.hlsli:2-52: metal-rough or spec-gloss).  Textured materials are
 not read: the reference renders untextured configurations only.
 
+It also splits the triangles into groups of at most `GROUP` by the
+textbook median split (halve a set at the median centroid along the axis
+where the centroids spread most, until a set is small enough), each group
+with its float64 box and its longest edge, which the ray queries
+(`bdpt.closest`, `bdpt.blocked`) use to skip the groups a ray cannot hit.
+
 `Camera.at(camera, pose, aspect)` is Falcor's camera at a pose
 (Camera.cpp:64-140): the U/V/W frame the rays are built from and the
 unjittered view-projection matrix.
@@ -21,6 +27,7 @@ import torch
 
 METAL_ROUGH = 0
 LIGHT_DIRECTIONAL = 1
+GROUP = 128          # the most triangles a group holds
 
 
 @dataclass
@@ -42,6 +49,11 @@ class Scene:
     light_power: torch.Tensor  # [L, 3]
     light_directional: torch.Tensor  # [L] bool
     env: torch.Tensor      # [3], the constant environment
+    groups: torch.Tensor   # [G, L] triangle indices a group, ascending, padded with the first
+    box_lo: torch.Tensor   # [G, 3] each group's box, float64
+    box_hi: torch.Tensor
+    box_edge: torch.Tensor  # [G] the longest edge of a group's triangles, float64
+    scale: float           # the largest coordinate in magnitude
 
     @classmethod
     def of(cls, arrays: dict, device, dtype=torch.float64) -> "Scene":
@@ -55,6 +67,7 @@ class Scene:
             normals.append(t(mesh["normals"])[idx])
             mats += [mesh["material"]] * idx.shape[0]
         p, n = torch.cat(corners), torch.cat(normals)
+        groups, lo, hi, edge = split(p.detach().to("cpu", torch.float64))
         rows = [_material(m) for m in arrays["materials"]]
         if any(m.get(k) is not None for m in arrays["materials"]
                for k in ("base_color_image", "specular_image", "emissive_image")):
@@ -79,11 +92,44 @@ class Scene:
             light_directional=torch.tensor(
                 [light.get("type", "point") in ("dir", "dir_light", "directional")
                  for light in lights], device=device),
-            env=t(arrays.get("env", (0.0, 0.0, 0.0))))
+            env=t(arrays.get("env", (0.0, 0.0, 0.0))),
+            groups=groups.to(device), box_lo=lo.to(device), box_hi=hi.to(device),
+            box_edge=edge.to(device), scale=float(p.abs().max()) if p.numel() else 0.0)
 
     @property
     def n_lights(self) -> int:
         return int(self.light_pos.shape[0])
+
+
+def split(p: torch.Tensor, size: int = GROUP):
+    """Groups of the triangles with corners p [T, 3, 3] (float64, on the
+    host): ([G, L] indices, each row ascending and padded with its first,
+    L the largest group; [G, 3] box corners low and high; [G] the longest
+    edge of a group's triangles).
+
+    A set of more than `size` triangles is halved at the median of its
+    centroids along the axis of their widest spread, ties kept in index
+    order.  Each box holds its triangles' corners, in float64 whatever the
+    scene's type."""
+    centroid = p.mean(1)
+    todo, leaves = [torch.arange(p.shape[0])], []
+    while todo:
+        idx = todo.pop()
+        if idx.numel() <= size:
+            leaves.append(idx.sort().values)
+            continue
+        c = centroid[idx]
+        axis = int((c.amax(0) - c.amin(0)).argmax())
+        order = torch.argsort(c[:, axis], stable=True)
+        half = idx.numel() // 2
+        todo += [idx[order[half:]], idx[order[:half]]]
+    width = max(leaf.numel() for leaf in leaves)
+    groups = torch.stack([torch.cat([leaf, leaf[:1].expand(width - leaf.numel())])
+                          for leaf in leaves])
+    corners = p[groups].reshape(len(leaves), -1, 3)
+    edges = torch.cat([p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], p[:, 2] - p[:, 1]], 1)
+    longest = torch.linalg.vector_norm(edges.reshape(-1, 3, 3), dim=2).amax(1)[groups].amax(1)
+    return groups, corners.amin(1), corners.amax(1), longest
 
 
 def _material(m: dict) -> dict:

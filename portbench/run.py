@@ -3,9 +3,10 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 run from the root of a checkout on a machine with a CUDA card.  A cell of
-`BENCHMARK.json` names a configuration (`configs/<name>.json`, its scene
-inline) and a traffic mix (`traffic/<name>.json`); the harness finds
-both, and every metric's reader (`metrics/<name>.py`), by name.
+`BENCHMARK.json` names a configuration (`configs/<name>.json`: its scene
+inline as `quads`, or as `geometry` from a builder, `geometry/<name>.py`)
+and a traffic mix (`traffic/<name>.json`); the harness finds each of
+them, and every metric's reader (`metrics/<name>.py`), by name.
 
 A run: the port's scene built from the configuration's arrays and baked on the card
 (`Scene.from_built(...).bake`), a `Renderer` at the configuration's size,

@@ -1,14 +1,28 @@
 """Load a configuration and build its scene.
 
 `load_config(name)` reads `configs/<name>.json`; `load_arrays(cfg)` builds
-from its `quads` the plain dict both sides start from: one mesh a quad
-(two triangles, the normal from its winding, float32 as a bake takes
-them), its materials, lights and camera.  `port_scene(arrays)` makes of it
-the port's `BuiltScene`, which the harness hands to `Scene.from_built`;
-the reference (`reference/scene.py`) reads the same dict.
+the plain dict both sides start from: the meshes, float32 as a bake takes
+them, and the configuration's materials, lights and camera.  The meshes
+come from one of two keys:
+
+- `quads`: the scene inline, one mesh a quad (two triangles, the normal
+  from its winding);
+- `geometry`: `{"builder": "<name>", ...params}`, a builder found by name,
+  `geometry/<name>.py`, whose `build(params)` (the dict without `builder`)
+  returns the meshes as a deterministic function of the parameters, each
+  a dict of `positions` [n, 3], `normals` [n, 3], `uvs` [n, 2], `indices`
+  [k, 3], `material` and `name`.  A builder imports only what
+  `BUILDER_IMPORTS` names, so both sides start from data that nothing of
+  the port has prepared.
+
+`port_scene(arrays)` makes of the dict the port's `BuiltScene`, which the
+harness hands to `Scene.from_built`; the reference (`reference/scene.py`)
+reads the same dict.
 """
 from __future__ import annotations
 
+import ast
+import importlib.util
 import json
 import os
 
@@ -35,8 +49,52 @@ def quad_mesh(corners, material: int, name: str = "") -> dict:
             "indices": QUAD.copy(), "material": int(material), "name": name}
 
 
+BUILDER_IMPORTS = {"__future__", "math", "numpy"}
+
+
+def builder_imports(path: str) -> set[str]:
+    """The top-level names a builder's source imports, with `.` for a
+    relative import and `__import__` for a call of it."""
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module.split(".")[0] if node.level == 0 and node.module else ".")
+        elif isinstance(node, ast.Name) and node.id == "__import__":
+            names.add(node.id)
+    return names
+
+
+def built_meshes(geometry: dict) -> list[dict]:
+    """The meshes of `geometry/<builder>.py`'s `build(params)`."""
+    name = geometry["builder"]
+    path = os.path.join(HERE, "geometry", f"{name}.py")
+    if os.path.dirname(os.path.relpath(path, HERE)) != "geometry":
+        raise ValueError(f"geometry builder {name!r} is not a file of geometry/")
+    if builder_imports(path) - BUILDER_IMPORTS:
+        raise ValueError(f"geometry/{name}.py imports {sorted(builder_imports(path))}; "
+                         f"a builder imports only {sorted(BUILDER_IMPORTS)}")
+    spec = importlib.util.spec_from_file_location("portbench_geometry_" + name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    params = {k: v for k, v in geometry.items() if k != "builder"}
+    return [{"positions": np.asarray(m["positions"], np.float32).reshape(-1, 3),
+             "normals": np.asarray(m["normals"], np.float32).reshape(-1, 3),
+             "uvs": np.asarray(m["uvs"], np.float32).reshape(-1, 2),
+             "indices": np.asarray(m["indices"], np.int32).reshape(-1, 3),
+             "material": int(m["material"]), "name": str(m.get("name", ""))}
+            for m in module.build(params)]
+
+
 def load_arrays(cfg: dict) -> dict:
-    meshes = [quad_mesh(q["corners"], q["material"], q.get("name", "")) for q in cfg["quads"]]
+    if "geometry" in cfg:
+        if "quads" in cfg:
+            raise ValueError(f"configuration {cfg.get('name')!r} gives both quads and geometry")
+        meshes = built_meshes(cfg["geometry"])
+    else:
+        meshes = [quad_mesh(q["corners"], q["material"], q.get("name", ""))
+                  for q in cfg["quads"]]
     return {"meshes": meshes, "materials": [dict(m) for m in cfg["materials"]],
             "lights": cfg["lights"], "camera": cfg["camera"]}
 
