@@ -602,7 +602,9 @@ def p10_renderer(run, device, mesh=None):
     baked = Scene.from_built(built, aspect=WIDTH / HEIGHT).bake(max_lights=16, device=device)
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, bdpt=BDPTConfig(max_depth=DEPTH, **bdpt_kw),
                        bmfr=BMFRConfig(enabled=bmfr, regression=bmfr, half_screen_debug=False))
-    return Renderer(baked, cfg, mesh=mesh)
+    # eager on one device too (no CUDA graphs), as the sharded steps are:
+    # the graphs' camera lives on the card, whose |W| may round otherwise
+    return Renderer(baked, cfg, mesh=mesh, graphs=False)
 
 
 def p10_frames(run, renderer):

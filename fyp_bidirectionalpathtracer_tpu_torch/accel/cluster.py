@@ -38,7 +38,9 @@ rays, `ops/raysort.sort_order`): the kernel walks the rays in that order
 and the plain version gathers the rays in that order and scatters its
 answers back.  A ray's answer depends on that ray alone, so the output is
 the unordered call's bit for bit.  A launch with an order also counts in
-`cuda.LAUNCHES_BY_VARIANT` under `<kernel>[order]`.
+`cuda.LAUNCHES_BY_VARIANT` under `<kernel>[order]`.  Each wrapper adds the
+rays of its batch to `cuda.RAYS[<kernel>]` on every device, from the
+batch's shape.
 """
 from __future__ import annotations
 
@@ -212,6 +214,7 @@ def bvh_closest(rows, n_tris, pairs, origin, direction, t_min, t_max=None,
     (see the module doc)."""
     _check(rows, n_tris, pairs, origin, direction)
     _check_order(order, origin)
+    cuda.RAYS["bvh_closest"] += origin.numel() // 3
     if origin.device.type == "cpu":
         if order is None:
             return closest_plain(rows, n_tris, origin, direction, t_min, t_max, cull_backface)
@@ -241,6 +244,7 @@ def bvh_shaded_fm(tri_pack, n_tris, rows, pairs, origin, direction, t_min, t_max
     _check(rows, n_tris, pairs, origin, direction)
     check_rays(tri_pack, n_tris, origin, direction)
     _check_order(order, origin)
+    cuda.RAYS["bvh_shaded"] += origin.numel() // 3
     if origin.device.type == "cpu":
         if order is None:
             return shaded_plain(tri_pack, n_tris, origin, direction, t_min, t_max,
@@ -268,6 +272,7 @@ def bvh_occluded(rows, n_tris, pairs, origin, direction, t_min, t_max=None,
     `order`."""
     _check(rows, n_tris, pairs, origin, direction)
     _check_order(order, origin)
+    cuda.RAYS["bvh_occluded"] += origin.numel() // 3
     if origin.device.type == "cpu":
         if order is None:
             return occluded_plain(rows, n_tris, origin, direction, t_min, t_max)

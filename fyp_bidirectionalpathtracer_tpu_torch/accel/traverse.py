@@ -29,6 +29,9 @@ which answers each ray in place: the output is the unsorted call's bit for
 bit.  The dense tier stays unsorted, as JAX's dense tiers are.
 `const_origin` (every ray shares one origin) only spares JAX three sort
 payload columns; the port's sort moves no ray data, so it changes nothing.
+
+Each query is the span `trace` (`utils/profiler`), and its direction sort
+the span `sort` inside it.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from functools import partial
 import torch
 
 from ..ops.raysort import sort_order
+from ..utils.profiler import span
 from . import cluster
 from . import intersect as isect
 from .intersect import _BIG, MAX_DENSE_TRIS, HitRecord
@@ -75,18 +79,21 @@ def make_intersector(tri_pack: torch.Tensor, n_tris: int, pairs: torch.Tensor | 
     def intersect(origin, direction, t_min, t_max=None, closest=True,
                   cull_backface=False, coherent=True, const_origin=False):
         del const_origin
-        kw = {}
-        if bvh_tier and not coherent:
-            if bounds is None:
-                raise ValueError("an incoherent batch on the BVH tier is sorted by keys "
-                                 "over the bake's bounds, which were not given")
-            kw["order"] = sort_order(origin, direction, t_min, t_max, bounds)
-        if not closest and not cull_backface:
-            occ = occluded(origin, direction, t_min, t_max, **kw)
-            zero = torch.zeros(occ.shape, dtype=torch.float32, device=occ.device)
-            return HitRecord(t=torch.where(occ, zero, _BIG),
-                             tri=torch.where(occ, 0, -1).to(torch.int32),
-                             bary_u=zero, bary_v=zero)
-        return closest_hit(origin, direction, t_min, t_max, cull_backface=cull_backface, **kw)
+        with span("trace"):
+            kw = {}
+            if bvh_tier and not coherent:
+                if bounds is None:
+                    raise ValueError("an incoherent batch on the BVH tier is sorted by keys "
+                                     "over the bake's bounds, which were not given")
+                with span("sort"):
+                    kw["order"] = sort_order(origin, direction, t_min, t_max, bounds)
+            if not closest and not cull_backface:
+                occ = occluded(origin, direction, t_min, t_max, **kw)
+                zero = torch.zeros(occ.shape, dtype=torch.float32, device=occ.device)
+                return HitRecord(t=torch.where(occ, zero, _BIG),
+                                 tri=torch.where(occ, 0, -1).to(torch.int32),
+                                 bary_u=zero, bary_v=zero)
+            return closest_hit(origin, direction, t_min, t_max, cull_backface=cull_backface,
+                               **kw)
 
     return intersect

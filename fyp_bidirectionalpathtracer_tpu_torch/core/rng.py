@@ -40,11 +40,15 @@ def pixel_seeds(width: int, height: int, frame, backoff: int = 16,
                 device=None) -> torch.Tensor:
     """Seed grid [H, W]: initRand(x + y*W, frameCount, 16)
     (BDPTMain.rt.hlsl:73); rows [row0, row0 + sub_height) of the full
-    image with global pixel ids."""
+    image with global pixel ids.  `frame` is an int or an int64 scalar
+    tensor on `device` (a CUDA graph's input, `pipeline/graphs.py`): the
+    same seeds."""
     sub_h = height if sub_height is None else sub_height
     xs = torch.arange(width, dtype=torch.int64, device=device)[None, :]
     ys = torch.arange(sub_h, dtype=torch.int64, device=device)[:, None] + row0
     lin = (ys * width + xs) & _MASK
+    if isinstance(frame, torch.Tensor):
+        return tea_init(lin, (frame & _MASK).expand_as(lin), backoff)
     return tea_init(lin, torch.full_like(lin, int(frame) & _MASK), backoff)
 
 

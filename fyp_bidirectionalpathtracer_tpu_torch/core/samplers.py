@@ -67,7 +67,9 @@ def unit_sphere_sample(seed, max_iters: int = 24):
         p = torch.where(done[..., None], p, cand)
         seed = torch.where(done, seed, seed_n)
         done = done | (dot(p, p) <= 1.0)
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=seed.device)
+    # filled on the device (no host copy, which a CUDA graph's capture refuses)
+    z_axis = torch.zeros(3, dtype=torch.float32, device=seed.device)
+    z_axis[2:].fill_(1.0)
     return seed, torch.where(done[..., None], p, z_axis)
 
 

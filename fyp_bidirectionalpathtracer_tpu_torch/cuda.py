@@ -22,9 +22,13 @@ Each kernel wrapper counts its launches in `LAUNCHES`; a run resets the
 counts with `reset_launch_counts()` and reads them to show which kernels
 its path went through.  A launch of a kernel's variant (the BVH kernels
 with a ray `order`, K5 with `segments`) also counts in
-`LAUNCHES_BY_VARIANT`.  Beside them, `READS["host_reads"]` counts the
-frame path's reads of a CUDA tensor's value on the host (`read_host`),
-each of which waits for the device; `reset_launch_counts()` resets it too.
+`LAUNCHES_BY_VARIANT`.  `RAYS` counts the rays handed to each BVH
+kernel's wrapper (`accel/cluster.py`: a launch on the card, the plain
+version on the CPU), from the batch's shape on the host, with no device
+read.  A wavefront frame replayed as CUDA graphs (`pipeline/graphs.py`)
+calls no wrapper: its replay adds what its capture counted.  Beside them, `READS["host_reads"]` counts the frame path's reads of
+a CUDA tensor's value on the host (`read_host`), each of which waits for
+the device.  `reset_launch_counts()` resets all of them.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ LAUNCHES = {"frame": 0, "frame_textured": 0, "compact": 0, "splat_tile": 0,
             "bmfr_fit": 0}
 LAUNCHES_BY_VARIANT = {"bvh_closest[order]": 0, "bvh_shaded[order]": 0,
                        "bvh_occluded[order]": 0, "splat_rows[segments]": 0}
+RAYS = {"bvh_closest": 0, "bvh_shaded": 0, "bvh_occluded": 0}
 READS = {"host_reads": 0}
 
 _lock = threading.Lock()
@@ -77,7 +82,7 @@ def resolve_device(device) -> torch.device:
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_VARIANT, READS):
+    for counts in (LAUNCHES, LAUNCHES_BY_VARIANT, RAYS, READS):
         for key in counts:
             counts[key] = 0
 

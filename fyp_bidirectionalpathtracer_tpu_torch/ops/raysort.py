@@ -92,7 +92,8 @@ def sort_order(origin, direction, t_min, t_max, bounds) -> torch.Tensor:
     if isinstance(t_max, torch.Tensor) and t_max.dim() != 0:
         dev = origin.device
         tmax = torch.broadcast_to(t_max.to(dev, torch.float32), shape).reshape(-1)
-        tmin = torch.broadcast_to(torch.as_tensor(t_min, dtype=torch.float32, device=dev),
-                                  shape).reshape(-1)
+        tmin = (torch.broadcast_to(t_min.to(dev, torch.float32), shape).reshape(-1)
+                if isinstance(t_min, torch.Tensor)
+                else torch.full(shape, float(t_min), dtype=torch.float32, device=dev).reshape(-1))
         keys = torch.where(tmax <= tmin, DEAD_KEY, keys)
     return make_permutation(keys)[0]

@@ -24,6 +24,7 @@ from ..accel import intersect as isect
 from ..accel.traverse import CLUSTER_THRESHOLD, HitRecord, TriSoA
 from ..core.vecmath import cross, dot, normalize
 from ..scene.types import SHADING_METAL_ROUGH, MaterialArray, TextureAtlas, on_device
+from ..utils.profiler import span
 from .raysort import sort_order
 from .texture import sample_combined, sample_or_constant
 
@@ -251,6 +252,9 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
     sort.  `lean_bf16` (JAX's bf16 quantisation of lean bounce shading on
     the TPU; the port keeps float32, as JAX on the CPU does) is accepted and
     ignored.  A bake with `plain=True` runs the kernels' plain versions.
+    On the kernel branches each query is the span `trace` (`utils/profiler`)
+    and its direction sort the span `sort` inside it, as the intersector's
+    (`accel/traverse`) are on the gather branch.
 
     A scene with alpha-tested materials wraps each branch in
     `ops/alpha.wrap_tracer`, as JAX does (`:398-402`).  On the gather
@@ -280,12 +284,15 @@ def make_shaded_tracer(baked, force_fused: bool | None = None, sort_divergent: b
 
         def trace(origin, direction, t_min, view_origin, cull_backface=False,
                   coherent=True, lean=False):
-            kw = {}
-            if sort and not coherent:
-                kw["order"] = sort_order(origin, direction, t_min, None, baked.sort_bounds)
-            hit, fields_fm = shaded(baked.tri_pack, baked.n_tris, origin=origin,
-                                    direction=direction, t_min=t_min,
-                                    cull_backface=cull_backface, **kw)
+            with span("trace"):
+                kw = {}
+                if sort and not coherent:
+                    with span("sort"):
+                        kw["order"] = sort_order(origin, direction, t_min, None,
+                                                 baked.sort_bounds)
+                hit, fields_fm = shaded(baked.tri_pack, baked.n_tris, origin=origin,
+                                        direction=direction, t_min=t_min,
+                                        cull_backface=cull_backface, **kw)
             return hit, shading_from_fields_fm(fields_fm, atlas_mean if lean else atlas_full,
                                                hit, origin, direction, view_origin)
 

@@ -35,6 +35,17 @@ are JAX's frame options:
   the image on purpose, as JAX's do: every visibility query answers
   "visible", or the extension traces are skipped and each subpath keeps
   its payload.
+
+`bdpt_pass` is `bdpt_splat` of `bdpt_estimates`: everything up to the
+estimator-2 splat, whose shapes the frame's size fixes (what
+`pipeline/graphs.py` captures as CUDA graphs), then the splat, whose sort
+runs over the live updates that a host read counts.
+
+Spans (`utils/profiler`): `subpaths` (steps 1 and 2: both subpaths and
+their extension traces) and `shadows` (the shadow batches of estimators
+1-3, built and traced through `shadow_fn`); each query inside is a
+`trace` span of the tracer or the intersector.  The estimator-2 splat
+keeps its own `splat` span.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from ..ops.shading import make_shaded_tracer
 from ..scene.camera import project_dir_to_pixel
 from ..scene.types import LIGHT_DIRECTIONAL
 from ..utils.config import BDPTConfig
+from ..utils.profiler import span
 
 
 def _fmap(fn, *objs):
@@ -250,6 +262,20 @@ def _unstack(payload, k):
     return _fmap(lambda x: x[k], payload)
 
 
+@dataclass(frozen=True)
+class Estimates:
+    """`bdpt_estimates`' result: the image of estimators 1 and 3 over the
+    background, and estimator 2's updates for the splat."""
+
+    result: torch.Tensor            # [H, W, 4]
+    pix: torch.Tensor | None        # int32 [n]: the update's pixel (n_pix: none)
+    rgb: torch.Tensor | None        # [n, 3]
+    alpha: torch.Tensor | None      # [n]: 1 where the update lands
+    segments: int                   # the splat's sort segments
+    n_pix: int                      # pixels of the full-height image
+    row0: int
+
+
 def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: BDPTConfig,
               trace=None, full_height: int | None = None, row0: int = 0, mesh=None):
     """The full BDPT estimator: the frame's radiance image [H, W, 4]
@@ -262,6 +288,17 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     estimator-2 pixel projection use global pixel ids; the light-tracing
     splat builds the full-height image, `mesh` sums it over its ranks (the
     frame's one collective) and the shard keeps its rows."""
+    est = bdpt_estimates(baked, intersect, channels, frame_count, pixel_jitter, cfg,
+                         trace=trace, full_height=full_height, row0=row0)
+    return bdpt_splat(est, cfg, plain=baked.plain, mesh=mesh)
+
+
+def bdpt_estimates(baked, intersect, channels: dict, frame_count, pixel_jitter,
+                   cfg: BDPTConfig, trace=None, full_height: int | None = None,
+                   row0: int = 0) -> Estimates:
+    """`bdpt_pass` up to the estimator-2 splat.  `frame_count` is an int or
+    an int64 scalar tensor on the device, and the camera and
+    `pixel_jitter` host or device tensors: the same image."""
     if trace is None:
         trace = make_shaded_tracer(baked, sort_divergent=cfg.sort_bounces,
                                    bounce_tex_mean=cfg.bounce_tex_mean)
@@ -304,57 +341,60 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
     camera_path[0] = replace(zeros_vert, pos=cam_pos.expand(shape + (3,)),
                              n=cam_n.expand(shape + (3,)), color=ones[..., None].expand(shape + (3,)),
                              pdf_fwd=ones)
-    seed2, hit_thp, out_dir, pdf1, is_spec1 = mat.sample_brdf(
-        seed, world_norm, world_norm, v, dif, spec, rough, cfg.mat_model)
-    if not cfg.faithful_rng:
-        seed = seed2
-    camera_path[1] = PathVertex(color=hit_thp, pos=world_pos, n=world_norm, v=v, dif=dif,
-                                spec=spec, rough=rough, is_spec=is_spec1,
-                                pdf_fwd=pdf1).where(valid, zeros_vert)
-    payload = replace(init_payload(world_pos, out_dir, hit_thp, seed), terminated=~valid)
+    with span("subpaths"):
+        seed2, hit_thp, out_dir, pdf1, is_spec1 = mat.sample_brdf(
+            seed, world_norm, world_norm, v, dif, spec, rough, cfg.mat_model)
+        if not cfg.faithful_rng:
+            seed = seed2
+        camera_path[1] = PathVertex(color=hit_thp, pos=world_pos, n=world_norm, v=v, dif=dif,
+                                    spec=spec, rough=rough, is_spec=is_spec1,
+                                    pdf_fwd=pdf1).where(valid, zeros_vert)
+        payload = replace(init_payload(world_pos, out_dir, hit_thp, seed), terminated=~valid)
 
-    def light_start(seed_l):
-        seed_l, l_origin, l_dir, l_intensity = sample_light(seed_l, light_rows, light_count)
-        path = [zeros_vert] * n_verts
-        path[0] = replace(zeros_vert, pos=l_origin, color=l_intensity,
-                          pdf_fwd=ones / float(light_count))
-        lp = replace(init_payload(l_origin, l_dir, l_intensity, seed_l), terminated=~valid)
-        return path, lp
+        def light_start(seed_l):
+            seed_l, l_origin, l_dir, l_intensity = sample_light(seed_l, light_rows, light_count)
+            path = [zeros_vert] * n_verts
+            path[0] = replace(zeros_vert, pos=l_origin, color=l_intensity,
+                              pdf_fwd=ones / float(light_count))
+            lp = replace(init_payload(l_origin, l_dir, l_intensity, seed_l), terminated=~valid)
+            return path, lp
 
-    take = [torch.ones(shape, dtype=torch.bool, device=dev)] * n_verts
-    if cfg.parallel_subpaths:
-        # the light subpath draws from its own stream (a salted frame id), so
-        # the two chains' extension traces merge into one [2, H, W] trace a
-        # depth (utils/config.BDPTConfig.parallel_subpaths)
-        light_path, lpayload = light_start(rng.pixel_seeds(
-            width, g_height, (int(frame_count) ^ 0x9E3779B9) & 0xFFFFFFFF, row0=row0,
-            sub_height=height, device=dev))
-        for depth in range(0, d_max):
-            do_cam = 1 <= depth <= d_max - 1
-            was_active_l = ~lpayload.terminated
-            if do_cam:
-                was_active_c = ~payload.terminated
-                merged = extend(_stack([payload, lpayload]))
-                payload, lpayload = _unstack(merged, 0), _unstack(merged, 1)
-                camera_path[depth + 1] = payload.vertex().where(was_active_c, zeros_vert)
-            else:
+        take = [torch.ones(shape, dtype=torch.bool, device=dev)] * n_verts
+        if cfg.parallel_subpaths:
+            # the light subpath draws from its own stream (a salted frame id), so
+            # the two chains' extension traces merge into one [2, H, W] trace a
+            # depth (utils/config.BDPTConfig.parallel_subpaths)
+            frame = frame_count if isinstance(frame_count, torch.Tensor) else int(frame_count)
+            light_path, lpayload = light_start(rng.pixel_seeds(
+                width, g_height, (frame ^ 0x9E3779B9) & 0xFFFFFFFF, row0=row0,
+                sub_height=height, device=dev))
+            for depth in range(0, d_max):
+                do_cam = 1 <= depth <= d_max - 1
+                was_active_l = ~lpayload.terminated
+                if do_cam:
+                    was_active_c = ~payload.terminated
+                    merged = extend(_stack([payload, lpayload]))
+                    payload, lpayload = _unstack(merged, 0), _unstack(merged, 1)
+                    camera_path[depth + 1] = payload.vertex().where(was_active_c, zeros_vert)
+                else:
+                    lpayload = extend(lpayload)
+                light_path[depth + 1] = lpayload.vertex().where(was_active_l, zeros_vert)
+                take[depth + 1] = torch.where(was_active_l, ~lpayload.terminated,
+                                              take[depth + 1])
+            seed = payload.seed
+        else:
+            for depth in range(1, d_max):
+                was_active = ~payload.terminated
+                payload = extend(payload)
+                camera_path[depth + 1] = payload.vertex().where(was_active, zeros_vert)
+            # ---------------- light subpath ----------------
+            light_path, lpayload = light_start(payload.seed)
+            for depth in range(0, d_max):
+                was_active = ~lpayload.terminated
                 lpayload = extend(lpayload)
-            light_path[depth + 1] = lpayload.vertex().where(was_active_l, zeros_vert)
-            take[depth + 1] = torch.where(was_active_l, ~lpayload.terminated, take[depth + 1])
-        seed = payload.seed
-    else:
-        for depth in range(1, d_max):
-            was_active = ~payload.terminated
-            payload = extend(payload)
-            camera_path[depth + 1] = payload.vertex().where(was_active, zeros_vert)
-        # ---------------- light subpath ----------------
-        light_path, lpayload = light_start(payload.seed)
-        for depth in range(0, d_max):
-            was_active = ~lpayload.terminated
-            lpayload = extend(lpayload)
-            light_path[depth + 1] = lpayload.vertex().where(was_active, zeros_vert)
-            take[depth + 1] = torch.where(was_active, ~lpayload.terminated, take[depth + 1])
-        seed = lpayload.seed
+                light_path[depth + 1] = lpayload.vertex().where(was_active, zeros_vert)
+                take[depth + 1] = torch.where(was_active, ~lpayload.terminated, take[depth + 1])
+            seed = lpayload.seed
 
     # ---------------- accumulate ----------------
     zero4 = torch.zeros(shape + (4,), dtype=torch.float32, device=dev)
@@ -410,45 +450,46 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
         e2_geom.append((dir_to_cam, torch.where(pre_ok, dis, torch.zeros_like(dis))))
         e2_pre.append((ix, iy, pre_ok))
 
-    # the est-1, est-3 and est-2 batches: origins, directions, interval ends
-    e1_batch = (torch.stack([camera_path[i + 1].pos for i in range(n_e1)]),
-                torch.stack([p[0] for p in e1_picks]),
-                torch.stack([p[1] for p in e1_picks])) if n_e1 else None
-    # est-3's interval ends min_t short of the far endpoint, which lies on
-    # the connected surface (PARITY.md)
-    e3_batch = (torch.stack([camera_path[s].pos for _, s, _ in e3_pairs]),
-                torch.stack([g[0] for g in e3_geom]),
-                torch.stack([g[1] for g in e3_geom]) - cfg.min_t) if e3_pairs else None
-    e2_batch = (torch.stack([light_path[i + 1].pos for i in range(n_e2)]),
-                torch.stack([g[0] for g in e2_geom]),
-                torch.stack([g[1] for g in e2_geom])) if n_e2 else None
-    batches = [b for b in (e1_batch, e3_batch, e2_batch) if b is not None]
-    if cfg.merge_shadow_batches and not cfg.reverse_shadows and batches:
-        # one any-hit query over the three families (the rays are the same)
-        o_all, d_all, t_all = (torch.cat(parts) for parts in zip(*batches))
-        vis_all = shadow_fn(o_all, d_all, cfg.min_t, t_all, coherent=False)
-        vis_b, e3_vis, e2_vis = (vis_all[:n_e1], vis_all[n_e1:n_e1 + len(e3_pairs)],
-                                 vis_all[n_e1 + len(e3_pairs):])
-    else:
-        if n_e1:
-            o1, l1, d1 = e1_batch
-            if cfg.reverse_shadows:
-                # from the light point towards the vertex over the same open
-                # segment (the light point is eval_light's pos + l * dist)
-                vis_b = shadow_fn(o1 + l1 * d1[..., None], -l1, 0.0, d1 - cfg.min_t,
-                                  coherent=not cfg.sort_shadows)
-            else:
-                vis_b = shadow_fn(o1, l1, cfg.min_t, d1, coherent=not cfg.sort_shadows)
-        if e3_pairs:
-            e3_vis = shadow_fn(*e3_batch[:2], cfg.min_t, e3_batch[2], coherent=False)
-        if n_e2:
-            o2, d2, dis2 = e2_batch
-            if cfg.reverse_shadows:
-                # from the camera towards the light vertex: one shared origin
-                e2_vis = shadow_fn(cam_pos.expand(d2.shape), -d2, 0.0, dis2 - cfg.min_t,
-                                   coherent=not cfg.sort_shadows, const_origin=True)
-            else:
-                e2_vis = shadow_fn(o2, d2, cfg.min_t, dis2, coherent=not cfg.sort_shadows)
+    with span("shadows"):
+        # the est-1, est-3 and est-2 batches: origins, directions, interval ends
+        e1_batch = (torch.stack([camera_path[i + 1].pos for i in range(n_e1)]),
+                    torch.stack([p[0] for p in e1_picks]),
+                    torch.stack([p[1] for p in e1_picks])) if n_e1 else None
+        # est-3's interval ends min_t short of the far endpoint, which lies on
+        # the connected surface (PARITY.md)
+        e3_batch = (torch.stack([camera_path[s].pos for _, s, _ in e3_pairs]),
+                    torch.stack([g[0] for g in e3_geom]),
+                    torch.stack([g[1] for g in e3_geom]) - cfg.min_t) if e3_pairs else None
+        e2_batch = (torch.stack([light_path[i + 1].pos for i in range(n_e2)]),
+                    torch.stack([g[0] for g in e2_geom]),
+                    torch.stack([g[1] for g in e2_geom])) if n_e2 else None
+        batches = [b for b in (e1_batch, e3_batch, e2_batch) if b is not None]
+        if cfg.merge_shadow_batches and not cfg.reverse_shadows and batches:
+            # one any-hit query over the three families (the rays are the same)
+            o_all, d_all, t_all = (torch.cat(parts) for parts in zip(*batches))
+            vis_all = shadow_fn(o_all, d_all, cfg.min_t, t_all, coherent=False)
+            vis_b, e3_vis, e2_vis = (vis_all[:n_e1], vis_all[n_e1:n_e1 + len(e3_pairs)],
+                                     vis_all[n_e1 + len(e3_pairs):])
+        else:
+            if n_e1:
+                o1, l1, d1 = e1_batch
+                if cfg.reverse_shadows:
+                    # from the light point towards the vertex over the same open
+                    # segment (the light point is eval_light's pos + l * dist)
+                    vis_b = shadow_fn(o1 + l1 * d1[..., None], -l1, 0.0, d1 - cfg.min_t,
+                                      coherent=not cfg.sort_shadows)
+                else:
+                    vis_b = shadow_fn(o1, l1, cfg.min_t, d1, coherent=not cfg.sort_shadows)
+            if e3_pairs:
+                e3_vis = shadow_fn(*e3_batch[:2], cfg.min_t, e3_batch[2], coherent=False)
+            if n_e2:
+                o2, d2, dis2 = e2_batch
+                if cfg.reverse_shadows:
+                    # from the camera towards the light vertex: one shared origin
+                    e2_vis = shadow_fn(cam_pos.expand(d2.shape), -d2, 0.0, dis2 - cfg.min_t,
+                                       coherent=not cfg.sort_shadows, const_origin=True)
+                else:
+                    e2_vis = shadow_fn(o2, d2, cfg.min_t, dis2, coherent=not cfg.sort_shadows)
 
     alpha1 = ones[..., None]
     # --- estimator 1: path tracing with NEE ---
@@ -493,20 +534,28 @@ def bdpt_pass(baked, intersect, channels: dict, frame_count, pixel_jitter, cfg: 
         e2_lin.append(torch.where(ok, iy * width + ix, n_pix).reshape(-1))
         e2_rgb.append(torch.where(ok[..., None], shade, torch.zeros_like(shade)).reshape(-1, 3))
         e2_a.append(ok.to(torch.float32).reshape(-1))
-    if e2_lin:
-        splat = splat_mod.scatter_add_rgba(
-            cfg.splat_mode, torch.cat(e2_lin).to(torch.int32), torch.cat(e2_rgb),
-            torch.cat(e2_a), n_pix, alpha_is_count=True,
-            segments=len(e2_lin) if cfg.splat_segments else 1, plain=baked.plain,
-        )
-        if mesh is not None:
-            # light subpaths of any shard splat onto any pixel: sum the
-            # full-height images over the ranks, keep this shard's rows
-            splat = mesh.all_reduce(splat)
-        splat = splat[row0 * width:(row0 + height) * width].reshape(height, width, 4)
-    else:
-        splat = torch.zeros((height, width, 4), dtype=torch.float32, device=dev)
     # background pixels wrote (env, 1) before any splat landed (BDPTMain:64)
     result = torch.where(valid[..., None], out, bg)
+    if not e2_lin:
+        return Estimates(result, None, None, None, 1, n_pix, row0)
+    return Estimates(result, torch.cat(e2_lin).to(torch.int32), torch.cat(e2_rgb),
+                     torch.cat(e2_a), len(e2_lin) if cfg.splat_segments else 1, n_pix, row0)
+
+
+def bdpt_splat(est: Estimates, cfg: BDPTConfig, plain: bool = False, mesh=None):
+    """Estimator 2's updates splatted onto `est.result` (`ops/splat`; the
+    plain K2 and K3 with `plain`): `bdpt_pass`'s image."""
+    result = est.result
+    height, width = result.shape[0], result.shape[1]
+    if est.pix is None:
+        return result
+    splat = splat_mod.scatter_add_rgba(cfg.splat_mode, est.pix, est.rgb, est.alpha, est.n_pix,
+                                       alpha_is_count=True, segments=est.segments, plain=plain)
+    if mesh is not None:
+        # light subpaths of any shard splat onto any pixel: sum the
+        # full-height images over the ranks, keep this shard's rows
+        splat = mesh.all_reduce(splat)
+    row0 = est.row0
+    splat = splat[row0 * width:(row0 + height) * width].reshape(height, width, 4)
     got_splat = (splat != 0.0).any(-1, keepdim=True)
     return torch.where(got_splat, saturate(result + splat), result)

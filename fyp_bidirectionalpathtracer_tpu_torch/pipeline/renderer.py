@@ -19,8 +19,10 @@ above 2048 triangles), run the per-bounce wavefront (JAX `renderer.py:
 91-117`): `ray_traced_gbuffer`, then `bdpt_pass`, every trace through the
 dense K4 intersectors or, above 2048 triangles, the BVH kernels, in the
 alpha restarts of `ops/alpha.py` where the scene has alpha-tested
-materials.  `Renderer.display` tone-maps with any of the 7 operators of
-`ops/tonemap.py`.  `Renderer.render_frame_profiled` is the same frame
+materials.  On the card, a `Renderer`'s whole-image wavefront frames run
+as CUDA graphs from its second such frame on (`pipeline/graphs.
+WavefrontGraphs`).  `Renderer.display` tone-maps with any of the 7
+operators of `ops/tonemap.py`.  `Renderer.render_frame_profiled` is the same frame
 with each pass timed by a `utils/profiler.Profiler` event; the camera,
 the display and the layers under the passes are `utils/profiler` spans;
 `set_camera_pose` moves the camera (the checkpoint's resume calls it);
@@ -45,15 +47,15 @@ import torch
 
 from ..accel.frame import render_frame_megakernel, supports_megakernel
 from ..ops import tonemap as tonemap_mod
-from ..ops.shading import make_shaded_tracer
 from ..passes.accumulate import AccumState, accumulate, camera_moved
 from ..passes.bdpt import bdpt_pass
 from ..passes.bmfr import BMFRState, bmfr_pass
-from ..passes.gbuffer import pixel_jitter_for_frame, ray_traced_gbuffer
+from ..passes.gbuffer import pixel_jitter_for_frame
 from ..scene.camera import begin_frame, derive_camera
 from ..scene.scene import BakedScene
 from ..utils.config import RenderConfig
 from ..utils.profiler import Profiler, span
+from . import graphs as graphs_mod
 
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
@@ -73,7 +75,7 @@ class RenderState:
 def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
                     gbuf_frame: int, bdpt_frame: int, reset: bool,
                     cfg: RenderConfig, prof: Profiler | None = None, mesh=None,
-                    megakernel: bool | None = None):
+                    megakernel: bool | None = None, graphs=None):
     """One full frame.  Returns (channels, accum, bmfr_state).  A bake with
     `plain=True` runs every kernel's plain version on its device.
 
@@ -81,7 +83,8 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
     channels, `accum` and `bmfr_state` are the rank's rows of the frame.
     `megakernel` forces the route (True: the frame megakernel, which the
     gate must admit; False: the wavefront); None routes by the config and
-    the gate.
+    the gate.  `graphs` (a `pipeline/graphs.WavefrontGraphs`) renders a
+    whole-image wavefront frame of a bake on the card through CUDA graphs.
 
     `prof`, an enabled `utils/profiler.Profiler`, times the frame a pass at
     a time (the RenderingPipeline ProfilerEvent-per-pass analogue,
@@ -108,19 +111,16 @@ def render_frame_fn(baked: BakedScene, camera, accum: AccumState, bmfr_state,
                     gbuf_frame=gbuf_frame, sub_height=sub_h, pixel_offset=row0 * cfg.width,
                     mesh=mesh)
                 h[0] = frame_img
+        elif graphs is not None and mesh is None and baked.device.type == "cuda" \
+                and not baked.plain:
+            channels, frame_img = graphs.frame(baked, camera, gbuf_frame, bdpt_frame, jitter,
+                                               cfg, prof)
+            channels["BDPT"] = frame_img
         else:
-            gcfg = cfg.gbuffer
-            intersect = scene.intersector()
-            trace = make_shaded_tracer(scene, sort_divergent=cfg.bdpt.sort_bounces,
-                                       bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
-            lens_radius = (gcfg.focal_length_gui / (2.0 * gcfg.f_stop)
-                           if gcfg.use_thin_lens else 0.0)
+            trace, intersect = graphs_mod.tracers(scene, cfg)
             with prof.event("gbuffer") as h:
-                channels = ray_traced_gbuffer(
-                    scene, trace, cfg.width, cfg.height, gbuf_frame, jitter,
-                    use_thin_lens=gcfg.use_thin_lens, lens_radius=lens_radius,
-                    focal_len=gcfg.focal_length_gui, row0=row0, sub_height=sub_h,
-                    env_bilinear=gcfg.env_bilinear)
+                channels = graphs_mod.gbuffer(scene, trace, cfg, gbuf_frame, jitter,
+                                              row0=row0, sub_height=sub_h)
                 h[0] = channels
             with prof.event("bdpt") as h:
                 frame_img = bdpt_pass(scene, intersect, channels, bdpt_frame, jitter, cfg.bdpt,
@@ -147,9 +147,11 @@ class Renderer:
     With `mesh` (a `parallel/sharding.RowMesh`; the bake on the rank's
     device), this rank's rows: the state, the channels and `render_frame`'s
     result are the rank's [H / ranks, W, 4] rows, and `display` gathers the
-    whole image (a collective: every rank calls it)."""
+    whole image (a collective: every rank calls it).  `graphs=False` keeps
+    the wavefront frames off CUDA graphs."""
 
-    def __init__(self, baked: BakedScene, config: RenderConfig, mesh=None):
+    def __init__(self, baked: BakedScene, config: RenderConfig, mesh=None,
+                 graphs: bool = True):
         self.baked = baked
         self.cfg = config
         self.mesh = mesh
@@ -159,7 +161,8 @@ class Renderer:
         dev = baked.device
         rows = config.height
         if mesh is None:
-            self._step = partial(render_frame_fn, cfg=config)
+            self._step = partial(render_frame_fn, cfg=config,
+                                 graphs=graphs_mod.WavefrontGraphs() if graphs else None)
         else:
             from ..parallel import sharding
 

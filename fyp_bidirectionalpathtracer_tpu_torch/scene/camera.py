@@ -131,8 +131,9 @@ def camera_ray_dirs(cam: CameraData, width: int, height: int, pixel_jitter, devi
     dev = cam.camera_w.device if device is None else torch.device(device)
     jit = torch.as_tensor(pixel_jitter, dtype=torch.float32)
     sub_h = height if sub_height is None else sub_height
-    xs = (torch.arange(width, dtype=torch.float32) + jit[0]) / width
-    ys = (torch.arange(sub_h, dtype=torch.float32) + float(row0) + jit[1]) / height
+    xs = (torch.arange(width, dtype=torch.float32, device=jit.device) + jit[0]) / width
+    ys = (torch.arange(sub_h, dtype=torch.float32, device=jit.device) + float(row0)
+          + jit[1]) / height
     ndc_x = (2.0 * xs - 1.0).to(dev)
     ndc_y = (-2.0 * ys + 1.0).to(dev)
     u, v, w = (c.to(dev) for c in (cam.camera_u, cam.camera_v, cam.camera_w))
@@ -146,17 +147,21 @@ def project_dir_to_pixel(cam: CameraData, d, dims, jitter):
     """World direction [..., 3] -> pixel ids (ix, iy) int32, unclamped, for
     the light-tracing splats (getLaunchIndexFromDirection,
     BDPTUtils.hlsli:129-138): project onto U/V/W, divide by the W
-    component, round(pixelCenter * dim - jitter) half to even."""
+    component, round(pixelCenter * dim - jitter) half to even.  The
+    camera's values stay scalar tensors, read by the device op where they
+    are host tensors and never read on the host where they are the
+    device's (a CUDA graph's inputs, `pipeline/graphs.py`): float32
+    either way, the same bits."""
     def vdot(b):
-        return d[..., 0] * float(b[0]) + d[..., 1] * float(b[1]) + d[..., 2] * float(b[2])
+        return d[..., 0] * b[0] + d[..., 1] * b[1] + d[..., 2] * b[2]
 
     def vdot3(v):
-        return float(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+        return v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
 
     d1 = vdot(cam.camera_u) / vdot3(cam.camera_u)
     d2 = vdot(cam.camera_v) / vdot3(cam.camera_v)
     d3 = vdot(cam.camera_w) / vdot3(cam.camera_w)
     jit = torch.as_tensor(jitter, dtype=torch.float32)
-    px = ((d1 / d3) * 0.5 + 0.5) * float(dims[0]) - float(jit[0])
-    py = ((-d2 / d3) * 0.5 + 0.5) * float(dims[1]) - float(jit[1])
+    px = ((d1 / d3) * 0.5 + 0.5) * float(dims[0]) - jit[0]
+    py = ((-d2 / d3) * 0.5 + 0.5) * float(dims[1]) - jit[1]
     return torch.round(px).to(torch.int32), torch.round(py).to(torch.int32)

@@ -21,6 +21,10 @@ the names of the spans open around it, outermost first
 With neither, `span` returns a shared do-nothing context: no
 `record_function` call, no allocation, no clock read.
 
+While a CUDA graph capture (`pipeline/graphs.py`) runs `splitting`, the
+span of a stage that it makes a graph of its own is the capture's split
+instead, and a replay opens the span around the stage's graph.
+
 An enabled Profiler's events, with `wait=True` (the default), wait for the
 device work of their outputs (`_force`) before their end time, so that
 work is attributed to the pass (attribution only: the waits serialise
@@ -33,7 +37,7 @@ module's: spans are opened and closed on one thread.
 from __future__ import annotations
 
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 import torch
@@ -41,6 +45,8 @@ import torch.autograd.profiler as _autograd_profiler
 
 _active = None   # the Profiler that spans report to, while one is active
 _path = []       # the names of the open spans, outermost first
+_split = None    # a CUDA graph capture's splitter, while one captures
+_stages = ()     # the span names it splits at
 _OFF = nullcontext()
 
 
@@ -68,9 +74,30 @@ def _force(sync) -> None:
 def span(name: str):
     """A context that marks a stretch of host code as the span `name`
     under the spans open around it (see the module doc)."""
+    if _split is not None and name in _stages:
+        return _split(name)
     if _active is None and not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, _active, None, False)
+
+
+def recording() -> bool:
+    """Whether a span would record: a Profiler active or torch.profiler on."""
+    return _active is not None or _autograd_profiler._is_profiler_enabled
+
+
+@contextmanager
+def splitting(split, stages):
+    """While open, `span(name)` of a name in `stages` returns `split(name)`:
+    a CUDA graph capture's context that ends the graph under way where it
+    opens and where it closes."""
+    global _split, _stages
+    outer = _split, _stages
+    _split, _stages = split, tuple(stages)
+    try:
+        yield
+    finally:
+        _split, _stages = outer
 
 
 class _OffEvent:

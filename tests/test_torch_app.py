@@ -200,9 +200,12 @@ def test_profiled_render_matches_fused(megakernel):
     for key in r1.channels:
         np.testing.assert_array_equal(r1.channels[key].numpy(), r2.channels[key].numpy(), key)
     # the passes' events, the spans under the megakernel (the CPU's splat
-    # mode 'direct' has none) and the camera's, outside the frame
+    # mode 'direct' has none) or under the wavefront's passes (its stages and
+    # each query; the dense tier sorts no batch), and the camera's, outside
+    # the frame
     stages = ({"megakernel", "megakernel/frame_args", "megakernel/k1"} if megakernel == "auto"
-              else {"gbuffer", "bdpt"})
+              else {"gbuffer", "gbuffer/trace", "bdpt", "bdpt/subpaths", "bdpt/subpaths/trace",
+                    "bdpt/shadows", "bdpt/shadows/trace"})
     assert set(prof.events) == {"camera", "frame"} | {f"frame/{s}" for s in
                                                       stages | {"accumulate", "bmfr"}}
     assert prof.as_dict()["frame"]["count"] == 2

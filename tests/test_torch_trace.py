@@ -259,6 +259,138 @@ def test_device_operations_leave_out_the_spans_ranges():
     assert frame_profile.device_operations(events) == [kernel, copy]
 
 
+# ------------------------------------------------------- the wavefront route
+# spans a wavefront frame makes on the BVH tier: the passes, the BDPT pass's
+# two stages, each query (`trace`) and each incoherent batch's sort
+WAVEFRONT_SPANS = {
+    "frame", "frame/gbuffer", "frame/gbuffer/trace", "frame/bdpt", "frame/bdpt/subpaths",
+    "frame/bdpt/subpaths/trace", "frame/bdpt/subpaths/trace/sort", "frame/bdpt/shadows",
+    "frame/bdpt/shadows/trace", "frame/bdpt/shadows/trace/sort", "frame/accumulate",
+    "frame/bmfr",
+}
+BVH_WRAPPERS = {"bvh_closest": "bvh_closest", "bvh_shaded_fm": "bvh_shaded",
+                "bvh_occluded": "bvh_occluded"}
+
+
+def _wavefront_renderer(width=16, height=12, device="cpu"):
+    """Cornell with a 5,120-triangle icosphere: above the megakernel gate's
+    2,048 triangles, so the frame takes the wavefront route and the BVH
+    tier (the plain versions of its kernels on the CPU)."""
+    from fyp_bidirectionalpathtracer_tpu_torch.models.procedural import icosphere
+
+    built = cornell_box()
+    built.meshes.append(icosphere((0.5, 0.35, 0.45), 0.2, 0, subdivisions=4))
+    cfg = RenderConfig(width=width, height=height)
+    baked = Scene.from_built(built, aspect=width / height).bake(device=device)
+    assert baked.n_tris > 2048
+    return Renderer(baked, cfg)
+
+
+def _spy_bvh_wrappers(monkeypatch, sizes):
+    """Record each BVH wrapper's batch size by kernel, then call it."""
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import cluster
+
+    for fn, kernel in BVH_WRAPPERS.items():
+        def spy(*args, _orig=getattr(cluster, fn), _kernel=kernel, **kw):
+            origin = kw["origin"] if "origin" in kw else args[
+                4 if _kernel == "bvh_shaded" else 3]
+            sizes[_kernel] += origin.numel() // 3
+            return _orig(*args, **kw)
+        monkeypatch.setattr(cluster, fn, spy)
+
+
+@pytest.mark.parametrize("recorder", ["profiler", "torch.profiler"])
+def test_a_wavefront_frame_records_its_spans(recorder):
+    """The BDPT pass's `subpaths` and `shadows`, each query's `trace` and
+    each incoherent batch's `sort`, as Profiler paths and as torch.profiler
+    ranges nested as their paths."""
+    r = _wavefront_renderer()
+    r.render_frame()
+    if recorder == "profiler":
+        prof = Profiler(enabled=True, wait=False)
+        with prof:
+            r.render_frame()
+        assert set(prof.events) == WAVEFRONT_SPANS | {"camera"}
+        d = prof.as_dict()
+        assert d["frame/bdpt/subpaths/trace"]["count"] == 6 - 1  # 2 camera + 3 light
+        assert d["frame/bdpt/shadows/trace"]["count"] == 3       # est-1, est-3, est-2
+        assert d["frame/gbuffer/trace"]["count"] == 1
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as traced:
+            r.render_frame()
+        ranges = {e.name: e for e in traced.events() if e.name in WAVEFRONT_SPANS}
+        assert set(ranges) == WAVEFRONT_SPANS
+        for path, e in ranges.items():
+            parent = e.cpu_parent.name if e.cpu_parent is not None else None
+            assert parent == ("/".join(path.split("/")[:-1]) or None), (path, parent)
+    assert profiler._active is None and profiler._path == []
+
+
+def test_rays_count_the_batches_handed_to_each_bvh_wrapper(monkeypatch):
+    """`cuda.RAYS` adds each BVH wrapper's batch on the host: over a frame it
+    equals the sizes the wrappers were handed, kernel by kernel, and the
+    BDPT algorithm's count at depth 3 (the G-buffer, 2 camera and 3 light
+    extensions, 3 + 4 + 3 shadow rays a pixel)."""
+    r = _wavefront_renderer()
+    sizes = dict.fromkeys(cuda.RAYS, 0)
+    _spy_bvh_wrappers(monkeypatch, sizes)
+    cuda.reset_launch_counts()
+    r.render_frame()
+    n = r.cfg.width * r.cfg.height
+    assert cuda.RAYS == sizes
+    assert cuda.RAYS == {"bvh_closest": 0, "bvh_shaded": 6 * n, "bvh_occluded": 10 * n}
+    assert sum(cuda.LAUNCHES.values()) == 0  # the CPU runs the plain versions
+
+
+def test_rays_reset_with_the_launch_counts():
+    cuda.RAYS["bvh_occluded"] = 5
+    cuda.LAUNCHES["bvh_occluded"] = 2
+    cuda.reset_launch_counts()
+    assert set(cuda.RAYS.values()) == {0} and cuda.LAUNCHES["bvh_occluded"] == 0
+
+
+def test_wavefront_spans_off_are_the_shared_context(monkeypatch):
+    """With no tracer a wavefront frame opens no range and each span is the
+    shared do-nothing context; traced, it renders the same bits and makes
+    the same host reads."""
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with tracing off")
+
+    opened = []
+    real_span = profiler.span
+
+    def spy(name):
+        ctx = real_span(name)
+        opened.append(ctx)
+        return ctx
+
+    r_off, r_on = _wavefront_renderer(), _wavefront_renderer()
+    from fyp_bidirectionalpathtracer_tpu_torch.accel import traverse
+    from fyp_bidirectionalpathtracer_tpu_torch.ops import shading
+    from fyp_bidirectionalpathtracer_tpu_torch.passes import bdpt
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", refuse)
+        mp.setattr(torch.autograd.profiler, "record_function", refuse)
+        for module in (bdpt, traverse, shading):
+            mp.setattr(module, "span", spy)
+        cuda.reset_launch_counts()
+        off = r_off.render_frame()
+        reads_off = cuda.READS["host_reads"]
+    assert len(opened) >= 2 + 1 + 5 + 3  # the stages, then a span a query at least
+    assert all(ctx is profiler._OFF for ctx in opened)
+    cuda.reset_launch_counts()
+    with Profiler(enabled=True, wait=False):
+        on = r_on.render_frame()
+    assert cuda.READS["host_reads"] == reads_off
+    np.testing.assert_array_equal(off.numpy(), on.numpy())
+    for key in r_off.channels:
+        np.testing.assert_array_equal(r_off.channels[key].numpy(),
+                                      r_on.channels[key].numpy(), key)
+
+
 # ------------------------------------------------------------------ the card
 @pytest.mark.cuda
 def test_a_progressive_frame_reads_the_device_once():
@@ -311,6 +443,28 @@ def test_an_interactive_frame_fits_bmfr_in_one_launch(monkeypatch):
         r.display()
         torch.cuda.synchronize()
         assert cuda.LAUNCHES["bmfr_fit"] == 1 and cuda.READS["host_reads"] == 1
+
+
+@pytest.mark.cuda
+def test_a_wavefront_frame_on_the_card_reads_the_device_once():
+    """A wavefront frame on the BVH tier on the card: one host read (the
+    splat's live count), a launch of the shaded kernel a closest query and
+    of the any-hit kernel a shadow batch, and `cuda.RAYS` the BDPT
+    algorithm's count, with the spans on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = _wavefront_renderer(128, 72, device="cuda")
+    r.render_frame()
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with Profiler(enabled=True, wait=False) as prof:
+        r.render_frame()
+    torch.cuda.synchronize()
+    n = 128 * 72
+    assert cuda.READS["host_reads"] == 1
+    assert cuda.LAUNCHES["bvh_shaded"] == 6 and cuda.LAUNCHES["bvh_occluded"] == 3
+    assert cuda.RAYS == {"bvh_closest": 0, "bvh_shaded": 6 * n, "bvh_occluded": 10 * n}
+    assert set(prof.events) >= WAVEFRONT_SPANS
 
 
 @contextlib.contextmanager
